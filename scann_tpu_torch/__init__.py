@@ -1,0 +1,36 @@
+"""scann_tpu_torch — the PyTorch and CUDA port of scann_tpu for one NVIDIA
+Hopper GPU (H100).
+
+It mirrors ``scann_tpu``'s module layout and names: each module sits where
+its JAX counterpart sits. Plain tensor code is PyTorch; every Pallas kernel
+of the JAX package on a ported path becomes a CUDA kernel in ``csrc/``,
+built with ``nvcc`` at first use, with a plain PyTorch twin beside it that
+CPU tensors take. The package never imports JAX.
+
+This slice serves the tree-x-AH search (partitions, residual PQ with packed
+int4 codes, exact re-rank) and builds its index.
+"""
+
+from scann_tpu_torch.data.dataset import DenseDataset
+from scann_tpu_torch.errors import ErrorCode, ScannError
+from scann_tpu_torch.hashes.hasher import AsymmetricHasherConfig
+from scann_tpu_torch.io import from_numpy_state, load_index
+from scann_tpu_torch.models.searcher import SearchParameters
+from scann_tpu_torch.models.tree_x_hybrid import (
+    TreeXHybridConfig,
+    TreeXHybridSearcher,
+)
+from scann_tpu_torch.ops.distances import DistanceMeasure
+
+__all__ = [
+    "AsymmetricHasherConfig",
+    "DenseDataset",
+    "DistanceMeasure",
+    "ErrorCode",
+    "ScannError",
+    "SearchParameters",
+    "TreeXHybridConfig",
+    "TreeXHybridSearcher",
+    "from_numpy_state",
+    "load_index",
+]

@@ -1,0 +1,119 @@
+"""Index loading (counterpart of the ``kind == "tree_ah"`` reader of
+``scann_tpu/io.py``).
+
+The file format is the JAX package's ``save_index`` npz: every array plus a
+JSON header (``__meta__``, uint8 bytes) with the config and index kind. This
+module reads it with numpy and ``json`` alone, so a tree-AH index built by
+either package serves through the port. Other index kinds wait for
+ROADMAP.md queue 1, item 9.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+from typing import Dict, Union
+
+import numpy as np
+import torch
+
+from scann_tpu_torch.data.dataset import DenseDataset
+from scann_tpu_torch.errors import ScannError
+from scann_tpu_torch.hashes.codebook import Codebook, CodebookConfig
+from scann_tpu_torch.hashes.hasher import AsymmetricHasherConfig
+from scann_tpu_torch.models.tree_x_hybrid import (
+    TreeXHybridConfig,
+    TreeXHybridSearcher,
+)
+from scann_tpu_torch.ops.distances import DistanceMeasure
+from scann_tpu_torch.partitioning.partitioner import DatabaseTokenization
+from scann_tpu_torch.partitioning.tree_partitioner import (
+    TreePartitioner,
+    TreePartitionerConfig,
+)
+
+_FORMAT_VERSION = 1
+
+
+def _hash_config(d: dict) -> AsymmetricHasherConfig:
+    """The saved hasher config's fields that tree-AH serving reads (the
+    JAX package's config has more: its hasher searcher's own)."""
+    fields = {f.name for f in dataclasses.fields(AsymmetricHasherConfig)}
+    return AsymmetricHasherConfig(**{k: v for k, v in d.items()
+                                     if k in fields})
+
+
+def from_numpy_state(arrays: Dict[str, np.ndarray], meta: dict,
+                     device: Union[str, torch.device] = "cpu"
+                     ) -> TreeXHybridSearcher:
+    """A port searcher on ``device`` from a tree-AH index's saved arrays
+    (data, centers, tokens, csr_offsets, csr_points, codes, codebook) and
+    its JSON header — the state ``scann_tpu.io.save_index`` writes."""
+    kind = meta.get("kind")
+    if kind != "tree_ah":
+        raise NotImplementedError(
+            f"loading index kind {kind!r} is not ported yet (ROADMAP.md "
+            f"queue 1, item 9: io)")
+    device = torch.device(device)
+    cfg = TreeXHybridConfig(
+        num_partitions=int(meta["num_partitions"]),
+        partitions_to_search=int(meta["partitions_to_search"]),
+        hash_config=_hash_config(meta["hash_config"]),
+        use_residuals=bool(meta["use_residuals"]),
+        pre_reorder_multiplier=float(meta["pre_reorder_multiplier"]),
+        distance_measure=DistanceMeasure(meta["measure"]),
+        rerank_dtype=meta.get("rerank_dtype", "float32"),
+        score_l_tile=int(meta.get("score_l_tile", 512)),
+        # files saved before the adaptive q_cap / packed slab existed lack
+        # these keys: they served with q_cap=8 and the unpacked slab
+        group_q_cap=(int(meta["group_q_cap"])
+                     if meta.get("group_q_cap") is not None
+                     else None if "group_q_cap" in meta else 8),
+        pack_codes=meta["pack_codes"] if "pack_codes" in meta else False,
+        rerank_layout=meta.get("rerank_layout"),
+    )
+    s = TreeXHybridSearcher(cfg, device=device)
+    s._dataset = DenseDataset(arrays["data"])
+
+    def t(name: str) -> torch.Tensor:
+        return torch.from_numpy(np.ascontiguousarray(arrays[name])).to(device)
+
+    tp = TreePartitioner(TreePartitionerConfig(
+        num_partitions=int(meta["num_partitions"])), device=device)
+    tp.centers = t("centers").float()
+    tp.tokenization = DatabaseTokenization.from_csr(
+        t("tokens"), t("csr_offsets"), t("csr_points"))
+    s.partitioner = tp
+    cb = Codebook(CodebookConfig(num_codes=arrays["codebook"].shape[1],
+                                 num_subspaces=arrays["codebook"].shape[0]),
+                  device=device)
+    cb.centroids = t("codebook").float()
+    s.codebook = cb
+    codes = t("codes").to(torch.uint8)
+    if not meta.get("assignment_codes", False):
+        # legacy per-point rows -> per-assignment CSR rows
+        codes = codes[tp.tokenization.point_indices]
+    s.codes = codes
+    return s
+
+
+def load_index(path: str, device: Union[str, torch.device] = "cpu"
+               ) -> TreeXHybridSearcher:
+    """Load a tree-AH index saved by ``scann_tpu.io.save_index``."""
+    with np.load(path, allow_pickle=False) as z:
+        meta = json.loads(bytes(z["__meta__"]).decode())
+        if meta.get("format_version") != _FORMAT_VERSION:
+            raise ScannError.failed_precondition(
+                f"unsupported index format {meta.get('format_version')}")
+        if "sharded_kind" in meta:
+            raise NotImplementedError(
+                "sharded serving layouts are not ported yet (ROADMAP.md "
+                "queue 1, item 11: multiple GPUs)")
+        if "kind" not in meta:
+            raise ScannError.failed_precondition(
+                "not a save_index file: missing index kind")
+        arrays = {k: z[k] for k in z.files if k != "__meta__"}
+    if meta.get("facade"):
+        raise NotImplementedError(
+            "the Scann facade is not ported yet (ROADMAP.md queue 1, item 9)")
+    return from_numpy_state(arrays, meta, device)

@@ -1,0 +1,65 @@
+"""Common searcher interface (counterpart of
+``scann_tpu/models/searcher.py``): search parameters, the epsilon ladder and
+query validation."""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import numpy as np
+
+from scann_tpu_torch.errors import ScannError
+
+
+@dataclasses.dataclass
+class SearchParameters:
+    """Per-query search knobs."""
+
+    num_neighbors: Optional[int] = None
+    pre_reordering_num_neighbors: Optional[int] = None
+    pre_reordering_epsilon: Optional[float] = None
+    post_reordering_epsilon: Optional[float] = None
+    num_leaves_to_search: Optional[int] = None
+
+
+def epsilons(params: Optional[SearchParameters]):
+    """(pre, post) per-query distance thresholds, inf when unset."""
+    pre = post = np.inf
+    if params is not None:
+        if params.pre_reordering_epsilon is not None:
+            pre = float(params.pre_reordering_epsilon)
+        if params.post_reordering_epsilon is not None:
+            post = float(params.post_reordering_epsilon)
+    return pre, post
+
+
+class Searcher:
+    """Base searcher: subclasses implement ``search_batched_arrays``."""
+
+    def dataset_size(self) -> int:
+        raise NotImplementedError
+
+    def dimensionality(self) -> int:
+        raise NotImplementedError
+
+    def search_batched_arrays(self, queries: np.ndarray, k: int,
+                              params: Optional[SearchParameters] = None):
+        """(indices [B, k] int32, distances [B, k] float32), ascending by
+        distance; index -1 for a missing result."""
+        raise NotImplementedError
+
+    def _validate_queries(self, queries: np.ndarray) -> np.ndarray:
+        queries = np.asarray(queries, dtype=np.float32)
+        if queries.ndim == 1:
+            queries = queries[None, :]
+        if queries.ndim != 2:
+            raise ScannError.invalid_argument(
+                f"queries must be [B, D], got {queries.shape}")
+        if queries.shape[1] != self.dimensionality():
+            raise ScannError.invalid_argument(
+                f"query dimensionality {queries.shape[1]} != dataset "
+                f"{self.dimensionality()}")
+        if self.dataset_size() == 0:
+            raise ScannError.failed_precondition("dataset is empty")
+        return queries
