@@ -1,20 +1,33 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``scann_tpu_torch``) on one GPU.
 
-Drives the port's main path once at GloVe-100 shape: builds a tree-x-AH
-index on the card over 1,183,514 x 100 seeded synthetic clustered vectors,
-checks the CUDA grouped leaf-scoring kernel against its plain PyTorch twin
-on the first batch's real inputs, serves 10 batches of 1024 queries through
-``TreeXHybridSearcher.search_batched_tensors`` and holds recall@10 against
-exact ground truth, then times the kernel, its twin and the search stages
+Drives the port's two serving paths once at GloVe-100 shape, over 1,183,514
+x 100 seeded synthetic clustered vectors and 10 batches of 1024 queries:
+
+- tree-x-AH: builds the index on the card, checks the CUDA grouped
+  leaf-scoring kernel against its plain PyTorch twin on the first batch's
+  real inputs, serves the batches through
+  ``TreeXHybridSearcher.search_batched_tensors`` and holds recall@10 against
+  exact ground truth;
+- block sweep: builds the bf16 augmented copy and the re-rank state on the
+  card (``BlockSweepConfig(block_r=64, pre_reorder_k=64)``, bench.py's
+  configuration), checks the four forms of the CUDA block-min kernel against
+  their twins on the first batch's real augmented queries and the full
+  augmented copy (with an allowlist penalty and int8 rows as well), serves
+  the batches through ``BlockSweepSearcher.search_batched_tensors`` (recall@10
+  >= 0.99), and drives the other three forms through the searcher: top2,
+  block_r=128 and block_r=512 at B=128;
+
+then times every kernel against its twin (L2 flushed) and the search stages
 with CUDA events.
 
     python3 chip_smoke.py
 
-Needs one CUDA device and ``nvcc`` (the kernel is built from
-``scann_tpu_torch/csrc`` at first use). Exits non-zero, printing no result,
-when there is no CUDA device or any phase fails. The line before the last
-is the kernels' JSON record; the last line is the device JSON.
+Needs one CUDA device and ``nvcc`` (the kernels are built from
+``scann_tpu_torch/csrc`` at first use, all sources at once). Exits non-zero,
+printing no result, when there is no CUDA device or any phase fails. The
+line before the last is the kernels' JSON record; the last line is the
+device JSON.
 """
 
 from __future__ import annotations
@@ -23,16 +36,29 @@ import json
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 N, D, CLUSTERS, SPREAD = 1_183_514, 100, 2000, 2.5
 BATCH, BATCHES, K = 1024, 10, 10
 P, PRE_K = 10, 100
 RECALL_FLOOR = 0.9
+SWEEP_R, SWEEP_PRE_K, SWEEP_RECALL_FLOOR = 64, 64, 0.99
 SEED = 0
+KERNEL_SOURCES = ("tree_ah_grouped", "block_min_sweep")
+# published H100 SXM peaks (dense): bf16 tensor cores, float32 outside the
+# tensor cores, HBM3
+PEAK_BF16, PEAK_F32, PEAK_HBM = 989e12, 67e12, 3.35e12
 
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def bound(ops: float, ops_peak: float, nbytes: float):
+    """(least ms for the work on the card, what bounds it)."""
+    t_ops, t_bytes = ops / ops_peak, nbytes / PEAK_HBM
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes
+                                       else "bytes")
 
 
 def main() -> int:
@@ -70,20 +96,23 @@ def main() -> int:
         f"{kind} x{torch.cuda.device_count()}; float32 matmul TF32 off")
     log(smi)
 
-    # -- 2. kernel build ---------------------------------------------------------
+    # -- 2. kernel build: one nvcc per source, all started together -------------
     t0 = time.perf_counter()
-    native.load("tree_ah_grouped")
+    with ThreadPoolExecutor(len(KERNEL_SOURCES)) as ex:
+        list(ex.map(native.load, KERNEL_SOURCES))
     build_kernel_s = time.perf_counter() - t0
-    if "tree_ah_grouped" in native.build_logs:
-        ptxas = [ln.split("ptxas info    :")[-1].strip() for ln in
-                 native.build_logs["tree_ah_grouped"].splitlines()
-                 if "registers" in ln]
-        log(f"[2 kernel build] nvcc built tree_ah_grouped.cu for sm_90a in "
-            f"{build_kernel_s:.2f}s; ptxas per instance: "
-            f"{' | '.join(ptxas)}")
-    else:
-        log(f"[2 kernel build] loaded the library already built from this "
-            f"source in {build_kernel_s:.2f}s")
+    for name in KERNEL_SOURCES:
+        if name in native.build_logs:
+            ptxas = [ln.split("ptxas info    :")[-1].strip() for ln in
+                     native.build_logs[name].splitlines()
+                     if "registers" in ln or "spill" in ln]
+            log(f"[2 kernel build] nvcc built {name}.cu for sm_90a; ptxas "
+                f"per instance: {' | '.join(ptxas)}")
+        else:
+            log(f"[2 kernel build] loaded the {name} library already built "
+                f"from this source")
+    log(f"[2 kernel build] {build_kernel_s:.2f}s for {len(KERNEL_SOURCES)} "
+        f"sources")
 
     # -- 3. data -----------------------------------------------------------------
     t0 = time.perf_counter()
@@ -180,15 +209,9 @@ def main() -> int:
         dd = (qb * qb).sum(1)[:, None] + x_sq[None, :] - 2.0 * (qb @ db_dev.T)
         gt.append(torch.topk(dd, K, dim=1, largest=False).indices)
     gt = torch.cat(gt)
-    recall = recall_at_k(idx.cpu().numpy(), gt.cpu().numpy(), K)
-    if tuple(idx.shape) != (BATCH * BATCHES, K) or bool((idx < 0).any()):
-        raise AssertionError(f"bad result ids: shape {tuple(idx.shape)}")
-    if not bool(torch.isfinite(dists).all()):
-        raise AssertionError("non-finite result distances")
-    if bool((dists[:, 1:] < dists[:, :-1]).any()):
-        raise AssertionError("result distances not ascending")
-    exact = ((queries[:, None, :] - db_dev[idx]) ** 2).sum(-1)
-    dist_err = float(((dists - exact).abs() / exact.clamp_min(1e-6)).max())
+    gt_np = gt.cpu().numpy()
+    recall = recall_at_k(idx.cpu().numpy(), gt_np, K)
+    dist_err = check_results(idx, dists, queries, db_dev, BATCH * BATCHES)
     log(f"[6 search] {BATCHES} x B={BATCH}, p={P}, pre_k={PRE_K}, k={K}: "
         f"recall@10 {recall:.4f} (floor {RECALL_FLOOR}), kernel launches "
         f"{launches}, returned vs recomputed distances max rel err "
@@ -197,8 +220,6 @@ def main() -> int:
         raise AssertionError(f"recall@10 {recall} < {RECALL_FLOOR}")
     if launches <= 0:
         raise AssertionError("the search never launched the CUDA kernel")
-    if dist_err > 1e-3:
-        raise AssertionError(f"returned distances off by {dist_err}")
 
     # -- 7. timings (CUDA events; for the record) ------------------------------------
     flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
@@ -218,16 +239,28 @@ def main() -> int:
             total += a.elapsed_time(b)
         return total / reps
 
-    # plain, kernel, kernel, plain
-    plain_ms = cold_ms(lambda: tag.tree_ah_grouped_scores_reference(
-        *kargs, **kkw), 5)
-    kernel_ms = cold_ms(lambda: tag.tree_ah_grouped_scores(*kargs, **kkw), 20)
-    kernel_ms = (kernel_ms + cold_ms(
-        lambda: tag.tree_ah_grouped_scores(*kargs, **kkw), 20)) / 2
-    plain_ms = (plain_ms + cold_ms(lambda: tag.tree_ah_grouped_scores_reference(
-        *kargs, **kkw), 5)) / 2
+    def turns(kernel, plain, k_reps=20, p_reps=5):
+        """(kernel ms, plain ms) timed plain, kernel, kernel, plain."""
+        p1 = cold_ms(plain, p_reps)
+        k1 = cold_ms(kernel, k_reps)
+        k2 = cold_ms(kernel, k_reps)
+        return (k1 + k2) / 2, (p1 + cold_ms(plain, p_reps)) / 2
+
+    kernel_ms, plain_ms = turns(
+        lambda: tag.tree_ah_grouped_scores(*kargs, **kkw),
+        lambda: tag.tree_ah_grouped_scores_reference(*kargs, **kkw))
+    # bound on this batch's inputs: LUT rows, the probed partitions' code
+    # columns, offsets and sizes read once, the whole output written once;
+    # one float32 add per table entry per valid column and query
+    probed = torch.unique(parts)
+    tree_bytes = (luts_g.numel() * 2 + int(part_sizes[probed].sum())
+                  * codes_csr.shape[0] + n_groups * 8 + got.numel() * 2)
+    tree_ops = int(grp_size.sum()) * q_cap * s_pad
+    tree_bound, tree_by = bound(tree_ops, PEAK_F32, tree_bytes)
     log(f"[7 kernel time] grouped leaf scorer, L2 flushed: kernel "
-        f"{kernel_ms:.4f} ms, plain twin {plain_ms:.4f} ms ({smi})")
+        f"{kernel_ms:.4f} ms, plain twin {plain_ms:.4f} ms, bound "
+        f"{tree_bound:.4f} ms, bound by {tree_by} ({tree_bytes} bytes, "
+        f"{tree_ops} float32 adds) ({smi})")
 
     def staged(qb, score_fn):
         ev = [torch.cuda.Event(enable_timing=True) for _ in range(6)]
@@ -252,34 +285,22 @@ def main() -> int:
         return [ev[i].elapsed_time(ev[i + 1]) for i in range(5)]
 
     names = ("select", "lut", "group", "leaf", "finalize")
-    split = {}
     for label, fn in (("kernel", tag.tree_ah_grouped_scores),
                       ("plain", tag.tree_ah_grouped_scores_reference)):
         staged(q0, fn)
         rows = np.array([staged(queries[i * BATCH:(i + 1) * BATCH], fn)
                          for i in range(BATCHES)])
-        split[label] = dict(zip(names, rows.mean(0).tolist()))
+        split = dict(zip(names, rows.mean(0).tolist()))
         log(f"[7 stages/{label}] per batch ms: " + ", ".join(
-            f"{n} {v:.4f}" for n, v in split[label].items())
+            f"{n} {v:.4f}" for n, v in split.items())
             + f", sum {rows.sum(1).mean():.4f}")
-    e2e = []
-    for rep in range(3):
-        for i in range(BATCHES):
-            a = torch.cuda.Event(enable_timing=True)
-            b = torch.cuda.Event(enable_timing=True)
-            qb = queries[i * BATCH:(i + 1) * BATCH]
-            a.record()
-            searcher.search_batched_tensors(qb, K, params)
-            b.record()
-            torch.cuda.synchronize()
-            e2e.append(a.elapsed_time(b))
-    med = float(np.median(e2e))
-    log(f"[7 search time] search_batched_tensors, B={BATCH}, n={len(e2e)} "
-        f"batches: median {med:.4f} ms, max {float(np.max(e2e)):.4f} ms -> "
+    med, top = event_ms(lambda qb: searcher.search_batched_tensors(
+        qb, K, params), queries, BATCH, BATCHES)
+    log(f"[7 search time] search_batched_tensors, B={BATCH}, n={3 * BATCHES} "
+        f"batches: median {med:.4f} ms, max {top:.4f} ms -> "
         f"{BATCH / med * 1e3:.0f} queries/s at recall@10 {recall:.4f} "
         f"({smi})")
-
-    print(json.dumps({"kernels": [{
+    records = [{
         "name": "tree_ah_grouped",
         "route": "cuda",
         "source": "scann_tpu_torch/csrc/tree_ah_grouped.cu",
@@ -288,11 +309,262 @@ def main() -> int:
         "max_abs_err": max_abs_err,
         "ms": kernel_ms,
         "plain_ms": plain_ms,
-    }]}), flush=True)
+        "bound_ms": tree_bound,
+        "bound_by": tree_by,
+        "library_ms": None,
+    }]
+
+    records += block_sweep_phases(ds, queries, db_dev, gt_np, cold_ms, turns,
+                                  smi)
+    print(json.dumps({"kernels": records}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)
     return 0
+
+
+def check_results(idx, dists, queries, db_dev, rows):
+    """Shape, ids >= 0, finite ascending distances that equal recomputed
+    exact squared-L2 distances to 1e-3 relative."""
+    import torch
+
+    if tuple(idx.shape) != (rows, K) or bool((idx < 0).any()):
+        raise AssertionError(f"bad result ids: shape {tuple(idx.shape)}")
+    if not bool(torch.isfinite(dists).all()):
+        raise AssertionError("non-finite result distances")
+    if bool((dists[:, 1:] < dists[:, :-1]).any()):
+        raise AssertionError("result distances not ascending")
+    exact = ((queries[:rows, None, :] - db_dev[idx]) ** 2).sum(-1)
+    err = float(((dists - exact).abs() / exact.clamp_min(1e-6)).max())
+    if err > 1e-3:
+        raise AssertionError(f"returned distances off by {err} (relative)")
+    return err
+
+
+def event_ms(search, queries, batch, batches, reps=3):
+    """(median, max) CUDA-event ms of ``search`` over reps x batches."""
+    import numpy as np
+    import torch
+
+    times = []
+    for _ in range(reps):
+        for i in range(batches):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            qb = queries[i * batch:(i + 1) * batch]
+            a.record()
+            search(qb)
+            b.record()
+            torch.cuda.synchronize()
+            times.append(a.elapsed_time(b))
+    return float(np.median(times)), float(np.max(times))
+
+
+def block_sweep_phases(ds, queries, db_dev, gt_np, cold_ms, turns, smi):
+    """Phases 8-11, the block sweep; returns the kernels' JSON records."""
+    import numpy as np
+    import torch
+
+    from scann_tpu_torch import BlockSweepConfig, BlockSweepSearcher
+    from scann_tpu_torch.ops import sweep as sw
+    from scann_tpu_torch.ops.distances import DistanceMeasure
+    from scann_tpu_torch.utils.benchmarking import recall_at_k
+
+    dev = queries.device
+    measure = DistanceMeasure.SQUARED_L2
+
+    # -- 8. build: augmented copy + stored-order re-rank rows on the card --------
+    def build(**kw):
+        s = BlockSweepSearcher(ds, BlockSweepConfig(
+            pre_reorder_k=SWEEP_PRE_K, **kw), device=dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        aug, rows, _ = s.device_state()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        log(f"[8 sweep build] {kw}: {secs:.2f}s, aug {list(aug.shape)} "
+            f"{aug.dtype} {aug.numel() * aug.element_size()} bytes, re-rank "
+            f"rows {list(rows.shape)} {rows.numel() * 4} bytes, inverse "
+            f"permutation {s._inv_perm.numel() * 8} bytes, memory_usage "
+            f"{s.memory_usage()}")
+        return s
+
+    main_s = build(block_r=SWEEP_R)
+    top2_s = build(block_r=SWEEP_R, top2=True)
+    r128_s = build(block_r=128)
+    r512_s = build(block_r=512)
+    aug64, rows64, _ = main_s.device_state()
+    n_pad, d1 = aug64.shape
+
+    # -- 9. each kernel form against its twin on real inputs -------------------------
+    q0 = queries[:BATCH]
+    q_aug, _ = sw.augment_for_sweep(q0, aug64, measure)
+    errs = {}
+
+    def check(name, form, got, q, aug, r, pen=None, label=""):
+        torch.cuda.synchronize()
+        rep = sw.check_against_twin(form, got, q, aug, r=r, penalty=pen)
+        errs[name] = max(errs.get(name, 0.0), rep["max_abs_err"])
+        log(f"[9 kernel check] {name}{label}: B={q.shape[0]}, r={r}, "
+            f"{aug.dtype} rows {list(aug.shape)}: max abs err "
+            f"{rep['max_abs_err']:.6g} (tolerance 1e-5 * sum|terms| + 1e-5; "
+            f"compact 1 bf16 ulp, max {rep['max_ulp']}, {rep['ulp_over_1']} "
+            f"values past 1 ulp near 0 within tolerance), offsets "
+            f"bit-identical {rep['loc_equal']:.6f} of {rep['checked']}, the "
+            f"rest reach the twin's minimum within tolerance")
+
+    aug128 = r128_s.device_state()[0]
+    aug512 = r512_s.device_state()[0]
+    q_top2 = q_aug[:BATCH // 2]
+    q_512 = q_aug[:128]
+    check("block_min_qmajor_compact", "compact",
+          sw.block_min_sweep_qmajor(q_aug, aug64, r=SWEEP_R, compact=True),
+          q_aug, aug64, SWEEP_R)
+    check("block_min", "rowmajor", sw.block_min_sweep(q_aug, aug128, r=128),
+          q_aug, aug128, 128)
+    check("block_min_qmajor", "qmajor",
+          sw.block_min_sweep_qmajor(q_512, aug512, r=512), q_512, aug512, 512)
+    check("block_min2", "top2", sw.block_min2_sweep(q_top2, aug64, r=SWEEP_R),
+          q_top2, aug64, SWEEP_R)
+    # the allowlist penalty (half the ids allowed) and the int8 layout
+    allow = np.random.default_rng(SEED + 1).random(ds.size) < 0.5
+    pen64 = main_s._allow_penalty(allow, n_pad).to(dev)
+    pen128 = r128_s._allow_penalty(allow, aug128.shape[0]).to(dev)
+    check("block_min", "rowmajor",
+          sw.block_min_sweep(q_aug, aug128, r=128, penalty=pen128), q_aug,
+          aug128, 128, pen128, " + penalty")
+    check("block_min2", "top2",
+          sw.block_min2_sweep(q_top2, aug64, r=SWEEP_R, penalty=pen64),
+          q_top2, aug64, SWEEP_R, pen64, " + penalty")
+    codes, scales, sn = sw.build_int8_augmented_db(
+        ds.numpy(), ds.size, measure, tile_n=n_pad,
+        shuffle_stride=sw.shuffle_stride_for(ds.size))
+    aug8 = codes.to(dev)
+    q_aug8, _ = sw.augment_for_sweep(q0, aug8, measure, scales.to(dev), sn)
+    pen8 = sw.build_allow_penalty(
+        allow, n_pad, SWEEP_R, inv_perm=main_s._inv_host,
+        mask_value=4.0 * sw.INT8_NORM_DIGIT_MAX * sn).to(dev)
+    check("block_min_qmajor_compact", "compact",
+          sw.block_min_sweep_qmajor(q_aug8, aug8, r=SWEEP_R, compact=True,
+                                    penalty=pen8),
+          q_aug8, aug8, SWEEP_R, pen8, " + int8 rows + penalty")
+
+    # -- 10. search: each path counted from zero ------------------------------------
+    launches = {}
+
+    def run(s, qs, batch, kernel, label, floor=None):
+        sw.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = [s.search_batched_tensors(qs[i:i + batch], K)
+               for i in range(0, len(qs), batch)]
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = dict(sw.LAUNCHES)
+        launches[kernel] = counts[kernel]
+        idx = torch.cat([x[0] for x in res])
+        dists = torch.cat([x[1] for x in res])
+        err = check_results(idx, dists, qs, db_dev, len(qs))
+        recall = recall_at_k(idx.cpu().numpy(), gt_np[:len(qs)], K)
+        log(f"[10 sweep search/{label}] {len(qs)} queries in calls of "
+            f"{batch}: recall@10 {recall:.4f}"
+            + (f" (floor {floor})" if floor else "")
+            + f", launches {counts}, returned vs recomputed distances max "
+            f"rel err {err:.3g}, host wall {wall:.3f}s")
+        if counts[kernel] <= 0:
+            raise AssertionError(f"{label}: {kernel} was never launched")
+        if floor is not None and recall < floor:
+            raise AssertionError(f"{label}: recall@10 {recall} < {floor}")
+        return recall
+
+    recall = run(main_s, queries, BATCH, "block_min_qmajor_compact",
+                 "main r=64", SWEEP_RECALL_FLOOR)
+    run(top2_s, queries[:BATCH], BATCH, "block_min2", "top2 r=64")
+    run(r128_s, queries[:BATCH], BATCH, "block_min", "r=128")
+    run(r512_s, queries[:128], 128, "block_min_qmajor", "r=512 B=128")
+
+    # -- 11. timings -----------------------------------------------------------------
+    forms = [  # name, source line, kernel, twin, (B, rows, r, out bytes)
+        ("block_min", 247,
+         lambda: sw.block_min_sweep(q_aug, aug128, r=128),
+         lambda: sw.block_min_sweep_reference(q_aug, aug128, r=128),
+         (BATCH, aug128, 128, 8)),
+        ("block_min_qmajor", 270,
+         lambda: sw.block_min_sweep_qmajor(q_512, aug512, r=512),
+         lambda: sw.block_min_sweep_qmajor_reference(q_512, aug512, r=512),
+         (128, aug512, 512, 8)),
+        ("block_min_qmajor_compact", 300,
+         lambda: sw.block_min_sweep_qmajor(q_aug, aug64, r=SWEEP_R,
+                                           compact=True),
+         lambda: sw.block_min_sweep_qmajor_reference(q_aug, aug64, r=SWEEP_R,
+                                                     compact=True),
+         (BATCH, aug64, SWEEP_R, 3)),
+        ("block_min2", 395,
+         lambda: sw.block_min2_sweep(q_top2, aug64, r=SWEEP_R),
+         lambda: sw.block_min2_sweep_reference(q_top2, aug64, r=SWEEP_R),
+         (BATCH // 2, aug64, SWEEP_R, 16)),
+    ]
+    records = []
+    for name, line, kernel, plain, (b, aug, r, out_b) in forms:
+        k_ms, p_ms = turns(kernel, plain, 20, 3)
+        n_rows, width = aug.shape
+        ops = 2 * b * width * n_rows
+        nbytes = (aug.numel() * aug.element_size() + b * width * 2
+                  + (n_rows // r) * b * out_b)
+        b_ms, b_by = bound(ops, PEAK_BF16, nbytes)
+        log(f"[11 kernel time] {name}: B={b}, r={r}, rows {n_rows}, L2 "
+            f"flushed: kernel {k_ms:.4f} ms, plain twin {p_ms:.4f} ms, bound "
+            f"{b_ms:.4f} ms, bound by {b_by} ({ops} bf16 FLOP, {nbytes} "
+            f"bytes) -> "
+            f"{ops / k_ms / 1e9:.1f} TFLOP/s, {b_ms / k_ms:.3f} of the bound "
+            f"({smi})")
+        records.append({
+            "name": name, "route": "cuda",
+            "source": "scann_tpu_torch/csrc/block_min_sweep.cu",
+            "replaces": f"scann_tpu/ops/sweep_pallas.py:{line}",
+            "launches": launches[name], "max_abs_err": errs[name],
+            "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms,
+            "bound_by": b_by, "library_ms": None})
+    mm_ms = cold_ms(lambda: torch.matmul(aug64, q_aug.T), 10)
+    log(f"[11 aside] torch.matmul(db_aug, q_aug.T) bf16 [{n_pad}, {BATCH}] "
+        f"at the main shapes: {mm_ms:.4f} ms (product only, not the same "
+        f"function; the port never calls it) ({smi})")
+
+    aug, rows, _ = main_s.device_state()
+    inv = main_s._inv_perm
+    inf = float("inf")
+
+    def staged(qb):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(6)]
+        ev[0].record()
+        qa, cut = sw.augment_for_sweep(qb, aug, measure)
+        ev[1].record()
+        form, outs = sw.block_minima(qa, aug, r=SWEEP_R)
+        ev[2].record()
+        pv, cand = sw.candidates_from_minima(form, outs, pre_k=SWEEP_PRE_K,
+                                             r=SWEEP_R)
+        ev[3].record()
+        exact = sw.rerank_candidates(rows, qb, pv, cand, measure, inf, cut)
+        ev[4].record()
+        sw.finalize_results(exact, cand, K, inf, inv)
+        ev[5].record()
+        torch.cuda.synchronize()
+        return [ev[i].elapsed_time(ev[i + 1]) for i in range(5)]
+
+    staged(q0)
+    split = np.array([staged(queries[i * BATCH:(i + 1) * BATCH])
+                      for i in range(BATCHES)])
+    log("[11 sweep stages] per batch ms: " + ", ".join(
+        f"{n} {v:.4f}" for n, v in zip(
+            ("augment", "sweep", "select", "gather+rerank", "finalize"),
+            split.mean(0))) + f", sum {split.sum(1).mean():.4f} ({smi})")
+    med, top = event_ms(lambda qb: main_s.search_batched_tensors(qb, K),
+                        queries, BATCH, BATCHES)
+    log(f"[11 sweep search time] search_batched_tensors, r={SWEEP_R}, "
+        f"pre_k={SWEEP_PRE_K}, B={BATCH}, n={3 * BATCHES} batches: median "
+        f"{med:.4f} ms, max {top:.4f} ms -> {BATCH / med * 1e3:.0f} "
+        f"queries/s at recall@10 {recall:.4f} ({smi})")
+    return records
 
 
 if __name__ == "__main__":

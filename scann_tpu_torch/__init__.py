@@ -7,14 +7,20 @@ of the JAX package on a ported path becomes a CUDA kernel in ``csrc/``,
 built with ``nvcc`` at first use, with a plain PyTorch twin beside it that
 CPU tensors take. The package never imports JAX.
 
-This slice serves the tree-x-AH search (partitions, residual PQ with packed
-int4 codes, exact re-rank) and builds its index.
+Entry points run on the current CUDA device unless the caller names another
+device (``device="cpu"``). The port serves the tree-x-AH search (partitions,
+residual PQ with packed int4 codes, exact re-rank) and builds its index, and
+the block-sweep search (bf16 block-min sweep, exact re-rank).
 """
 
 from scann_tpu_torch.data.dataset import DenseDataset
 from scann_tpu_torch.errors import ErrorCode, ScannError
 from scann_tpu_torch.hashes.hasher import AsymmetricHasherConfig
 from scann_tpu_torch.io import from_numpy_state, load_index
+from scann_tpu_torch.models.block_sweep import (
+    BlockSweepConfig,
+    BlockSweepSearcher,
+)
 from scann_tpu_torch.models.searcher import SearchParameters
 from scann_tpu_torch.models.tree_x_hybrid import (
     TreeXHybridConfig,
@@ -24,6 +30,8 @@ from scann_tpu_torch.ops.distances import DistanceMeasure
 
 __all__ = [
     "AsymmetricHasherConfig",
+    "BlockSweepConfig",
+    "BlockSweepSearcher",
     "DenseDataset",
     "DistanceMeasure",
     "ErrorCode",

@@ -15,6 +15,7 @@ import torch
 
 from scann_tpu_torch.errors import ScannError
 from scann_tpu_torch.trees.kmeans import KMeans, KMeansConfig, KMeansInit
+from scann_tpu_torch.types import DEFAULT_DEVICE, require_device
 
 
 @dataclasses.dataclass
@@ -58,7 +59,7 @@ class Codebook:
     """[S, C, d_sub] PQ codebook trained and applied on ``device``."""
 
     def __init__(self, config: Optional[CodebookConfig] = None,
-                 device: Union[str, torch.device] = "cpu"):
+                 device: Union[str, torch.device] = DEFAULT_DEVICE):
         self.config = config or CodebookConfig()
         self.device = torch.device(device)
         self.centroids: Optional[torch.Tensor] = None   # [S, C, d_sub]
@@ -69,7 +70,8 @@ class Codebook:
             raise NotImplementedError(
                 "anisotropic (AVQ) codebook training is not ported yet "
                 "(ROADMAP.md queue 1, item 3: AVQ)")
-        x = torch.as_tensor(data, dtype=torch.float32, device=self.device)
+        x = torch.as_tensor(data, dtype=torch.float32,
+                            device=require_device(self.device))
         if x.shape[0] == 0:
             raise ScannError.invalid_argument("Cannot train on empty dataset")
         n, d = x.shape

@@ -1,11 +1,11 @@
-"""Index loading (counterpart of the ``kind == "tree_ah"`` reader of
-``scann_tpu/io.py``).
+"""Index loading (counterpart of the ``kind == "tree_ah"`` and
+``kind == "block_sweep"`` readers of ``scann_tpu/io.py``).
 
 The file format is the JAX package's ``save_index`` npz: every array plus a
 JSON header (``__meta__``, uint8 bytes) with the config and index kind. This
-module reads it with numpy and ``json`` alone, so a tree-AH index built by
-either package serves through the port. Other index kinds wait for
-ROADMAP.md queue 1, item 9.
+module reads it with numpy and ``json`` alone, so a tree-AH or block-sweep
+index saved by the JAX package serves through the port. Other index kinds
+wait for ROADMAP.md queue 1, item 9.
 """
 
 from __future__ import annotations
@@ -21,6 +21,10 @@ from scann_tpu_torch.data.dataset import DenseDataset
 from scann_tpu_torch.errors import ScannError
 from scann_tpu_torch.hashes.codebook import Codebook, CodebookConfig
 from scann_tpu_torch.hashes.hasher import AsymmetricHasherConfig
+from scann_tpu_torch.models.block_sweep import (
+    BlockSweepConfig,
+    BlockSweepSearcher,
+)
 from scann_tpu_torch.models.tree_x_hybrid import (
     TreeXHybridConfig,
     TreeXHybridSearcher,
@@ -31,6 +35,7 @@ from scann_tpu_torch.partitioning.tree_partitioner import (
     TreePartitioner,
     TreePartitionerConfig,
 )
+from scann_tpu_torch.types import DEFAULT_DEVICE, require_device
 
 _FORMAT_VERSION = 1
 
@@ -43,18 +48,35 @@ def _hash_config(d: dict) -> AsymmetricHasherConfig:
                                      if k in fields})
 
 
+def _block_sweep(arrays: Dict[str, np.ndarray], meta: dict,
+                 device: torch.device) -> BlockSweepSearcher:
+    """The JAX package's ``kind == "block_sweep"`` reader: the data and the
+    config; the sweep copy is rebuilt from them on first search."""
+    return BlockSweepSearcher(DenseDataset(arrays["data"]), BlockSweepConfig(
+        distance_measure=DistanceMeasure(meta["measure"]),
+        pre_reorder_k=int(meta["pre_reorder_k"]),
+        block_r=int(meta["block_r"]), tile_n=int(meta["tile_n"]),
+        max_batch=int(meta["max_batch"]), top2=bool(meta["top2"]),
+        shuffle=bool(meta.get("shuffle", True)),
+        rerank_dtype=str(meta.get("rerank_dtype", "float32")),
+        sweep_dtype=str(meta.get("sweep_dtype", "bfloat16"))), device=device)
+
+
 def from_numpy_state(arrays: Dict[str, np.ndarray], meta: dict,
-                     device: Union[str, torch.device] = "cpu"
-                     ) -> TreeXHybridSearcher:
-    """A port searcher on ``device`` from a tree-AH index's saved arrays
-    (data, centers, tokens, csr_offsets, csr_points, codes, codebook) and
-    its JSON header — the state ``scann_tpu.io.save_index`` writes."""
+                     device: Union[str, torch.device] = DEFAULT_DEVICE):
+    """A port searcher on ``device`` (the current CUDA device by default)
+    from a saved index's arrays and its JSON header — the state
+    ``scann_tpu.io.save_index`` writes: a tree-AH index (data, centers,
+    tokens, csr_offsets, csr_points, codes, codebook) or a block-sweep
+    index (data)."""
     kind = meta.get("kind")
-    if kind != "tree_ah":
+    if kind not in ("tree_ah", "block_sweep"):
         raise NotImplementedError(
             f"loading index kind {kind!r} is not ported yet (ROADMAP.md "
             f"queue 1, item 9: io)")
-    device = torch.device(device)
+    device = require_device(device)
+    if kind == "block_sweep":
+        return _block_sweep(arrays, meta, device)
     cfg = TreeXHybridConfig(
         num_partitions=int(meta["num_partitions"]),
         partitions_to_search=int(meta["partitions_to_search"]),
@@ -97,9 +119,10 @@ def from_numpy_state(arrays: Dict[str, np.ndarray], meta: dict,
     return s
 
 
-def load_index(path: str, device: Union[str, torch.device] = "cpu"
-               ) -> TreeXHybridSearcher:
-    """Load a tree-AH index saved by ``scann_tpu.io.save_index``."""
+def load_index(path: str, device: Union[str, torch.device] = DEFAULT_DEVICE):
+    """Load a tree-AH or block-sweep index saved by
+    ``scann_tpu.io.save_index`` onto ``device`` (the current CUDA device by
+    default)."""
     with np.load(path, allow_pickle=False) as z:
         meta = json.loads(bytes(z["__meta__"]).decode())
         if meta.get("format_version") != _FORMAT_VERSION:

@@ -1,6 +1,6 @@
 """Common searcher interface (counterpart of
-``scann_tpu/models/searcher.py``): search parameters, the epsilon ladder and
-query validation."""
+``scann_tpu/models/searcher.py``): search parameters, the epsilon ladder,
+query validation and result padding."""
 
 from __future__ import annotations
 
@@ -8,6 +8,7 @@ import dataclasses
 from typing import Optional
 
 import numpy as np
+import torch
 
 from scann_tpu_torch.errors import ScannError
 
@@ -32,6 +33,22 @@ def epsilons(params: Optional[SearchParameters]):
         if params.post_reordering_epsilon is not None:
             post = float(params.post_reordering_epsilon)
     return pre, post
+
+
+def pad_results_to_k(idx: torch.Tensor, dists: torch.Tensor, k: int):
+    """Pad [B, w] result tensors out to the [B, k] contract with (-1, inf)
+    slots when a searcher's candidate ceiling makes w < k (one survivor per
+    r-block in the block sweep)."""
+    w = idx.shape[1]
+    if w >= k:
+        return idx, dists
+    b = idx.shape[0]
+    pi = torch.full((b, k), -1, dtype=idx.dtype, device=idx.device)
+    pd = torch.full((b, k), float("inf"), dtype=dists.dtype,
+                    device=dists.device)
+    pi[:, :w] = idx
+    pd[:, :w] = dists
+    return pi, pd
 
 
 class Searcher:

@@ -52,7 +52,12 @@ from scann_tpu_torch.partitioning.tree_partitioner import (
     TreePartitionerConfig,
     check_flat_partitioning,
 )
-from scann_tpu_torch.types import MASKED_DISTANCE, align_up
+from scann_tpu_torch.types import (
+    DEFAULT_DEVICE,
+    MASKED_DISTANCE,
+    align_up,
+    require_device,
+)
 
 
 @dataclasses.dataclass
@@ -277,7 +282,7 @@ class TreeXHybridSearcher(Searcher):
     """Partitioning + residual PQ + exact re-rank, on ``device``."""
 
     def __init__(self, config: Optional[TreeXHybridConfig] = None,
-                 device: Union[str, torch.device] = "cpu"):
+                 device: Union[str, torch.device] = DEFAULT_DEVICE):
         self.config = config or TreeXHybridConfig()
         _check_config(self.config)
         self.device = torch.device(device)
@@ -296,7 +301,7 @@ class TreeXHybridSearcher(Searcher):
         hc = cfg.hash_config
         seed = hc.seed if hc.seed is not None else 42
         self._dataset = dataset
-        data = dataset.device_tensor(self.device)
+        data = dataset.device_tensor(require_device(self.device))
 
         self.partitioner = TreePartitioner(TreePartitionerConfig(
             num_partitions=cfg.num_partitions,
@@ -471,7 +476,8 @@ class TreeXHybridSearcher(Searcher):
         self._check_built()
         queries = self._validate_queries(queries)
         idx, dists = self.search_batched_tensors(
-            torch.from_numpy(queries).to(self.device), k, params)
+            torch.from_numpy(queries).to(require_device(self.device)), k,
+            params)
         return (idx.cpu().numpy().astype(np.int32),
                 dists.cpu().numpy().astype(np.float32))
 

@@ -4,8 +4,10 @@ Each source compiles with ``nvcc`` into a shared library with a plain C
 interface, loaded through ``ctypes``. The build happens at first use, from
 the package's own sources, into ``_build/`` beside this file; the library
 name carries a hash of the source and flags, so an edited source rebuilds
-and an unchanged one loads the library already built. Nothing here runs at
-import time: the CPU tests import every module of the package.
+and an unchanged one loads the library already built. Sources build
+independently: two threads loading two kernels run their ``nvcc`` processes
+at the same time. Nothing here runs at import time: the CPU tests import
+every module of the package.
 """
 
 from __future__ import annotations
@@ -26,7 +28,8 @@ BUILD_DIR = _HERE / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-_lock = threading.Lock()
+_lock = threading.Lock()                      # guards _locks
+_locks: Dict[str, threading.Lock] = {}        # one per source
 _libs: Dict[str, ctypes.CDLL] = {}
 # nvcc's output (ptxas register / shared-memory report) of each build made
 # by this process, by kernel name
@@ -80,6 +83,8 @@ def load(name: str) -> ctypes.CDLL:
     """The ctypes library built from ``csrc/<name>.cu`` (built if needed).
     Raises if the build fails; callers set ``argtypes``/``restype``."""
     with _lock:
+        name_lock = _locks.setdefault(name, threading.Lock())
+    with name_lock:
         lib = _libs.get(name)
         if lib is None:
             lib = ctypes.CDLL(str(_build(name)))

@@ -8,8 +8,10 @@ float32 products run in full float32, which holds only while TF32 is off
 (``torch.backends.cuda.matmul.allow_tf32``, PyTorch's default). Sign
 conventions follow the reference: dot-product distance is the negated dot.
 
-This slice covers SQUARED_L2 and DOT_PRODUCT; the other measures raise
-``NotImplementedError`` until they are ported (ROADMAP.md queue 1, item 4).
+``many_to_many`` covers SQUARED_L2 and DOT_PRODUCT; ``gathered_distances``
+(the exact re-rank) adds COSINE and GENERAL_INNER_PRODUCT, the four measures
+the block sweep serves. The other measures raise ``NotImplementedError``
+until they are ported (ROADMAP.md queue 1, item 4).
 """
 
 from __future__ import annotations
@@ -40,10 +42,13 @@ class DistanceMeasure(enum.Enum):
 
 
 _PORTED = (DistanceMeasure.SQUARED_L2, DistanceMeasure.DOT_PRODUCT)
+_PORTED_GATHERED = _PORTED + (DistanceMeasure.COSINE,
+                              DistanceMeasure.GENERAL_INNER_PRODUCT)
 
 
-def _check_ported(measure: DistanceMeasure, fn: str) -> None:
-    if measure not in _PORTED:
+def _check_ported(measure: DistanceMeasure, fn: str,
+                  ported=_PORTED) -> None:
+    if measure not in ported:
         raise NotImplementedError(
             f"{fn} for {measure} is not ported yet (ROADMAP.md queue 1, "
             f"item 4: all distance measures)")
@@ -87,13 +92,18 @@ def gathered_distances(measure: DistanceMeasure, queries: torch.Tensor,
                        ) -> torch.Tensor:
     """[B, C] distances from each query to its own candidate rows
     ``rows`` [B, C, D] (the exact re-rank)."""
-    _check_ported(measure, "gathered_distances")
+    _check_ported(measure, "gathered_distances", _PORTED_GATHERED)
     queries = queries.float()
     rows = rows.float()
     dots = torch.einsum("bd,bcd->bc", queries, rows)
-    if measure == DistanceMeasure.DOT_PRODUCT:
+    if measure in (DistanceMeasure.DOT_PRODUCT,
+                   DistanceMeasure.GENERAL_INNER_PRODUCT):
         return -dots
     if rows_sq_norms is None:
         rows_sq_norms = (rows * rows).sum(dim=-1)
     q_sq = squared_norms(queries)
+    if measure == DistanceMeasure.COSINE:
+        denom = q_sq.sqrt()[:, None] * rows_sq_norms.sqrt()
+        sim = torch.where(denom > 0.0, dots / denom.clamp_min(1e-30), 0.0)
+        return 1.0 - sim
     return (q_sq[:, None] + rows_sq_norms - 2.0 * dots).clamp_min(0.0)

@@ -23,6 +23,7 @@ from scann_tpu_torch.trees.kmeans import (
     KMeansInit,
     assign_clusters,
 )
+from scann_tpu_torch.types import DEFAULT_DEVICE, require_device
 
 
 @dataclasses.dataclass
@@ -62,7 +63,7 @@ class TreePartitioner:
     """Flat k-means partitioner on ``device``."""
 
     def __init__(self, config: Optional[TreePartitionerConfig] = None,
-                 device: Union[str, torch.device] = "cpu"):
+                 device: Union[str, torch.device] = DEFAULT_DEVICE):
         self.config = config or TreePartitionerConfig()
         self.device = torch.device(device)
         self.centers: Optional[torch.Tensor] = None      # [K, D] float32
@@ -73,6 +74,7 @@ class TreePartitioner:
         every row."""
         cfg = self.config
         check_flat_partitioning(cfg)
+        data = data.to(require_device(self.device))
         n = data.shape[0]
         if n == 0:
             raise ScannError.invalid_argument("cannot partition empty dataset")

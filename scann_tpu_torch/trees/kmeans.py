@@ -27,6 +27,7 @@ import numpy as np
 import torch
 
 from scann_tpu_torch.errors import ScannError
+from scann_tpu_torch.types import DEFAULT_DEVICE, require_device
 
 
 class KMeansInit(enum.Enum):
@@ -177,12 +178,13 @@ class KMeans:
     run. Runs on ``device``."""
 
     def __init__(self, config: Optional[KMeansConfig] = None,
-                 device: Union[str, torch.device] = "cpu"):
+                 device: Union[str, torch.device] = DEFAULT_DEVICE):
         self.config = config or KMeansConfig()
         self.device = torch.device(device)
 
     def fit(self, data, init_centers=None) -> KMeansResult:
-        x = torch.as_tensor(data, dtype=torch.float32, device=self.device)
+        x = torch.as_tensor(data, dtype=torch.float32,
+                            device=require_device(self.device))
         n = x.shape[0]
         if n == 0:
             raise ScannError.invalid_argument("Cannot cluster empty dataset")

@@ -1,18 +1,26 @@
 """Shared numeric helpers (counterpart of ``scann_tpu/types.py``).
 
 The GPU has no (sublane, lane) register tiling to pad for; what the port
-keeps is the masked-slot sentinel and the alignment helper its CSR layout
-uses.
+keeps is the masked-slot sentinel, the alignment helpers and the one place
+where a device is checked before use (the JAX package's ``is_tpu`` probe
+has the same role there).
 """
 
 from __future__ import annotations
 
+from typing import Union
+
 import numpy as np
+import torch
 
 # Sentinel distance for masked-out (padded / filtered) candidates. A large
 # finite value instead of +inf keeps top-k well-defined and avoids NaN from
 # inf-inf arithmetic in fused score transforms.
 MASKED_DISTANCE = np.float32(3.4e38) / 2
+
+# Every entry point of the port runs on the current CUDA device unless the
+# caller names another device (the CPU tests pass device="cpu").
+DEFAULT_DEVICE = "cuda"
 
 
 def align_up(x: int, alignment: int) -> int:
@@ -20,3 +28,20 @@ def align_up(x: int, alignment: int) -> int:
     if alignment <= 0:
         raise ValueError(f"alignment must be positive, got {alignment}")
     return ((x + alignment - 1) // alignment) * alignment
+
+
+def cdiv(a: int, b: int) -> int:
+    """Ceiling division."""
+    return -(-a // b)
+
+
+def require_device(device: Union[str, torch.device]) -> torch.device:
+    """``device`` as a ``torch.device``, checked before any tensor moves
+    there: a CUDA device where none is available raises instead of letting
+    the work carry on elsewhere."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"scann_tpu_torch runs on {device} by default, but no CUDA "
+            f"device is available; pass device='cpu' to run on the CPU")
+    return device

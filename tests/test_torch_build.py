@@ -55,7 +55,8 @@ def test_lloyd_from_provided_init_matches_jax(k, iters):
         init_method=JaxInit.PROVIDED)).fit(x, init_centers=init)
     res = KMeans(KMeansConfig(
         num_clusters=k, max_iterations=iters,
-        init_method=KMeansInit.PROVIDED)).fit(x, init_centers=init)
+        init_method=KMeansInit.PROVIDED), device="cpu").fit(
+            x, init_centers=init)
     assert res.num_iterations == jax_res.num_iterations
     np.testing.assert_allclose(res.centers.numpy(), jax_res.centers,
                                atol=1e-4)
@@ -97,7 +98,7 @@ def test_seeded_kmeans_inertia_close_to_jax(seed):
     x, _ = _clustered(100 + seed, clusters=12, noise=0.1)
     cfg = dict(num_clusters=12, max_iterations=20, seed=seed)
     jax_res = JaxKMeans(JaxKMeansConfig(**cfg)).fit(x)
-    res = KMeans(KMeansConfig(**cfg)).fit(x)
+    res = KMeans(KMeansConfig(**cfg), device="cpu").fit(x)
     assert abs(res.inertia - jax_res.inertia) <= 0.05 * jax_res.inertia
     assert res.cluster_sizes.sum() == len(x)
 
@@ -108,7 +109,7 @@ def test_random_init_above_pp_limit_and_reseed():
     returns k centers covering every point."""
     x, _ = _clustered(3, n=600, d=8)
     res = KMeans(KMeansConfig(num_clusters=300, max_iterations=3,
-                              seed=0)).fit(x)
+                              seed=0), device="cpu").fit(x)
     assert res.centers.shape == (300, 8)
     assert int(res.cluster_sizes.sum()) == 600
     assert torch.isfinite(res.centers).all()
@@ -117,8 +118,8 @@ def test_random_init_above_pp_limit_and_reseed():
 def test_partitioner_tokenization_is_csr_of_nearest_centers():
     x, _ = _clustered(4, n=1500)
     tp = TreePartitioner(TreePartitionerConfig(
-        num_partitions=10, seed=1, training_sample_size=700)).build(
-            torch.from_numpy(x))
+        num_partitions=10, seed=1, training_sample_size=700),
+        device="cpu").build(torch.from_numpy(x))
     tk = tp.tokenization
     d = ((x[:, None, :] - tp.centers.numpy()[None]) ** 2).sum(-1)
     np.testing.assert_array_equal(tk.tokens.numpy(), d.argmin(1))
@@ -136,7 +137,7 @@ def test_partitioner_tokenization_is_csr_of_nearest_centers():
 ])
 def test_unported_options_raise(config):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TreeXHybridSearcher(TreeXHybridConfig(**config))
+        TreeXHybridSearcher(TreeXHybridConfig(**config), device="cpu")
 
 
 def test_build_recall_close_to_jax_build():
@@ -154,8 +155,8 @@ def test_build_recall_close_to_jax_build():
     jax_s = JaxSearcher(JaxConfig(hash_config=JaxHashConfig(**hc),
                                   **common)).build(JaxDataset(x))
     s = TreeXHybridSearcher(TreeXHybridConfig(
-        hash_config=AsymmetricHasherConfig(**hc), **common)).build(
-            DenseDataset(x))
+        hash_config=AsymmetricHasherConfig(**hc), **common),
+        device="cpu").build(DenseDataset(x))
     # pre_k=50 keeps recall off its ceiling, where a build difference shows
     jax_idx, _ = jax_s.search_batched_arrays(q, 10, JaxParams(
         num_leaves_to_search=3, pre_reordering_num_neighbors=50))

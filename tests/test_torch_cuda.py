@@ -80,3 +80,119 @@ def test_tree_ah_grouped_kernel_rejects_wrong_dtype():
             torch.from_numpy(luts).cuda(), torch.from_numpy(codes).cuda(),
             torch.from_numpy(off).long().cuda(), torch.from_numpy(size).cuda(),
             l_cap=l_cap, l_tile=128, q_cap=8, packed=True)
+
+
+# -- block-min sweep (csrc/block_min_sweep.cu) --------------------------------
+
+def _sweep_inputs(rng, *, n, d, b, r, int8_rows, penalty):
+    """Augmented rows and queries as the searcher builds them (squared L2,
+    padded tail rows masked), plus an optional allowlist penalty."""
+    from scann_tpu_torch.ops import sweep as sw
+    from scann_tpu_torch.ops.distances import DistanceMeasure
+
+    db = rng.normal(size=(n, d)).astype(np.float32)
+    q = torch.from_numpy(rng.normal(size=(b, d)).astype(np.float32))
+    n_valid = n - 3 * r // 2
+    measure = DistanceMeasure.SQUARED_L2
+    if int8_rows:
+        aug, scales, sn = sw.build_int8_augmented_db(db, n_valid, measure,
+                                                     tile_n=n)
+        q_aug = sw._augment_queries_int8(q, measure, scales, sn, aug.shape[1])
+        mask_value = 4.0 * sw.INT8_NORM_DIGIT_MAX * sn
+    else:
+        aug = sw.build_augmented_db(db, n_valid, measure, tile_n=n)
+        q_aug = sw._augment_queries(q, measure, aug.shape[1])
+        mask_value = 4 * sw.BLOCK_MASK_VALUE
+    pen = None
+    if penalty:
+        pen = sw.build_allow_penalty(rng.random(n_valid) < 0.3, n, r,
+                                     mask_value=mask_value).cuda()
+    return q_aug.cuda(), aug.cuda(), pen
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form,r,b", [
+    ("rowmajor", 8, 40), ("rowmajor", 64, 200), ("rowmajor", 256, 130),
+    ("qmajor", 32, 64), ("qmajor", 512, 24),
+    ("compact", 64, 150), ("compact", 256, 16),
+    ("top2", 2, 40), ("top2", 8, 64), ("top2", 64, 130), ("top2", 512, 16),
+])
+@pytest.mark.parametrize("int8_rows,penalty", [(False, False), (True, True)])
+def test_block_min_sweep_kernel_matches_twin(form, r, b, int8_rows, penalty):
+    """Each form of the sweep kernel against its twin on the same inputs:
+    values within 1e-5 of the block's sum of term magnitudes (only the
+    float32 summation order differs), compact values within 1 bf16 ulp,
+    offsets achieving the twin's minimum; one launch counted per call. Most
+    offsets are the twin's own; those of padded rows, whose scores near
+    2**30 tie in float32, may differ."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from scann_tpu_torch.ops import sweep as sw
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.default_rng(r * 7 + b)
+    n = max(4096, 8 * r)
+    q_aug, aug, pen = _sweep_inputs(rng, n=n, d=100, b=b, r=r,
+                                    int8_rows=int8_rows, penalty=penalty)
+    name = {"rowmajor": "block_min", "qmajor": "block_min_qmajor",
+            "compact": "block_min_qmajor_compact", "top2": "block_min2"}[form]
+    before = sw.LAUNCHES[name]
+    if form == "top2":
+        got = sw.block_min2_sweep(q_aug, aug, r=r, penalty=pen)
+    elif form == "rowmajor":
+        got = sw.block_min_sweep(q_aug, aug, r=r, penalty=pen)
+    else:
+        got = sw.block_min_sweep_qmajor(q_aug, aug, r=r, penalty=pen,
+                                        compact=form == "compact")
+    torch.cuda.synchronize()
+    assert sw.LAUNCHES[name] == before + 1
+    report = sw.check_against_twin(form, got, q_aug, aug, r=r, penalty=pen)
+    assert report["checked"] == (n // r) * b * (2 if form == "top2" else 1)
+    assert report["loc_equal"] > 0.9
+
+
+@pytest.mark.cuda
+def test_block_min_sweep_kernel_rejects_bad_arguments():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from scann_tpu_torch.ops import sweep as sw
+
+    rng = np.random.default_rng(0)
+    q_aug, aug, _ = _sweep_inputs(rng, n=4096, d=100, b=16, r=64,
+                                  int8_rows=False, penalty=False)
+    with pytest.raises(ValueError, match="bfloat16"):
+        sw.block_min_sweep(q_aug.float(), aug, r=64)
+    with pytest.raises(ValueError, match="power of two"):
+        sw.block_min_sweep(q_aug, aug, r=24)
+    with pytest.raises(ValueError, match="r <= 256"):
+        sw.block_min_sweep_qmajor(q_aug, aug, r=512, compact=True)
+    with pytest.raises(ValueError, match="penalty"):
+        sw.block_min_sweep(q_aug, aug, r=64,
+                           penalty=torch.zeros(64, 64, device="cuda"))
+
+
+@pytest.mark.cuda
+def test_block_sweep_searcher_on_card():
+    """The searcher's default device is the card: its results are exact
+    re-ranked distances with recall near 1 against brute force."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from scann_tpu_torch import BlockSweepConfig, BlockSweepSearcher, DenseDataset
+    from scann_tpu_torch.ops import sweep as sw
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.default_rng(5)
+    db = rng.normal(size=(20_000, 48)).astype(np.float32)
+    q = rng.normal(size=(64, 48)).astype(np.float32)
+    s = BlockSweepSearcher(DenseDataset(db), BlockSweepConfig(
+        block_r=32, pre_reorder_k=128))
+    assert s.device.type == "cuda"
+    sw.reset_launches()
+    idx, dist = s.search_batched_arrays(q, 10)
+    assert sw.LAUNCHES["block_min_qmajor_compact"] == 1
+    d2 = ((q[:, None, :] - db[None]) ** 2).sum(-1)
+    gt = np.argsort(d2, axis=1)[:, :10]
+    recall = np.mean([len(set(a) & set(g)) / 10 for a, g in zip(idx, gt)])
+    assert recall >= 0.98
+    np.testing.assert_allclose(dist, np.take_along_axis(d2, idx, 1),
+                               rtol=1e-4, atol=1e-3)

@@ -64,7 +64,7 @@ def _jax_grouped(path, q, *, pre_k, packed=True, q_cap=8):
 
 
 def _port(path, q, *, pre_k, packed=True, q_cap=None, l_tile=None):
-    s = tio.load_index(path)
+    s = tio.load_index(path, device="cpu")
     s.config.pack_codes = packed
     if q_cap is not None:
         s.config.group_q_cap = q_cap
@@ -128,7 +128,7 @@ def test_results_invariant_to_kernel_shape(index, q_cap, l_tile):
 
 def test_tensor_search_matches_array_search(index):
     path, q = index
-    s = tio.load_index(path)
+    s = tio.load_index(path, device="cpu")
     params = SearchParameters(num_leaves_to_search=P,
                               pre_reordering_num_neighbors=3 * K)
     idx, dists = s.search_batched_tensors(torch.from_numpy(q), K, params)
@@ -141,7 +141,7 @@ def test_post_epsilon_masks_far_results(index):
     """Results beyond post_reordering_epsilon come back as (-1, inf), as in
     the JAX package."""
     path, q = index
-    s = tio.load_index(path)
+    s = tio.load_index(path, device="cpu")
     idx, dists = s.search_batched_arrays(q, K, SearchParameters(
         num_leaves_to_search=P, pre_reordering_num_neighbors=3 * K))
     eps = float(np.median(dists))
@@ -161,18 +161,21 @@ def test_loader_rejects_unported_state(index):
         meta = json.loads(bytes(z["__meta__"]).decode())
         arrays = {k: z[k] for k in z.files if k != "__meta__"}
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tio.from_numpy_state(arrays, dict(meta, measure="DotProduct"))
+        tio.from_numpy_state(arrays, dict(meta, measure="DotProduct"),
+                             device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tio.from_numpy_state(arrays, dict(meta, rerank_dtype="int8"))
+        tio.from_numpy_state(arrays, dict(meta, rerank_dtype="int8"),
+                             device="cpu")
     spilled = dict(arrays)
     spilled["csr_points"] = np.concatenate([arrays["csr_points"], [0]])
     spilled["csr_offsets"] = arrays["csr_offsets"].copy()
     spilled["csr_offsets"][-1] += 1
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tio.from_numpy_state(spilled, meta)
+        tio.from_numpy_state(spilled, meta, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tio.from_numpy_state(arrays, dict(meta, kind="hashed"))
-    s = tio.from_numpy_state(arrays, meta)
+        tio.from_numpy_state(arrays, dict(meta, kind="hashed"),
+                             device="cpu")
+    s = tio.from_numpy_state(arrays, meta, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         s.search_batched_arrays(np.zeros((1, D), np.float32), K,
                                 allow_mask=np.ones(N, bool))
