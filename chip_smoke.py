@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``scann_tpu_torch``) on one GPU.
 
-Drives the port's two serving paths once at GloVe-100 shape, over 1,183,514
-x 100 seeded synthetic clustered vectors and 10 batches of 1024 queries:
+Drives the port's three serving paths once at GloVe-100 shape, over
+1,183,514 x 100 seeded synthetic clustered vectors and 10 batches of 1024
+queries:
 
 - tree-x-AH: builds the index on the card, checks the CUDA grouped
   leaf-scoring kernel against its plain PyTorch twin on the first batch's
@@ -17,6 +18,14 @@ x 100 seeded synthetic clustered vectors and 10 batches of 1024 queries:
   the batches through ``BlockSweepSearcher.search_batched_tensors`` (recall@10
   >= 0.99), and drives the other three forms through the searcher: top2,
   block_r=128 and block_r=512 at B=128;
+- asymmetric hashing: builds the PQ index on the card (S=50, C=16, the JAX
+  package's bench.py configuration), checks the fused int8 LUT16 sweep
+  kernel (bit for bit) and the LUT16 score kernel against their twins on the
+  first batch's real tables, serves the batches through
+  ``AsymmetricHasher.search_batched_tensors`` with pre_k=300 (the fused
+  sweep, recall@10 >= 0.9), and drives the score kernel through the
+  approximate-only path (B=128, float32 scores) and a 16,384-row hasher's
+  re-rank path (bf16 scores);
 
 then times every kernel against its twin (L2 flushed) and the search stages
 with CUDA events.
@@ -44,10 +53,12 @@ P, PRE_K = 10, 100
 RECALL_FLOOR = 0.9
 SWEEP_R, SWEEP_PRE_K, SWEEP_RECALL_FLOOR = 64, 64, 0.99
 SEED = 0
-KERNEL_SOURCES = ("tree_ah_grouped", "block_min_sweep")
-# published H100 SXM peaks (dense): bf16 tensor cores, float32 outside the
-# tensor cores, HBM3
-PEAK_BF16, PEAK_F32, PEAK_HBM = 989e12, 67e12, 3.35e12
+AH_S, AH_C, AH_PRE_K, AH_RECALL_FLOOR = 50, 16, 300, 0.9
+AH_SMALL_N, AH_APPROX_B = 16_384, 128
+KERNEL_SOURCES = ("tree_ah_grouped", "block_min_sweep", "lut16_scoring")
+# published H100 SXM peaks (dense): bf16 tensor cores, int8 tensor cores,
+# float32 outside the tensor cores, HBM3
+PEAK_BF16, PEAK_INT8, PEAK_F32, PEAK_HBM = 989e12, 1979e12, 67e12, 3.35e12
 
 
 def log(msg: str) -> None:
@@ -316,6 +327,7 @@ def main() -> int:
 
     records += block_sweep_phases(ds, queries, db_dev, gt_np, cold_ms, turns,
                                   smi)
+    records += hasher_phases(ds, queries, db_dev, gt_np, cold_ms, turns, smi)
     print(json.dumps({"kernels": records}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
@@ -323,9 +335,10 @@ def main() -> int:
     return 0
 
 
-def check_results(idx, dists, queries, db_dev, rows):
+def check_results(idx, dists, queries, db_dev, rows, exact_check=True):
     """Shape, ids >= 0, finite ascending distances that equal recomputed
-    exact squared-L2 distances to 1e-3 relative."""
+    exact squared-L2 distances to 1e-3 relative (unless ``exact_check`` is
+    off, for approximate results)."""
     import torch
 
     if tuple(idx.shape) != (rows, K) or bool((idx < 0).any()):
@@ -334,6 +347,8 @@ def check_results(idx, dists, queries, db_dev, rows):
         raise AssertionError("non-finite result distances")
     if bool((dists[:, 1:] < dists[:, :-1]).any()):
         raise AssertionError("result distances not ascending")
+    if not exact_check:
+        return float("nan")
     exact = ((queries[:rows, None, :] - db_dev[idx]) ** 2).sum(-1)
     err = float(((dists - exact).abs() / exact.clamp_min(1e-6)).max())
     if err > 1e-3:
@@ -565,6 +580,239 @@ def block_sweep_phases(ds, queries, db_dev, gt_np, cold_ms, turns, smi):
         f"{med:.4f} ms, max {top:.4f} ms -> {BATCH / med * 1e3:.0f} "
         f"queries/s at recall@10 {recall:.4f} ({smi})")
     return records
+
+
+def hasher_phases(ds, queries, db_dev, gt_np, cold_ms, turns, smi):
+    """Phases 12-15, the asymmetric hasher; returns the kernels' JSON
+    records."""
+    import numpy as np
+    import torch
+
+    from scann_tpu_torch import (
+        AsymmetricHasher,
+        AsymmetricHasherConfig,
+        DenseDataset,
+        SearchParameters,
+    )
+    from scann_tpu_torch.hashes import hasher as ah
+    from scann_tpu_torch.ops import scoring_kernels as sk
+    from scann_tpu_torch.ops.distances import DistanceMeasure
+    from scann_tpu_torch.ops.sweep import finalize_results
+    from scann_tpu_torch.utils.benchmarking import recall_at_k
+
+    dev = queries.device
+    measure = DistanceMeasure.SQUARED_L2
+    inf = float("inf")
+    cfg = AsymmetricHasherConfig(num_codes=AH_C, num_subspaces=AH_S, seed=42,
+                                 max_iterations=12,
+                                 training_sample_size=100_000)
+
+    # -- 12. build: codebook, codes and both device layouts on the card ----------
+    def build(dataset, label):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        h = AsymmetricHasher(cfg, device=dev).build(dataset)
+        packed, codes_t = h._device_codes_packed_t(), h._device_codes_t()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        rows = dataset.device_tensor(dev)
+        log(f"[12 hasher build/{label}] {secs:.2f}s on the card: codes "
+            f"{list(h.codes.shape)} u8, packed codes {list(packed.shape)} "
+            f"{packed.numel()} bytes, transposed codes {list(codes_t.shape)} "
+            f"{codes_t.numel()} bytes, float32 re-rank rows "
+            f"{list(rows.shape)} {rows.numel() * 4} bytes, memory_usage "
+            f"{h.memory_usage()}")
+        return h
+
+    h = build(ds, "main")
+    small = build(DenseDataset(ds.numpy()[:AH_SMALL_N]), f"{AH_SMALL_N} rows")
+    n = h.dataset_size()
+    packed_t, codes_t = h._device_codes_packed_t(), h._device_codes_t()
+    cent = h.codebook.centroids
+
+    # -- 13. each kernel against its twin on the first batch's real tables -------
+    q0 = queries[:BATCH]
+    luts = ah._ah_luts(q0, cent, measure)                     # [B, S, C] f32
+    luts_i8, mult, bias = ah.quantized_tables(luts)
+    got = sk.lut16_fused_sweep(luts_i8, packed_t, n, r=h.FUSED_R)
+    torch.cuda.synchronize()
+    want = sk.lut16_fused_sweep_reference(luts_i8, packed_t, n, h.FUSED_R)
+    fused_err = float((got - want).abs().max())
+    log(f"[13 kernel check] lut16_fused_sweep: B={BATCH}, S_pad "
+        f"{2 * packed_t.shape[0]}, r={h.FUSED_R}, packed codes "
+        f"{list(packed_t.shape)} -> minima {list(got.shape)}: bit-identical "
+        f"{torch.equal(got.view(torch.int32), want.view(torch.int32))}, max "
+        f"abs err {fused_err} (tolerance: bit for bit), invalid blocks "
+        f"{int((want >= sk.INVALID_COMBINED / 2).sum())}")
+    if not torch.equal(got.view(torch.int32), want.view(torch.int32)):
+        raise AssertionError("lut16_fused_sweep differs from its twin")
+    del got, want
+
+    def order(x):
+        """Values -> integer keys whose differences count ulps of x's
+        type."""
+        bits = x.contiguous().view(torch.int16 if x.dtype == torch.bfloat16
+                                   else torch.int32).long()
+        mag = bits & (0x7FFF if x.dtype == torch.bfloat16 else 0x7FFFFFFF)
+        return torch.where(bits < 0, -mag, mag)
+
+    score_err = 0.0
+    for b, dtype in ((BATCH, torch.bfloat16), (AH_APPROX_B, torch.float32)):
+        got = sk.lut16_score(luts[:b], codes_t, dtype)
+        torch.cuda.synchronize()
+        want = sk.lut16_score_reference(luts[:b], codes_t, dtype)
+        same = torch.equal(got, want)
+        ulp = 0 if same else int((order(got) - order(want)).abs().max())
+        err = float((got.float() - want.float()).abs().max())
+        score_err = max(score_err, err)
+        log(f"[13 kernel check] lut16_score: B={b}, {dtype}, codes "
+            f"{list(codes_t.shape)} -> {list(got.shape)}: bit-identical "
+            f"{same}, max {ulp} ulp, max abs err {err} (tolerance: bit for "
+            f"bit, both add bf16 entries in ascending s in float32)")
+        if not same:
+            raise AssertionError(f"lut16_score ({dtype}) differs from its "
+                                 f"twin by up to {ulp} ulp")
+        del got, want
+
+    # -- 14. search through the entry point: each path counted from zero ---------
+    launches = {}
+
+    def run(s, qs, batch, params, kernel, label, gt, floor=None,
+            exact=True):
+        sk.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = [s.search_batched_tensors(qs[i:i + batch], K, params)
+               for i in range(0, len(qs), batch)]
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = dict(sk.LAUNCHES)
+        launches[label] = counts[kernel]
+        idx = torch.cat([x[0] for x in res])
+        dists = torch.cat([x[1] for x in res])
+        rows = s._dataset.device_tensor(dev)
+        err = check_results(idx, dists, qs, rows, len(qs), exact_check=exact)
+        recall = recall_at_k(idx.cpu().numpy(), gt, K)
+        log(f"[14 hasher search/{label}] {len(qs)} queries in calls of "
+            f"{batch}: recall@10 {recall:.4f}"
+            + (f" (floor {floor})" if floor else "")
+            + f", launches {counts}, returned vs recomputed distances max "
+            f"rel err {err:.3g}, host wall {wall:.3f}s")
+        if counts[kernel] <= 0:
+            raise AssertionError(f"{label}: {kernel} was never launched")
+        if floor is not None and recall < floor:
+            raise AssertionError(f"{label}: recall@10 {recall} < {floor}")
+        return recall
+
+    params = SearchParameters(pre_reordering_num_neighbors=AH_PRE_K)
+    recall = run(h, queries, BATCH, params, "lut16_fused_sweep", "main fused",
+                 gt_np, AH_RECALL_FLOOR)
+    run(h, queries[:AH_APPROX_B], AH_APPROX_B, None, "lut16_score",
+        "approximate only", gt_np[:AH_APPROX_B], exact=False)
+    small_rows = small._dataset.device_tensor(dev)
+    q_small = queries[:BATCH]
+    small_gt = torch.topk(
+        (q_small * q_small).sum(1)[:, None] + (small_rows * small_rows).sum(1)
+        - 2.0 * (q_small @ small_rows.T), K, dim=1,
+        largest=False).indices.cpu().numpy()
+    run(small, q_small, BATCH, params, "lut16_score",
+        f"{AH_SMALL_N} rows re-rank", small_gt, AH_RECALL_FLOOR)
+
+    # -- 15. timings -------------------------------------------------------------
+    s_pad = 2 * packed_t.shape[0]
+    n_pad = packed_t.shape[1]
+    r = h.FUSED_R
+    f_ms, f_plain = turns(
+        lambda: sk.lut16_fused_sweep(luts_i8, packed_t, n, r=r),
+        lambda: sk.lut16_fused_sweep_reference(luts_i8, packed_t, n, r),
+        20, 3)
+    # operations as the TPU kernel's one-hot product counts them; bytes:
+    # packed codes and tables read once, the minima written once
+    f_ops = 2 * BATCH * s_pad * AH_C * n_pad
+    f_bytes = packed_t.numel() + luts_i8.numel() + (n_pad // r) * BATCH * 4
+    f_bound, f_by = bound(f_ops, PEAK_INT8, f_bytes)
+    log(f"[15 kernel time] lut16_fused_sweep: B={BATCH}, rows {n_pad}, L2 "
+        f"flushed: kernel {f_ms:.4f} ms, plain twin {f_plain:.4f} ms, bound "
+        f"{f_bound:.4f} ms, bound by {f_by} ({f_ops} int8 ops, {f_bytes} "
+        f"bytes) -> {f_ops / f_ms / 1e9:.1f} TOPS, {f_bound / f_ms:.3f} of "
+        f"the bound ({smi})")
+    score = {}
+    for b, dtype in ((BATCH, torch.bfloat16), (AH_APPROX_B, torch.float32)):
+        lb = luts[:b]
+        k_ms, p_ms = turns(lambda: sk.lut16_score(lb, codes_t, dtype),
+                           lambda: sk.lut16_score_reference(lb, codes_t,
+                                                            dtype), 10, 2)
+        # the kernel looks entries up and sums them: one float32 add per
+        # table entry per column and query, as for the grouped scorer
+        cols = codes_t.shape[1]
+        ops = b * AH_S * cols
+        nbytes = (codes_t.numel() + lb.numel() * 4
+                  + b * cols * (2 if dtype == torch.bfloat16 else 4))
+        b_ms, b_by = bound(ops, PEAK_F32, nbytes)
+        score[b] = (k_ms, p_ms, b_ms, b_by)
+        log(f"[15 kernel time] lut16_score: B={b}, {dtype}, columns {cols}, "
+            f"L2 flushed: kernel {k_ms:.4f} ms, plain twin {p_ms:.4f} ms, "
+            f"bound {b_ms:.4f} ms, bound by {b_by} ({ops} float32 adds, "
+            f"{nbytes} bytes) -> {b_ms / k_ms:.3f} of the bound ({smi})")
+    onehot = torch.nn.functional.one_hot(h.codes.long(), AH_C).reshape(
+        n, AH_S * AH_C).to(torch.bfloat16)
+    lut_bf = luts.reshape(BATCH, -1).to(torch.bfloat16)
+    mm_ms = cold_ms(lambda: torch.matmul(lut_bf, onehot.T), 5)
+    log(f"[15 aside] torch.matmul of the materialised bf16 one-hot, "
+        f"[{BATCH}, {AH_S * AH_C}] x [{AH_S * AH_C}, {n}] -> bf16: "
+        f"{mm_ms:.4f} ms (the one-hot alone is {onehot.numel() * 2} bytes; "
+        f"the port never calls it) ({smi})")
+    del onehot
+
+    def staged(qb):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(7)]
+        ev[0].record()
+        lt = ah._ah_luts(qb, cent, measure)
+        ev[1].record()
+        i8, mu, bi = ah.quantized_tables(lt)
+        ev[2].record()
+        comb = sk.lut16_fused_sweep(i8, packed_t, n, r=r)
+        ev[3].record()
+        cand, valid = ah.fused_candidates(comb, mu, bi, AH_S, pre_k=AH_PRE_K,
+                                          r=r, measure=measure)
+        ev[4].record()
+        exact = ah.rerank_exact(db_dev, qb, cand, valid, measure)
+        ev[5].record()
+        finalize_results(exact, cand, K, inf)
+        ev[6].record()
+        torch.cuda.synchronize()
+        return [ev[i].elapsed_time(ev[i + 1]) for i in range(6)]
+
+    staged(q0)
+    split = np.array([staged(queries[i * BATCH:(i + 1) * BATCH])
+                      for i in range(BATCHES)])
+    log("[15 hasher stages] per batch ms: " + ", ".join(
+        f"{nm} {v:.4f}" for nm, v in zip(
+            ("lut", "quantise", "sweep", "select", "gather+rerank",
+             "finalize"), split.mean(0)))
+        + f", sum {split.sum(1).mean():.4f} ({smi})")
+    med, top = event_ms(lambda qb: h.search_batched_tensors(qb, K, params),
+                        queries, BATCH, BATCHES)
+    log(f"[15 hasher search time] search_batched_tensors, S={AH_S}, "
+        f"pre_k={AH_PRE_K}, B={BATCH}, n={3 * BATCHES} batches: median "
+        f"{med:.4f} ms, max {top:.4f} ms -> {BATCH / med * 1e3:.0f} "
+        f"queries/s at recall@10 {recall:.4f} ({smi})")
+    k_ms, p_ms, b_ms, b_by = score[BATCH]
+    return [
+        {"name": "lut16_fused_sweep", "route": "cuda",
+         "source": "scann_tpu_torch/csrc/lut16_scoring.cu",
+         "replaces": "scann_tpu/ops/pallas_kernels.py:109",
+         "launches": launches["main fused"], "max_abs_err": fused_err,
+         "ms": f_ms, "plain_ms": f_plain, "bound_ms": f_bound,
+         "bound_by": f_by, "library_ms": None},
+        {"name": "lut16_score", "route": "cuda",
+         "source": "scann_tpu_torch/csrc/lut16_scoring.cu",
+         "replaces": "scann_tpu/ops/pallas_kernels.py:40",
+         "launches": (launches["approximate only"]
+                      + launches[f"{AH_SMALL_N} rows re-rank"]),
+         "max_abs_err": score_err, "ms": k_ms, "plain_ms": p_ms,
+         "bound_ms": b_ms, "bound_by": b_by, "library_ms": None},
+    ]
 
 
 if __name__ == "__main__":

@@ -9,13 +9,18 @@ CPU tensors take. The package never imports JAX.
 
 Entry points run on the current CUDA device unless the caller names another
 device (``device="cpu"``). The port serves the tree-x-AH search (partitions,
-residual PQ with packed int4 codes, exact re-rank) and builds its index, and
-the block-sweep search (bf16 block-min sweep, exact re-rank).
+residual PQ with packed int4 codes, exact re-rank) and builds its index, the
+block-sweep search (bf16 block-min sweep, exact re-rank) and the
+asymmetric-hashing search (PQ with LUT16 scoring: the fused int8 sweep over
+packed nibbles, exact re-rank).
 """
 
 from scann_tpu_torch.data.dataset import DenseDataset
 from scann_tpu_torch.errors import ErrorCode, ScannError
-from scann_tpu_torch.hashes.hasher import AsymmetricHasherConfig
+from scann_tpu_torch.hashes.hasher import (
+    AsymmetricHasher,
+    AsymmetricHasherConfig,
+)
 from scann_tpu_torch.io import from_numpy_state, load_index
 from scann_tpu_torch.models.block_sweep import (
     BlockSweepConfig,
@@ -29,6 +34,7 @@ from scann_tpu_torch.models.tree_x_hybrid import (
 from scann_tpu_torch.ops.distances import DistanceMeasure
 
 __all__ = [
+    "AsymmetricHasher",
     "AsymmetricHasherConfig",
     "BlockSweepConfig",
     "BlockSweepSearcher",

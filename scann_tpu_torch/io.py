@@ -1,11 +1,12 @@
-"""Index loading (counterpart of the ``kind == "tree_ah"`` and
-``kind == "block_sweep"`` readers of ``scann_tpu/io.py``).
+"""Index loading (counterpart of the ``kind == "tree_ah"``,
+``kind == "block_sweep"`` and ``kind == "hashed"`` readers of
+``scann_tpu/io.py``).
 
 The file format is the JAX package's ``save_index`` npz: every array plus a
 JSON header (``__meta__``, uint8 bytes) with the config and index kind. This
-module reads it with numpy and ``json`` alone, so a tree-AH or block-sweep
-index saved by the JAX package serves through the port. Other index kinds
-wait for ROADMAP.md queue 1, item 9.
+module reads it with numpy and ``json`` alone, so a tree-AH, block-sweep or
+asymmetric-hashing index saved by the JAX package serves through the port.
+Other index kinds wait for ROADMAP.md queue 1, item 9.
 """
 
 from __future__ import annotations
@@ -20,7 +21,10 @@ import torch
 from scann_tpu_torch.data.dataset import DenseDataset
 from scann_tpu_torch.errors import ScannError
 from scann_tpu_torch.hashes.codebook import Codebook, CodebookConfig
-from scann_tpu_torch.hashes.hasher import AsymmetricHasherConfig
+from scann_tpu_torch.hashes.hasher import (
+    AsymmetricHasher,
+    AsymmetricHasherConfig,
+)
 from scann_tpu_torch.models.block_sweep import (
     BlockSweepConfig,
     BlockSweepSearcher,
@@ -41,11 +45,33 @@ _FORMAT_VERSION = 1
 
 
 def _hash_config(d: dict) -> AsymmetricHasherConfig:
-    """The saved hasher config's fields that tree-AH serving reads (the
-    JAX package's config has more: its hasher searcher's own)."""
+    """A saved hasher config; the measure is stored as its JSON string."""
     fields = {f.name for f in dataclasses.fields(AsymmetricHasherConfig)}
-    return AsymmetricHasherConfig(**{k: v for k, v in d.items()
-                                     if k in fields})
+    d = {k: v for k, v in d.items() if k in fields}
+    if "distance_measure" in d:
+        d["distance_measure"] = DistanceMeasure(d["distance_measure"])
+    return AsymmetricHasherConfig(**d)
+
+
+def _hashed(arrays: Dict[str, np.ndarray], meta: dict,
+            device: torch.device) -> AsymmetricHasher:
+    """The JAX package's ``kind == "hashed"`` reader: the codebook, the
+    [N, S] codes and, when the index stored it, the float32 dataset (already
+    normalized for COSINE)."""
+    h = AsymmetricHasher(_hash_config(meta["config"]), device=device)
+    book = arrays["codebook"]
+    cb = Codebook(CodebookConfig(num_codes=book.shape[1],
+                                 num_subspaces=book.shape[0]), device=device)
+    cb.centroids = torch.from_numpy(np.ascontiguousarray(book)).to(
+        device).float()
+    h.codebook = cb
+    h.codes = torch.from_numpy(np.ascontiguousarray(arrays["codes"])).to(
+        device).to(torch.uint8)
+    h._n = len(arrays["codes"])
+    h._dim = int(meta["dim"])
+    if "data" in arrays:
+        h._dataset = DenseDataset(arrays["data"])
+    return h
 
 
 def _block_sweep(arrays: Dict[str, np.ndarray], meta: dict,
@@ -67,16 +93,19 @@ def from_numpy_state(arrays: Dict[str, np.ndarray], meta: dict,
     """A port searcher on ``device`` (the current CUDA device by default)
     from a saved index's arrays and its JSON header — the state
     ``scann_tpu.io.save_index`` writes: a tree-AH index (data, centers,
-    tokens, csr_offsets, csr_points, codes, codebook) or a block-sweep
-    index (data)."""
+    tokens, csr_offsets, csr_points, codes, codebook), a block-sweep index
+    (data) or an asymmetric-hashing index (codes, codebook, data when
+    stored)."""
     kind = meta.get("kind")
-    if kind not in ("tree_ah", "block_sweep"):
+    if kind not in ("tree_ah", "block_sweep", "hashed"):
         raise NotImplementedError(
             f"loading index kind {kind!r} is not ported yet (ROADMAP.md "
             f"queue 1, item 9: io)")
     device = require_device(device)
     if kind == "block_sweep":
         return _block_sweep(arrays, meta, device)
+    if kind == "hashed":
+        return _hashed(arrays, meta, device)
     cfg = TreeXHybridConfig(
         num_partitions=int(meta["num_partitions"]),
         partitions_to_search=int(meta["partitions_to_search"]),
@@ -120,7 +149,7 @@ def from_numpy_state(arrays: Dict[str, np.ndarray], meta: dict,
 
 
 def load_index(path: str, device: Union[str, torch.device] = DEFAULT_DEVICE):
-    """Load a tree-AH or block-sweep index saved by
+    """Load a tree-AH, block-sweep or asymmetric-hashing index saved by
     ``scann_tpu.io.save_index`` onto ``device`` (the current CUDA device by
     default)."""
     with np.load(path, allow_pickle=False) as z:

@@ -23,6 +23,17 @@ class SearchParameters:
     post_reordering_epsilon: Optional[float] = None
     num_leaves_to_search: Optional[int] = None
 
+    def effective_epsilon(self) -> float:
+        """Distance threshold of a single-stage search: with no separate
+        re-ranking pass the search is both the "pre" and the "post" stage,
+        so the tighter of the two thresholds applies (inf when unset)."""
+        eps = float("inf")
+        if self.pre_reordering_epsilon is not None:
+            eps = min(eps, float(self.pre_reordering_epsilon))
+        if self.post_reordering_epsilon is not None:
+            eps = min(eps, float(self.post_reordering_epsilon))
+        return eps
+
 
 def epsilons(params: Optional[SearchParameters]):
     """(pre, post) per-query distance thresholds, inf when unset."""

@@ -1,0 +1,270 @@
+"""LUT16 scoring kernels (counterpart of ``scann_tpu/ops/pallas_kernels.py``;
+the name drops "pallas" because the kernels here are CUDA).
+
+Two kernels of one CUDA source (``csrc/lut16_scoring.cu``), each with a
+plain PyTorch twin beside it:
+
+  - :func:`lut16_score` — ``out[b, n] = Σ_s bf16(luts[b, s, codes_t[s, n]])``
+    summed in float32, as float32 or bf16 (TPU kernel ``_lut16_kernel``);
+  - :func:`lut16_fused_sweep` — the int8 LUT16 sweep over packed nibbles
+    with the r:1 block minimum fused in: the [N, B] score matrix never
+    reaches device memory (TPU kernel ``_lut16_fused_kernel``). Each output
+    is one exact float32 integer ``(acc + 128*S_pad)*r + row % r``, so one
+    minimum picks the best (sum, row) pair; blocks with no row below
+    ``n_valid`` hold ``INVALID_COMBINED``.
+
+CPU tensors take the twins; CUDA tensors launch the kernel or raise. Each
+kernel launch adds one to its entry in :data:`LAUNCHES`. Both twins add in
+the kernels' order (ascending subspace, float32 or int32) and stream N in
+chunks, so they agree with the kernels bit for bit and never hold a
+[B, S, N] gather.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Dict
+
+import torch
+
+from scann_tpu_torch.ops.lut16_scoring import sum_lut_entries
+from scann_tpu_torch.types import MAX_SHARED_MEMORY, on_card
+
+# Sentinel for blocks with no valid row in the fused output. Every real
+# combined value is <= 255*S_pad*r + r - 1 < 2**24, far below it.
+INVALID_COMBINED = 1e9
+
+# Kernel launches since the last reset, one entry per kernel. Only a launch
+# of a CUDA kernel counts, never a call of a plain twin; a run reads these to
+# show that its main path went through the kernels.
+LAUNCHES: Dict[str, int] = {"lut16_score": 0, "lut16_fused_sweep": 0}
+
+# the CUDA kernels' tiles (csrc/lut16_scoring.cu): score kernel words per
+# (subspace, code) row of 32 queries; fused kernel queries and rows per CTA
+_SCORE_ROW_WORDS = 17
+_FUSED_Q, _FUSED_ROWS = 64, 1024
+# elements of the [B, T] accumulator one step of a twin holds
+_TWIN_ELEMS = 1 << 24
+
+_fns = None
+
+
+def reset_launches() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def _kernel_fns():
+    global _fns
+    if _fns is None:
+        from scann_tpu_torch import native
+
+        lib = native.load("lut16_scoring")
+        vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        score = lib.lut16_score
+        score.argtypes = [vp, vp, vp, i32, i32, i32, i64, i32, vp]
+        score.restype = ctypes.c_int
+        fused = lib.lut16_fused_sweep
+        fused.argtypes = [vp, vp, vp, i32, i32, i64, i64, i32, vp]
+        fused.restype = ctypes.c_int
+        _fns = (score, fused)
+    return _fns
+
+
+def _aligned16(t: torch.Tensor) -> torch.Tensor:
+    """Contiguous, starting 16-byte aligned (the kernels' vector loads)."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def _launch(fn, name: str, *args) -> None:
+    err = fn(*args)
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
+    LAUNCHES[name] += 1
+
+
+# ---------------------------------------------------------------------------
+# LUT16 scoring (#8)
+# ---------------------------------------------------------------------------
+
+
+def _check_score_args(luts: torch.Tensor, codes_t: torch.Tensor, out_dtype):
+    if luts.dim() != 3 or codes_t.dim() != 2:
+        raise ValueError("luts must be [B, S, C] and codes_t [S, N]")
+    if not luts.is_floating_point():
+        raise ValueError(f"luts must be floating point, got {luts.dtype}")
+    if codes_t.dtype != torch.uint8:
+        raise ValueError(f"codes_t must be uint8, got {codes_t.dtype}")
+    if luts.shape[1] != codes_t.shape[0]:
+        raise ValueError(f"luts have {luts.shape[1]} subspaces, codes_t "
+                         f"{codes_t.shape[0]}")
+    if out_dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"out_dtype must be float32 or bfloat16, got "
+                         f"{out_dtype}")
+
+
+def lut16_score_reference(luts: torch.Tensor, codes_t: torch.Tensor,
+                          out_dtype: torch.dtype = torch.float32
+                          ) -> torch.Tensor:
+    """Twin of the score kernel: [B, N] in ``out_dtype``. Table entries are
+    rounded to bf16 (nearest even), summed in float32 in ascending s, and the
+    sum rounded once to ``out_dtype``. Works on any device."""
+    _check_score_args(luts, codes_t, out_dtype)
+    b, n = luts.shape[0], codes_t.shape[1]
+    table = luts.to(torch.bfloat16).float()
+    out = torch.empty(b, n, dtype=out_dtype, device=luts.device)
+    step = max(1, _TWIN_ELEMS // max(b, 1))
+    for lo in range(0, n, step):
+        hi = min(lo + step, n)
+        acc = torch.zeros(b, hi - lo, dtype=torch.float32, device=luts.device)
+        out[:, lo:hi] = sum_lut_entries(table, codes_t[:, lo:hi], acc)
+    return out
+
+
+def lut16_score(luts: torch.Tensor, codes_t: torch.Tensor,
+                out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """Approximate distances [B, N] from per-query tables.
+
+    Args:
+        luts: [B, S, C] float32 per-query tables.
+        codes_t: [S, N] uint8 transposed database codes (values below C).
+        out_dtype: float32, or bf16, which halves the score matrix's bytes
+            (candidates are re-ranked exactly anyway).
+
+    CPU tensors go to :func:`lut16_score_reference`; CUDA tensors to the
+    CUDA kernel, built from ``csrc/lut16_scoring.cu`` at first use. A failed
+    build or launch raises: there is no fallback on the GPU."""
+    if not on_card(luts, "lut16_score"):
+        return lut16_score_reference(luts, codes_t, out_dtype)
+    _check_score_args(luts, codes_t, out_dtype)
+    if codes_t.device != luts.device:
+        raise ValueError(f"codes_t is on {codes_t.device}, luts on "
+                         f"{luts.device}")
+    b, s, c = luts.shape
+    n = codes_t.shape[1]
+    smem = 4 * _SCORE_ROW_WORDS * s * c
+    if smem > MAX_SHARED_MEMORY:
+        raise ValueError(f"tables of S={s} x C={c} need {smem} bytes of "
+                         f"shared memory, more than the {MAX_SHARED_MEMORY} "
+                         f"a block has")
+    out = torch.empty(b, n, dtype=out_dtype, device=luts.device)
+    if b == 0 or n == 0:
+        return out
+    table = luts.to(torch.bfloat16).contiguous()
+    codes = codes_t.contiguous()
+    score, _ = _kernel_fns()
+    with torch.cuda.device(luts.device):
+        stream = torch.cuda.current_stream(luts.device).cuda_stream
+        _launch(score, "lut16_score", table.data_ptr(), codes.data_ptr(),
+                out.data_ptr(), b, s, c, n, int(out_dtype == torch.bfloat16),
+                stream)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# fused int8 LUT16 sweep with the block minimum (#7)
+# ---------------------------------------------------------------------------
+
+
+def _check_fused_args(luts_i8: torch.Tensor, codes_packed_t: torch.Tensor,
+                      r: int):
+    """(B, sh, N, C) of a fused-sweep call."""
+    if luts_i8.dim() != 2 or codes_packed_t.dim() != 2:
+        raise ValueError("luts_i8 must be [B, S_pad*C] and codes_packed_t "
+                         "[S_pad/2, N]")
+    if luts_i8.dtype != torch.int8:
+        raise ValueError(f"luts_i8 must be int8, got {luts_i8.dtype}")
+    if codes_packed_t.dtype != torch.uint8:
+        raise ValueError(f"codes_packed_t must be uint8, got "
+                         f"{codes_packed_t.dtype}")
+    b, width = luts_i8.shape
+    sh, n = codes_packed_t.shape
+    s_pad = 2 * sh
+    c = width // s_pad if s_pad else 0
+    if s_pad == 0 or c * s_pad != width or not 1 <= c <= 16:
+        raise ValueError(f"LUT width {width} is not S_pad={s_pad} times a "
+                         f"code count in [1, 16]")
+    if r < 1 or n % r:
+        raise ValueError(f"{n} rows are not a multiple of r={r}")
+    if 255 * s_pad * r + r >= 1 << 24:
+        raise ValueError(f"combined values 255*S_pad*r + r with S_pad={s_pad},"
+                         f" r={r} reach 2**24: not exact in float32")
+    return b, sh, n, c
+
+
+def lut16_fused_sweep_reference(luts_i8: torch.Tensor,
+                                codes_packed_t: torch.Tensor, n_valid: int,
+                                r: int = 32) -> torch.Tensor:
+    """Twin of the fused kernel: [N/r, B] float32 combined block minima.
+    int32 sums over the packed bytes (low nibble through table row j, high
+    nibble through row sh + j), then the combined value and the minimum.
+    Works on any device."""
+    b, sh, n, c = _check_fused_args(luts_i8, codes_packed_t, r)
+    s_pad = 2 * sh
+    device = luts_i8.device
+    table = luts_i8.reshape(b, s_pad, c).to(torch.int32)
+    out = torch.empty(n // r, b, dtype=torch.float32, device=device)
+    step = max(r, _TWIN_ELEMS // max(b, 1) // r * r)
+    for lo in range(0, n, step):
+        hi = min(lo + step, n)
+        acc = torch.zeros(b, hi - lo, dtype=torch.int32, device=device)
+        for j in range(sh):
+            v = codes_packed_t[j, lo:hi].long()
+            acc.add_(table[:, j, :].index_select(1, v & 0xF))
+            acc.add_(table[:, sh + j, :].index_select(1, v >> 4))
+        rows = torch.arange(lo, hi, device=device)
+        comb = ((acc + 128 * s_pad) * r + (rows % r).int()).float()
+        comb = torch.where(rows < n_valid, comb, INVALID_COMBINED)
+        out[lo // r:hi // r] = comb.view(b, -1, r).amin(dim=2).T
+    return out
+
+
+def lut16_fused_sweep(luts_i8: torch.Tensor, codes_packed_t: torch.Tensor,
+                      n_valid: int, r: int = 32) -> torch.Tensor:
+    """Fused LUT16 sweep + block minimum: [N/r, B] float32 combined values.
+
+    Args:
+        luts_i8: [B, S_pad*C] int8 quantized tables, even-first subspace
+            order, biased by -128 (``hashes/lut.luts_i8_evenfirst``).
+        codes_packed_t: [S_pad/2, N] uint8 packed nibbles, N % r == 0.
+        n_valid: rows >= n_valid never win a block; a block with none
+            below it holds INVALID_COMBINED.
+        r: rows per block (the kernel takes a power of two in [8, 1024]).
+
+    Decode: sumq = int(out) // r; row = block*r + int(out) % r;
+    distance = sumq * multiplier + bias * S_real.
+
+    CPU tensors go to :func:`lut16_fused_sweep_reference`; CUDA tensors to
+    the CUDA kernel, or raise."""
+    if not on_card(luts_i8, "lut16_fused_sweep"):
+        return lut16_fused_sweep_reference(luts_i8, codes_packed_t, n_valid,
+                                           r)
+    b, sh, n, c = _check_fused_args(luts_i8, codes_packed_t, r)
+    if codes_packed_t.device != luts_i8.device:
+        raise ValueError(f"codes_packed_t is on {codes_packed_t.device}, "
+                         f"luts_i8 on {luts_i8.device}")
+    if r < 8 or r > _FUSED_ROWS or r & (r - 1):
+        raise ValueError(f"the CUDA kernel takes r a power of two in [8, "
+                         f"{_FUSED_ROWS}], got {r}")
+    smem = _FUSED_Q * (32 * sh + 16) + sh * _FUSED_ROWS
+    if smem > MAX_SHARED_MEMORY:
+        raise ValueError(f"S_pad={2 * sh} needs {smem} bytes of shared "
+                         f"memory, more than the {MAX_SHARED_MEMORY} a block "
+                         f"has")
+    out = torch.empty(n // r, b, dtype=torch.float32, device=luts_i8.device)
+    if b == 0 or n == 0:
+        return out
+    if c < 16:
+        # the kernel's k32 step is one packed byte: 16 entries per subspace
+        luts_i8 = torch.nn.functional.pad(
+            luts_i8.reshape(b, 2 * sh, c), (0, 16 - c)).reshape(b, -1)
+    luts = _aligned16(luts_i8)
+    codes = _aligned16(codes_packed_t)
+    _, fused = _kernel_fns()
+    with torch.cuda.device(luts.device):
+        stream = torch.cuda.current_stream(luts.device).cuda_stream
+        _launch(fused, "lut16_fused_sweep", luts.data_ptr(), codes.data_ptr(),
+                out.data_ptr(), b, sh, n, int(n_valid), r, stream)
+    return out
+

@@ -49,7 +49,12 @@ import torch
 
 from scann_tpu_torch.ops.distances import DistanceMeasure, gathered_distances
 from scann_tpu_torch.ops.topk import approx_top_k_smallest, top_k_smallest
-from scann_tpu_torch.types import MASKED_DISTANCE, align_up
+from scann_tpu_torch.types import (
+    MASKED_DISTANCE,
+    MAX_SHARED_MEMORY,
+    align_up,
+    on_card,
+)
 from scann_tpu_torch.utils.reordering import (
     gather_rerank_rows,
     rerank_store_rows,
@@ -76,8 +81,6 @@ LAUNCHES: Dict[str, int] = {"block_min": 0, "block_min_qmajor": 0,
 # the JAX package pads a search batch to this many queries (its bf16
 # sublane count) before the dispatch reads the batch size
 _BATCH_ALIGN = 16
-# shared memory one block may use on Hopper (bytes)
-_MAX_SMEM = 232_448
 # the CUDA kernel's tiles: rows per tile, queries per block, and the
 # deepest tournament stack across tiles (r <= 128 * 2**6)
 _TILE_ROWS, _TILE_Q, _MAX_R = 128, 128, 8192
@@ -568,9 +571,10 @@ def _launch(name: str, q_aug, db_aug, r: int, penalty, *, qmajor: bool,
             raise ValueError(f"penalty must be [{n // r}, {r}] bfloat16, got "
                              f"{tuple(penalty.shape)} {penalty.dtype}")
     smem = kernel_smem_bytes(d1, db_aug.dtype == torch.int8, top2)
-    if smem > _MAX_SMEM:
+    if smem > MAX_SHARED_MEMORY:
         raise ValueError(f"row width {d1} needs {smem} bytes of shared "
-                         f"memory, more than the {_MAX_SMEM} a block has")
+                         f"memory, more than the {MAX_SHARED_MEMORY} a block "
+                         f"has")
     if n >= 1 << 31:
         raise ValueError(f"the CUDA kernel takes fewer than 2**31 rows, got "
                          f"{n}")
@@ -606,16 +610,6 @@ def _launch(name: str, q_aug, db_aug, r: int, penalty, *, qmajor: bool,
     return (v1, l1, v2, l2) if top2 else (v1, l1)
 
 
-def _on_card(q_aug: torch.Tensor, fn_name: str) -> bool:
-    """True for CUDA tensors (the kernel), False for CPU ones (the twin)."""
-    if q_aug.device.type == "cpu":
-        return False
-    if q_aug.device.type != "cuda":
-        raise ValueError(f"{fn_name} runs on CPU or CUDA tensors, got "
-                         f"{q_aug.device}")
-    return True
-
-
 def block_min_sweep(q_aug: torch.Tensor, db_aug: torch.Tensor, *,
                     r: int = 32, penalty: Optional[torch.Tensor] = None
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -623,7 +617,7 @@ def block_min_sweep(q_aug: torch.Tensor, db_aug: torch.Tensor, *,
     offsets within each contiguous r-row block). ``penalty``: optional
     [N/r, r] bf16 allowlist penalty added before the reduction
     (:func:`build_allow_penalty`)."""
-    if not _on_card(q_aug, "block_min_sweep"):
+    if not on_card(q_aug, "block_min_sweep"):
         return block_min_sweep_reference(q_aug, db_aug, r=r, penalty=penalty)
     return _launch("block_min", q_aug, db_aug, r, penalty, qmajor=False,
                    compact=False, top2=False)
@@ -635,7 +629,7 @@ def block_min_sweep_qmajor(q_aug: torch.Tensor, db_aug: torch.Tensor, *,
                            ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Query-major block minima: (vals [B, N/r], locs [B, N/r]), float32 +
     int32, or bf16 + uint8 with ``compact=True`` (needs r <= 256)."""
-    if not _on_card(q_aug, "block_min_sweep_qmajor"):
+    if not on_card(q_aug, "block_min_sweep_qmajor"):
         return block_min_sweep_qmajor_reference(q_aug, db_aug, r=r,
                                                 compact=compact,
                                                 penalty=penalty)
@@ -648,7 +642,7 @@ def block_min2_sweep(q_aug: torch.Tensor, db_aug: torch.Tensor, *,
                      r: int = 32, penalty: Optional[torch.Tensor] = None):
     """The two smallest per block by tournament: (v1, l1, v2, l2), each
     [N/r, B] (float32 values, int32 offsets)."""
-    if not _on_card(q_aug, "block_min2_sweep"):
+    if not on_card(q_aug, "block_min2_sweep"):
         return block_min2_sweep_reference(q_aug, db_aug, r=r,
                                           penalty=penalty)
     return _launch("block_min2", q_aug, db_aug, r, penalty, qmajor=False,

@@ -32,7 +32,11 @@ from typing import Tuple
 
 import torch
 
-from scann_tpu_torch.types import MASKED_DISTANCE
+from scann_tpu_torch.types import (
+    MASKED_DISTANCE,
+    MAX_SHARED_MEMORY,
+    on_card,
+)
 
 # int16 sentinel of the int8-LUT variant (not ported yet, ROADMAP.md
 # queue 2, kernel 1b); kept so the constant has one home in both packages
@@ -40,8 +44,6 @@ I16_MASK = 32767
 
 # q_cap values the CUDA kernel is instantiated for
 KERNEL_Q_CAPS = (1, 2, 4, 8, 16, 32)
-# shared memory one block may use on Hopper (bytes)
-_MAX_SMEM = 232_448
 
 # Kernel launches since the last reset: one per launch of the CUDA kernel,
 # never for the plain twin. A run reads it to show that the main path went
@@ -177,14 +179,10 @@ def tree_ah_grouped_scores(
     A failed build or launch raises: there is no fallback on the GPU. Rows
     of unused group slots hold scores of whatever LUT rows they were given;
     callers read rows back through the pair -> slot map only."""
-    if luts_grouped.device.type == "cpu":
+    if not on_card(luts_grouped, "tree_ah_grouped_scores"):
         return tree_ah_grouped_scores_reference(
             luts_grouped, codes_csr, grp_offsets, grp_sizes, l_cap=l_cap,
             l_tile=l_tile, q_cap=q_cap, packed=packed)
-    if luts_grouped.device.type != "cuda":
-        raise ValueError(
-            f"tree_ah_grouped_scores runs on CPU or CUDA tensors, got "
-            f"{luts_grouped.device}")
     ng, s_pad, c = _check_args(luts_grouped, codes_csr, grp_offsets,
                                grp_sizes, l_cap=l_cap, l_tile=l_tile,
                                q_cap=q_cap, packed=packed)
@@ -201,9 +199,10 @@ def tree_ah_grouped_scores(
     if q_cap not in KERNEL_Q_CAPS:
         raise ValueError(f"q_cap={q_cap} not in {KERNEL_Q_CAPS}")
     smem = 2 * q_cap * s_pad * c
-    if smem > _MAX_SMEM:
+    if smem > MAX_SHARED_MEMORY:
         raise ValueError(f"LUT rows of one group need {smem} bytes of shared "
-                         f"memory, more than the {_MAX_SMEM} a block has")
+                         f"memory, more than the {MAX_SHARED_MEMORY} a block "
+                         f"has")
     luts = luts_grouped.to(torch.bfloat16).contiguous()
     out = torch.empty(ng * q_cap, l_cap, dtype=torch.bfloat16, device=device)
     fn = _kernel_fn()

@@ -22,6 +22,10 @@ MASKED_DISTANCE = np.float32(3.4e38) / 2
 # caller names another device (the CPU tests pass device="cpu").
 DEFAULT_DEVICE = "cuda"
 
+# Shared memory one thread block may use on Hopper (bytes), the limit every
+# kernel wrapper checks before a launch.
+MAX_SHARED_MEMORY = 232_448
+
 
 def align_up(x: int, alignment: int) -> int:
     """Round ``x`` up to a multiple of ``alignment``."""
@@ -45,3 +49,15 @@ def require_device(device: Union[str, torch.device]) -> torch.device:
             f"scann_tpu_torch runs on {device} by default, but no CUDA "
             f"device is available; pass device='cpu' to run on the CPU")
     return device
+
+
+def on_card(t: torch.Tensor, fn_name: str) -> bool:
+    """Where a kernel wrapper sends ``t``: True for a CUDA tensor (the
+    kernel), False for a CPU tensor (its plain twin); any other device
+    raises."""
+    if t.device.type == "cpu":
+        return False
+    if t.device.type != "cuda":
+        raise ValueError(f"{fn_name} runs on CPU or CUDA tensors, got "
+                         f"{t.device}")
+    return True

@@ -196,3 +196,156 @@ def test_block_sweep_searcher_on_card():
     assert recall >= 0.98
     np.testing.assert_allclose(dist, np.take_along_axis(d2, idx, 1),
                                rtol=1e-4, atol=1e-3)
+
+
+# -- LUT16 scoring (csrc/lut16_scoring.cu) ------------------------------------
+
+
+def _fused_inputs(rng, *, b, s, n, c=16):
+    """u8 tables -> even-first int8 tables and packed transposed codes, as
+    the hasher lays them out."""
+    from scann_tpu_torch.hashes import lut, lut16
+
+    luts_u8 = torch.from_numpy(rng.integers(0, 256, size=(b, s, c)).astype(
+        np.uint8))
+    codes = rng.integers(0, c, size=(n, s)).astype(np.uint8)
+    packed_t = np.ascontiguousarray(lut16.pack_codes_4bit(codes).T)
+    return (lut.luts_i8_evenfirst(luts_u8).cuda(),
+            torch.from_numpy(packed_t).cuda())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s,r,b,n,n_valid", [
+    (50, 32, 1024, 16384, 16000),     # the main path's S and r
+    (50, 32, 100, 4096, 4096 - 40),   # B not a multiple of 64, last block out
+    (7, 16, 64, 2048, 1000),          # odd S, r < 32
+    (8, 8, 33, 1040, 1040),           # r = 8, N not a multiple of 1024
+    (12, 64, 70, 3072, 2999),         # r > 32: a running minimum per warp
+    (4, 1024, 5, 4096, 3500),         # r = one CTA tile
+    (2, 32, 3, 96, 50),               # N % 16 != 0: byte-wise code staging
+])
+def test_lut16_fused_sweep_kernel_matches_twin(s, r, b, n, n_valid):
+    """Combined block minima equal, bit for bit: integer sums, the lowest
+    row first among equal sums, INVALID_COMBINED blocks."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from scann_tpu_torch.ops import scoring_kernels as sk
+
+    rng = np.random.default_rng(s * 1000 + r + b)
+    i8, packed = _fused_inputs(rng, b=b, s=s, n=n)
+    before = sk.LAUNCHES["lut16_fused_sweep"]
+    got = sk.lut16_fused_sweep(i8, packed, n_valid, r=r)
+    torch.cuda.synchronize()
+    assert sk.LAUNCHES["lut16_fused_sweep"] == before + 1
+    want = sk.lut16_fused_sweep_reference(i8, packed, n_valid, r)
+    assert got.shape == want.shape == (n // r, b)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.cuda
+def test_lut16_fused_sweep_kernel_small_code_count_and_ties():
+    """C < 16 (tables padded to 16 entries for the kernel) and tables with a
+    tiny range, where equal sums are common."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from scann_tpu_torch.hashes import lut, lut16
+    from scann_tpu_torch.ops import scoring_kernels as sk
+
+    rng = np.random.default_rng(2)
+    b, s, c, n = 40, 9, 5, 2048
+    luts_u8 = torch.from_numpy(rng.integers(0, 3, size=(b, s, c)).astype(
+        np.uint8))
+    codes = rng.integers(0, c, size=(n, s)).astype(np.uint8)
+    packed = torch.from_numpy(np.ascontiguousarray(
+        lut16.pack_codes_4bit(codes).T)).cuda()
+    i8 = lut.luts_i8_evenfirst(luts_u8).cuda()
+    got = sk.lut16_fused_sweep(i8, packed, 2000, r=32)
+    want = sk.lut16_fused_sweep_reference(i8, packed, 2000, 32)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s,c,n", [(1024, 50, 16, 20000), (100, 7, 16, 5000),
+                                     (33, 8, 256, 777), (1, 3, 4, 10)])
+def test_lut16_score_kernel_matches_twin(out_dtype, b, s, c, n):
+    """Bit-identical: both add bf16(entry) in ascending s in float32 and
+    round once to the output type."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from scann_tpu_torch.ops import scoring_kernels as sk
+
+    rng = np.random.default_rng(b + s + c + n)
+    luts = torch.from_numpy((rng.normal(size=(b, s, c)) * 5).astype(
+        np.float32)).cuda()
+    codes_t = torch.from_numpy(rng.integers(0, c, size=(s, n)).astype(
+        np.uint8)).cuda()
+    before = sk.LAUNCHES["lut16_score"]
+    got = sk.lut16_score(luts, codes_t, out_dtype)
+    torch.cuda.synchronize()
+    assert sk.LAUNCHES["lut16_score"] == before + 1
+    want = sk.lut16_score_reference(luts, codes_t, out_dtype)
+    assert got.dtype == out_dtype and got.shape == (b, n)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_lut16_kernels_raise_instead_of_falling_back():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from scann_tpu_torch.ops import scoring_kernels as sk
+
+    rng = np.random.default_rng(0)
+    i8, packed = _fused_inputs(rng, b=8, s=8, n=1024)
+    before = dict(sk.LAUNCHES)
+    with pytest.raises(ValueError, match="power of two"):
+        sk.lut16_fused_sweep(i8, packed, 1024, r=4)
+    with pytest.raises(ValueError, match="shared memory"):
+        sk.lut16_fused_sweep(torch.zeros(1, 300 * 16, dtype=torch.int8,
+                                         device="cuda"),
+                             torch.zeros(150, 64, dtype=torch.uint8,
+                                         device="cuda"), 64, r=32)
+    with pytest.raises(ValueError, match="is on"):
+        sk.lut16_fused_sweep(i8, packed.cpu(), 1024, r=32)
+    luts = torch.zeros(2, 4000, 16, device="cuda")
+    with pytest.raises(ValueError, match="shared memory"):
+        sk.lut16_score(luts, torch.zeros(4000, 8, dtype=torch.uint8,
+                                         device="cuda"))
+    with pytest.raises(ValueError, match="uint8"):
+        sk.lut16_score(luts[:, :8], torch.zeros(8, 8, dtype=torch.int32,
+                                                device="cuda"))
+    assert sk.LAUNCHES == before
+
+
+@pytest.mark.cuda
+def test_asymmetric_hasher_on_card():
+    """The hasher's default device is the card; every path launches its
+    kernel and returns exact re-ranked distances at recall near 1."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from scann_tpu_torch import (AsymmetricHasher, AsymmetricHasherConfig,
+                                 DenseDataset, SearchParameters)
+    from scann_tpu_torch.ops import scoring_kernels as sk
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.default_rng(5)
+    db = rng.normal(size=(40_000, 32)).astype(np.float32)
+    q = rng.normal(size=(64, 32)).astype(np.float32)
+    h = AsymmetricHasher(AsymmetricHasherConfig(
+        num_codes=16, num_subspaces=16, seed=0, max_iterations=8,
+        training_sample_size=10_000)).build(DenseDataset(db))
+    assert h.device.type == "cuda" and h.codes.is_cuda
+    d2 = ((q[:, None, :] - db[None]) ** 2).sum(-1)
+    gt = np.argsort(d2, axis=1)[:, :10]
+    for pre_k, kernel in ((300, "lut16_fused_sweep"), (None, "lut16_score"),
+                          (700, "lut16_score")):
+        sk.reset_launches()
+        idx, dist = h.search_batched_arrays(q, 10, SearchParameters(
+            pre_reordering_num_neighbors=pre_k))
+        assert sk.LAUNCHES[kernel] == 1, (pre_k, sk.LAUNCHES)
+        if pre_k is not None:
+            recall = np.mean([len(set(a) & set(g)) / 10
+                              for a, g in zip(idx, gt)])
+            assert recall >= 0.9, (pre_k, recall)
+            np.testing.assert_allclose(dist, np.take_along_axis(d2, idx, 1),
+                                       rtol=1e-4, atol=1e-3)

@@ -173,7 +173,7 @@ def test_loader_rejects_unported_state(index):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tio.from_numpy_state(spilled, meta, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tio.from_numpy_state(arrays, dict(meta, kind="hashed"),
+        tio.from_numpy_state(arrays, dict(meta, kind="partitioned"),
                              device="cpu")
     s = tio.from_numpy_state(arrays, meta, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
