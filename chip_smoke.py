@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``scann_tpu_torch``) on one GPU.
 
-Drives the port's three serving paths once at GloVe-100 shape, over
+Drives the port's five serving paths once at GloVe-100 shape, over
 1,183,514 x 100 seeded synthetic clustered vectors and 10 batches of 1024
 queries:
 
@@ -26,6 +26,19 @@ queries:
   sweep, recall@10 >= 0.9), and drives the score kernel through the
   approximate-only path (B=128, float32 scores) and a 16,384-row hasher's
   re-rank path (bf16 scores);
+- exact brute force: serves the batches through
+  ``BruteForceSearcher.search_batched_tensors`` (the composed path,
+  recall@10 >= 0.999), then at the JAX package's bench.py headline shape
+  (10,000 x 64 uniform rows, seed 42, k=10) checks the fused small-database
+  kernel against its twin at B=100, serves B=100 through it (recall 1.0)
+  and B=6400 through the composed path;
+- scalar-quantized brute force: builds the int8 codes on the card, checks
+  the int8-dots kernel against its twin on the first batch and the full
+  transposed codes, serves the batches through
+  ``ScalarQuantizedBruteForceSearcher`` (recall@10 >= 0.9, ids equal to the
+  exact top-10 over the dequantized rows away from ties), and one batch
+  each with int4 codes (the same kernel) and bf16 and fp8 storage (the
+  float32 product);
 
 then times every kernel against its twin (L2 flushed) and the search stages
 with CUDA events.
@@ -55,7 +68,12 @@ SWEEP_R, SWEEP_PRE_K, SWEEP_RECALL_FLOOR = 64, 64, 0.99
 SEED = 0
 AH_S, AH_C, AH_PRE_K, AH_RECALL_FLOOR = 50, 16, 300, 0.9
 AH_SMALL_N, AH_APPROX_B = 16_384, 128
-KERNEL_SOURCES = ("tree_ah_grouped", "block_min_sweep", "lut16_scoring")
+BF_RECALL_FLOOR, SQ_RECALL_FLOOR = 0.999, 0.9
+# bench.py's headline: 10,000 x 64 uniform [0, 1) rows, seed 42, B=100 (the
+# fused kernel) and B=6400 (the composed path)
+HEAD_N, HEAD_D, HEAD_B, HEAD_B_SAT = 10_000, 64, 100, 6400
+KERNEL_SOURCES = ("tree_ah_grouped", "block_min_sweep", "lut16_scoring",
+                  "int8_dots", "fused_bf")
 # published H100 SXM peaks (dense): bf16 tensor cores, int8 tensor cores,
 # float32 outside the tensor cores, HBM3
 PEAK_BF16, PEAK_INT8, PEAK_F32, PEAK_HBM = 989e12, 1979e12, 67e12, 3.35e12
@@ -328,6 +346,8 @@ def main() -> int:
     records += block_sweep_phases(ds, queries, db_dev, gt_np, cold_ms, turns,
                                   smi)
     records += hasher_phases(ds, queries, db_dev, gt_np, cold_ms, turns, smi)
+    records += brute_force_phases(ds, queries, db_dev, gt_np, cold_ms, turns,
+                                  smi)
     print(json.dumps({"kernels": records}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
@@ -813,6 +833,403 @@ def hasher_phases(ds, queries, db_dev, gt_np, cold_ms, turns, smi):
          "max_abs_err": score_err, "ms": k_ms, "plain_ms": p_ms,
          "bound_ms": b_ms, "bound_by": b_by, "library_ms": None},
     ]
+
+
+def check_quantized(idx, dists, queries, rows, label):
+    """Holds quantized-search results against the exact top-k over the
+    stored (dequantized) ``rows`` [N, D] float32: returned distances equal
+    the rows' recomputed distances and the exact k smallest to 1e-5 of the
+    terms |q|^2 + |x|^2 the formula cancels; ids equal the exact ids at
+    every slot whose exact distance lies farther than that from its
+    neighbours' (the (k+1)-th included). Returns (max abs err, slots
+    compared, queries with a tie inside the tolerance)."""
+    import torch
+
+    if tuple(idx.shape) != (len(queries), K) or bool((idx < 0).any()):
+        raise AssertionError(f"{label}: bad result ids")
+    x_sq = (rows * rows).sum(1)
+    ev, ei = [], []
+    for i in range(0, len(queries), 256):
+        qb = queries[i:i + 256]
+        dd = (qb * qb).sum(1)[:, None] + x_sq[None, :] - 2.0 * (qb @ rows.T)
+        v, j = torch.topk(dd.clamp_min(0.0), K + 1, dim=1, largest=False)
+        ev.append(v)
+        ei.append(j)
+    ev, ei = torch.cat(ev), torch.cat(ei)
+    tol = 1e-5 * ((queries * queries).sum(1) + x_sq[ei].amax(1))[:, None]
+    here = ((queries[:, None, :] - rows[idx]) ** 2).sum(-1)
+    err = torch.maximum((dists - here).abs(), (dists - ev[:, :K]).abs())
+    if bool((err > tol).any()):
+        raise AssertionError(f"{label}: distances off the exact ones by up "
+                             f"to {float(err.max())}")
+    ext = torch.cat([torch.full_like(ev[:, :1], -float("inf")), ev], 1)
+    gap = torch.minimum(ext[:, 1:K + 1] - ext[:, :K],
+                        ext[:, 2:K + 2] - ext[:, 1:K + 1])
+    strict = gap > tol
+    if not torch.equal(idx[strict], ei[:, :K][strict]):
+        raise AssertionError(f"{label}: ids differ from the exact top-{K} "
+                             f"away from ties")
+    return (float(err.max()), int(strict.sum()),
+            int((~strict).any(1).sum()))
+
+
+def brute_force_phases(ds, queries, db_dev, gt_np, cold_ms, turns, smi):
+    """Phases 16-19, exact and scalar-quantized brute force; returns the
+    kernels' JSON records."""
+    import numpy as np
+    import torch
+
+    from scann_tpu_torch import (
+        BruteForceSearcher,
+        DenseDataset,
+        ScalarQuantizedBruteForceSearcher,
+        ScalarQuantizedConfig,
+    )
+    from scann_tpu_torch.models import brute_force as pbf
+    from scann_tpu_torch.ops import asymmetric as asym
+    from scann_tpu_torch.ops import fused_bf as fb
+    from scann_tpu_torch.ops import scoring_kernels as sk
+    from scann_tpu_torch.ops import topk as tk
+    from scann_tpu_torch.ops.distances import (
+        DistanceMeasure,
+        many_to_many,
+        mask_padded_rows,
+    )
+    from scann_tpu_torch.ops.topk import top_k_smallest
+    from scann_tpu_torch.types import MASKED_DISTANCE
+    from scann_tpu_torch.utils.benchmarking import recall_at_k
+
+    dev = queries.device
+    measure = DistanceMeasure.SQUARED_L2
+
+    def serve(s, qs, batch):
+        """(ids, distances, host wall s, fused launches, int8-dots
+        launches) of ``s`` over ``qs`` in calls of ``batch``, counted from
+        zero."""
+        fb.LAUNCHES = 0
+        sk.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = [s.search_batched_tensors(qs[i:i + batch], K)
+               for i in range(0, len(qs), batch)]
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        return (torch.cat([r[0] for r in res]), torch.cat([r[1] for r in res]),
+                wall, fb.LAUNCHES, sk.LAUNCHES["int8_dots"])
+
+    # -- 16. exact brute force over the 1.18M rows: the composed path ---------
+    bf = BruteForceSearcher(ds, device=dev)
+    if bf._use_fused(K, None, BATCH):
+        raise AssertionError("the 1.18M-row search passed the fused gate")
+    idx, dists, wall, f_l, _ = serve(bf, queries, BATCH)
+    bf_recall = recall_at_k(idx.cpu().numpy(), gt_np, K)
+    err = check_results(idx, dists, queries, db_dev, len(queries))
+    chunk = pbf.query_chunk(ds.size)
+    log(f"[16 brute force] {BATCHES} x B={BATCH}, k={K}, query chunk {chunk}: "
+        f"recall@10 {bf_recall:.4f} (floor {BF_RECALL_FLOOR}), fused "
+        f"launches {f_l}, returned vs recomputed distances max rel err "
+        f"{err:.3g}, host wall {wall:.3f}s")
+    if bf_recall < BF_RECALL_FLOOR:
+        raise AssertionError(f"brute force recall@10 {bf_recall} < "
+                             f"{BF_RECALL_FLOOR}")
+    if f_l:
+        raise AssertionError("the composed path launched the fused kernel")
+    db, norms, n = bf._device_state()
+    q0 = queries[:BATCH]
+
+    def bf_staged(qb):
+        t = np.zeros(2)
+        for lo in range(0, len(qb), chunk):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+            ev[0].record()
+            dd = many_to_many(measure, qb[lo:lo + chunk], db, norms)
+            ev[1].record()
+            top_k_smallest(dd, K)
+            ev[2].record()
+            torch.cuda.synchronize()
+            t += [ev[0].elapsed_time(ev[1]), ev[1].elapsed_time(ev[2])]
+        return t
+
+    bf_staged(q0)
+    split = np.array([bf_staged(queries[i * BATCH:(i + 1) * BATCH])
+                      for i in range(BATCHES)])
+    log(f"[16 brute force stages] per batch ms, {-(-BATCH // chunk)} chunks: "
+        f"distances {split[:, 0].mean():.4f}, select {split[:, 1].mean():.4f}"
+        f", sum {split.sum(1).mean():.4f} ({smi})")
+    # aside: the port's selection (the k + 1 smallest float32 values, the
+    # tie-free int64 key only to order them) against the key over whole rows
+    dd = many_to_many(measure, q0[:chunk], db, norms)
+    by_value, by_key = turns(lambda: top_k_smallest(dd, K),
+                             lambda: tk._top_k_by_key(dd, K), 10, 10)
+    if not torch.equal(top_k_smallest(dd, K)[1], tk._top_k_by_key(dd, K)[1]):
+        raise AssertionError("the two selections disagree")
+    log(f"[16 aside] top-{K} of one chunk [{dd.shape[0]}, {dd.shape[1]}] "
+        f"float32, L2 flushed: by value {by_value:.4f} ms, by the int64 key "
+        f"over the whole row {by_key:.4f} ms, same ids ({smi})")
+    del dd
+    # aside for the fused gate: the fused kernel on this search, which the
+    # JAX package's 14 MB gate sends to the composed path
+    got_v, got_i = fb.fused_bf_search(q0, db, norms, n, K)
+    torch.cuda.synchronize()
+    check_results(got_i.long(), got_v, q0, db_dev, BATCH)
+    f_recall = recall_at_k(got_i.cpu().numpy(), gt_np[:BATCH], K)
+    f_ms, c_ms = turns(lambda: fb.fused_bf_search(q0, db, norms, n, K),
+                       lambda: bf.search_batched_tensors(q0, K), 3, 3)
+    log(f"[16 aside] the fused kernel on one batch of this search (B={BATCH},"
+        f" {n} rows; the gate refuses it): recall@10 {f_recall:.4f}, L2 "
+        f"flushed {f_ms:.4f} ms against {c_ms:.4f} ms for the composed path "
+        f"({smi})")
+    med, top = event_ms(lambda qb: bf.search_batched_tensors(qb, K), queries,
+                        BATCH, BATCHES)
+    log(f"[16 brute force search time] search_batched_tensors, B={BATCH}, "
+        f"n={3 * BATCHES} batches: median {med:.4f} ms, max {top:.4f} ms -> "
+        f"{BATCH / med * 1e3:.0f} queries/s at recall@10 {bf_recall:.4f} "
+        f"({smi})")
+    del bf, db, norms
+
+    # -- 17. the fused kernel at bench.py's headline shape --------------------
+    rng = np.random.default_rng(42)
+    h_ds = DenseDataset(rng.random((HEAD_N, HEAD_D), dtype=np.float32))
+    hq = torch.from_numpy(rng.random((HEAD_B, HEAD_D),
+                                     dtype=np.float32)).to(dev)
+    hsat = torch.from_numpy(rng.random((HEAD_B_SAT, HEAD_D),
+                                       dtype=np.float32)).to(dev)
+    hs = BruteForceSearcher(h_ds, device=dev)
+    hdb, hnorms, hn = hs._device_state()
+    if not hs._use_fused(K, None, HEAD_B) or hs._use_fused(K, None,
+                                                           HEAD_B_SAT):
+        raise AssertionError("the gate should pass B=100 and refuse B=6400")
+    got_v, got_i = fb.fused_bf_search(hq, hdb, hnorms, hn, K)
+    torch.cuda.synchronize()
+    rep = fb.check_against_twin(hq, hdb, hnorms, hn, K, got_v, got_i)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    per_split, n_splits = fb.split_plan(HEAD_B, HEAD_N, sms)
+    log(f"[17 kernel check] fused_bf: B={HEAD_B}, {HEAD_N} x {HEAD_D}, k={K}, "
+        f"{n_splits} row splits of {per_split} x 256 rows x "
+        f"{-(-HEAD_B // 32)} query tiles: max abs err "
+        f"{rep['max_abs_err']:.6g}, max rel err {rep['max_rel_err']:.3g} "
+        f"(tolerance 1e-5 of |q|^2 + |x|^2), ids equal at "
+        f"{rep['ids_compared']} of {HEAD_B * K} slots away from ties")
+    exact = torch.cat([torch.topk(((hq[i:i + 25, None, :] - hdb[None]) ** 2)
+                                  .sum(-1), K, dim=1, largest=False).indices
+                       for i in range(0, HEAD_B, 25)]).cpu().numpy()
+    head = {}
+    for label, qs in (("fused", hq), ("composed", hsat)):
+        idx, dists, wall, f_l, _ = serve(hs, qs, len(qs))
+        check_results(idx, dists, qs, hdb, len(qs))
+        if label == "fused":
+            head_recall = recall_at_k(idx.cpu().numpy(), exact, K)
+            fused_launches = f_l
+            if head_recall < 1.0 or f_l <= 0:
+                raise AssertionError(f"fused path: recall {head_recall}, "
+                                     f"launches {f_l}")
+        elif f_l:
+            raise AssertionError("B=6400 launched the fused kernel")
+        head[label] = event_ms(lambda qb: hs.search_batched_tensors(qb, K),
+                               qs, len(qs), 1, reps=30)
+        log(f"[17 headline/{label}] B={len(qs)}: launches of fused_bf {f_l}"
+            + (f", recall@10 {head_recall:.4f}" if label == "fused" else "")
+            + f"; per-batch median {head[label][0]:.4f} ms, max "
+            f"{head[label][1]:.4f} ms -> {len(qs) / head[label][0] * 1e3:.0f}"
+            f" queries/s ({smi})")
+
+    # aside for the fused gate: the kernel at B=6400, which the gate refuses
+    got_v, got_i = fb.fused_bf_search(hsat, hdb, hnorms, hn, K)
+    torch.cuda.synchronize()
+    sat = fb.check_against_twin(hsat, hdb, hnorms, hn, K, got_v, got_i)
+    f_ms, c_ms = turns(lambda: fb.fused_bf_search(hsat, hdb, hnorms, hn, K),
+                       lambda: hs.search_batched_tensors(hsat, K), 10, 10)
+    log(f"[17 aside] the fused kernel at B={HEAD_B_SAT} (the gate refuses "
+        f"it): max abs err against the twin {sat['max_abs_err']:.6g}, L2 "
+        f"flushed {f_ms:.4f} ms against {c_ms:.4f} ms for the composed path "
+        f"({smi})")
+
+    # -- 18. scalar-quantized int8 over the 1.18M rows ------------------------
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sq = ScalarQuantizedBruteForceSearcher(ds, ScalarQuantizedConfig(
+        storage="int8"), device=dev)
+    codes_t, norms_t, n, transposed = sq.device_codes()
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    quant = sq.quantized_dataset.quantizer
+    if not transposed:
+        raise AssertionError("int8 codes on the card must take the kernel")
+    log(f"[18 sq build] int8: {build_s:.2f}s (host statistics, codec on the "
+        f"card, both layouts), range [{quant.min_value:.4f}, "
+        f"{quant.max_value:.4f}], scale {quant.scale:.6f}, transposed codes "
+        f"{list(codes_t.shape)} {codes_t.numel()} bytes, memory_usage "
+        f"{sq.memory_usage()}")
+    got = sk.int8_dots(q0, codes_t)
+    torch.cuda.synchronize()
+    dots_err = 0.0
+    for lo in range(0, codes_t.shape[1], 1 << 17):
+        c = codes_t[:, lo:lo + (1 << 17)]
+        want = sk.int8_dots_reference(q0, c)
+        diff = (got[:, lo:lo + c.shape[1]] - want).abs()
+        if bool((diff > 1e-5 * (q0.abs() @ c.float())).any()):
+            raise AssertionError("int8_dots differs from its twin past "
+                                 "1e-5 * sum|q c|")
+        dots_err = max(dots_err, float(diff.max()))
+    del got, want, diff
+    log(f"[18 kernel check] int8_dots: B={BATCH}, codes {list(codes_t.shape)}"
+        f" -> [{BATCH}, {codes_t.shape[1]}]: max abs err {dots_err:.6g} "
+        f"(tolerance 1e-5 * sum_d |q_d c_d| per entry)")
+    scale = torch.tensor(quant.scale, dtype=torch.float32, device=dev)
+    lo_v = torch.tensor(quant.min_value, dtype=torch.float32, device=dev)
+    deq = (codes_t[:, :n].T.float() * scale + lo_v).contiguous()
+    idx, dists, wall, _, sq_launches = serve(sq, queries, BATCH)
+    sq_recall = recall_at_k(idx.cpu().numpy(), gt_np, K)
+    q_err, q_cmp, q_ties = check_quantized(idx, dists, queries, deq, "int8")
+    log(f"[18 sq search/int8] {BATCHES} x B={BATCH}: recall@10 "
+        f"{sq_recall:.4f} (floor {SQ_RECALL_FLOOR}) against float32 exact, "
+        f"int8_dots launches {sq_launches}; against the exact top-{K} over "
+        f"the dequantized rows: max abs err {q_err:.4g}, ids equal at "
+        f"{q_cmp} slots, {q_ties} queries with a tie inside the tolerance; "
+        f"host wall {wall:.3f}s")
+    if sq_recall < SQ_RECALL_FLOOR or sq_launches <= 0:
+        raise AssertionError(f"int8: recall {sq_recall}, launches "
+                             f"{sq_launches}")
+    del deq
+
+    # -- 19. side paths (one batch each), then timings ------------------------
+    for storage in ("int4", "bf16", "fp8_e4m3"):
+        side = ScalarQuantizedBruteForceSearcher(ds, ScalarQuantizedConfig(
+            storage=storage), device=dev)
+        c, _, sn, tr = side.device_codes()
+        if tr:
+            qz = side.quantized_dataset.quantizer
+            rows = (c[:, :sn].T.float() * torch.tensor(
+                qz.scale, dtype=torch.float32, device=dev) + torch.tensor(
+                qz.min_value, dtype=torch.float32, device=dev)).contiguous()
+        else:
+            rows = c.float()
+        idx, dists, _, _, s_l = serve(side, q0, BATCH)
+        s_err, s_cmp, s_ties = check_quantized(idx, dists, q0, rows, storage)
+        s_recall = recall_at_k(idx.cpu().numpy(), gt_np[:BATCH], K)
+        log(f"[19 sq search/{storage}] B={BATCH}: recall@10 {s_recall:.4f} "
+            f"(no floor), int8_dots launches {s_l}, memory_usage "
+            f"{side.memory_usage()}; against the exact top-{K} over the "
+            f"stored values: max abs err {s_err:.4g}, ids equal at {s_cmp} "
+            f"slots, {s_ties} queries with a tie inside the tolerance")
+        if (s_l > 0) != tr:
+            raise AssertionError(f"{storage}: int8_dots launches {s_l}")
+        del side, c, rows
+
+    records = []
+    k9, p9 = turns(lambda: sk.int8_dots(q0, codes_t),
+                   lambda: sk.int8_dots_reference(q0, codes_t), 10, 3)
+    codes_f = codes_t.float()
+    lib9 = cold_ms(lambda: torch.matmul(q0, codes_f), 5)
+    del codes_f
+    n_pad = codes_t.shape[1]
+    ops9 = 2 * BATCH * D * n_pad
+    bytes9 = D * n_pad + 4 * BATCH * D + 4 * BATCH * n_pad
+    b9, by9 = bound(ops9, PEAK_F32, bytes9)
+    log(f"[19 kernel time] int8_dots: B={BATCH}, D={D}, N_pad {n_pad}, L2 "
+        f"flushed: kernel {k9:.4f} ms, plain twin {p9:.4f} ms, torch.matmul "
+        f"of float codes made beforehand {lib9:.4f} ms, bound {b9:.4f} ms, "
+        f"bound by {by9} ({ops9} float32 FLOP on the CUDA cores, {bytes9} "
+        f"bytes) -> {ops9 / k9 / 1e9:.1f} TFLOP/s, {b9 / k9:.3f} of the bound "
+        f"({smi})")
+    records.append({
+        "name": "int8_dots", "route": "cuda",
+        "source": "scann_tpu_torch/csrc/int8_dots.cu",
+        "replaces": "scann_tpu/ops/pallas_kernels.py:204",
+        "launches": sq_launches, "max_abs_err": dots_err, "ms": k9,
+        "plain_ms": p9, "bound_ms": b9, "bound_by": by9, "library_ms": lib9})
+
+    sq_chunk = pbf.query_chunk(n_pad)
+
+    def sq_staged(qb):
+        t = np.zeros(3)
+        for lo in range(0, len(qb), sq_chunk):
+            qc = qb[lo:lo + sq_chunk]
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+            ev[0].record()
+            raw = sk.int8_dots(qc, codes_t)
+            ev[1].record()
+            dd = asym.fold_affine(measure, qc, raw, norms_t, quant.scale,
+                                  quant.min_value)
+            ev[2].record()
+            top_k_smallest(mask_padded_rows(dd, n, MASKED_DISTANCE), K)
+            ev[3].record()
+            torch.cuda.synchronize()
+            t += [ev[i].elapsed_time(ev[i + 1]) for i in range(3)]
+        return t
+
+    sq_staged(q0)
+    split = np.array([sq_staged(queries[i * BATCH:(i + 1) * BATCH])
+                      for i in range(BATCHES)])
+    log(f"[19 sq stages] int8, per batch ms, query chunk {sq_chunk} "
+        f"({-(-BATCH // sq_chunk)} chunks): dots {split[:, 0].mean():.4f}, "
+        f"fold {split[:, 1].mean():.4f}, select {split[:, 2].mean():.4f}, sum "
+        f"{split.sum(1).mean():.4f} ({smi})")
+    med, top = event_ms(lambda qb: sq.search_batched_tensors(qb, K), queries,
+                        BATCH, BATCHES)
+    log(f"[19 sq search time] int8 search_batched_tensors, B={BATCH}, "
+        f"n={3 * BATCHES} batches: median {med:.4f} ms, max {top:.4f} ms -> "
+        f"{BATCH / med * 1e3:.0f} queries/s at recall@10 {sq_recall:.4f} "
+        f"({smi})")
+
+    k2, p2 = turns(lambda: fb.fused_bf_search(hq, hdb, hnorms, hn, K),
+                   lambda: fb.fused_bf_search_reference(hq, hdb, hnorms, hn,
+                                                        K), 50, 20)
+    ops2 = 2 * HEAD_B * HEAD_N * HEAD_D
+    bytes2 = 4 * (HEAD_B * HEAD_D + HEAD_N * HEAD_D + HEAD_N) + 8 * HEAD_B * K
+    b2, by2 = bound(ops2, PEAK_F32, bytes2)
+    log(f"[19 kernel time] fused_bf: B={HEAD_B}, {HEAD_N} x {HEAD_D}, k={K}, "
+        f"L2 flushed: kernel {k2:.4f} ms, plain twin (the composed path: "
+        f"product, mask, tie-free top-k) {p2:.4f} ms, bound {b2:.4f} ms, "
+        f"bound by {by2} ({ops2} float32 FLOP, {bytes2} bytes) -> "
+        f"{b2 / k2:.3f} of the bound ({smi})")
+    # aside: the kernel alone, launched back to back through its C entry
+    # point with the outputs and scratch allocated once, for k = 1, 10, 16
+    raw = []
+    per_split, n_splits = fb.split_plan(HEAD_B, HEAD_N, sms)
+    counters = torch.zeros(-(-HEAD_B // 32), dtype=torch.int32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    for kk in (1, K, fb.MAX_K):
+        out_v = torch.empty(HEAD_B, kk, device=dev)
+        out_i = torch.empty(HEAD_B, kk, dtype=torch.int32, device=dev)
+        part = torch.empty(HEAD_B * n_splits * kk, dtype=torch.int64,
+                           device=dev)
+
+        def launch():
+            counters.zero_()
+            if fb._kernel_fn()(
+                    hq.data_ptr(), hdb.data_ptr(), hnorms.data_ptr(), hn,
+                    HEAD_B, HEAD_D, HEAD_N, kk, per_split, n_splits,
+                    part.data_ptr(), counters.data_ptr(), out_v.data_ptr(),
+                    out_i.data_ptr(), stream):
+                raise AssertionError("fused_bf launch failed")
+
+        def back_to_back(fn, reps=300):
+            fn()
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            for _ in range(reps):
+                fn()
+            b.record()
+            torch.cuda.synchronize()
+            return a.elapsed_time(b) / reps
+
+        fb.check_against_twin(hq, hdb, hnorms, hn, kk, *(launch() or
+                                                          (out_v, out_i)))
+        raw.append(f"k={kk} {back_to_back(launch):.4f}")
+    reset_ms = back_to_back(counters.zero_)
+    log(f"[19 aside] fused_bf launched back to back, B={HEAD_B}: "
+        f"{'; '.join(raw)} ms each, of which the counter reset "
+        f"{reset_ms:.4f} ms ({smi})")
+    records.append({
+        "name": "fused_bf", "route": "cuda",
+        "source": "scann_tpu_torch/csrc/fused_bf.cu",
+        "replaces": "scann_tpu/ops/fused_bf_pallas.py:28",
+        "launches": fused_launches, "max_abs_err": rep["max_abs_err"],
+        "ms": k2, "plain_ms": p2, "bound_ms": b2, "bound_by": by2,
+        "library_ms": None})
+    return records
 
 
 if __name__ == "__main__":

@@ -10,9 +10,11 @@ CPU tensors take. The package never imports JAX.
 Entry points run on the current CUDA device unless the caller names another
 device (``device="cpu"``). The port serves the tree-x-AH search (partitions,
 residual PQ with packed int4 codes, exact re-rank) and builds its index, the
-block-sweep search (bf16 block-min sweep, exact re-rank) and the
+block-sweep search (bf16 block-min sweep, exact re-rank), the
 asymmetric-hashing search (PQ with LUT16 scoring: the fused int8 sweep over
-packed nibbles, exact re-rank).
+packed nibbles, exact re-rank), exact brute force (every dense measure; one
+fused kernel for small databases) and brute force over int8, int4, bf16 or
+fp8 copies of the rows (the int8-dots kernel for the integer codes).
 """
 
 from scann_tpu_torch.data.dataset import DenseDataset
@@ -26,21 +28,37 @@ from scann_tpu_torch.models.block_sweep import (
     BlockSweepConfig,
     BlockSweepSearcher,
 )
+from scann_tpu_torch.models.brute_force import BruteForceSearcher
+from scann_tpu_torch.models.scalar_quantized import (
+    ScalarQuantizedBruteForceSearcher,
+    ScalarQuantizedConfig,
+)
 from scann_tpu_torch.models.searcher import SearchParameters
 from scann_tpu_torch.models.tree_x_hybrid import (
     TreeXHybridConfig,
     TreeXHybridSearcher,
 )
 from scann_tpu_torch.ops.distances import DistanceMeasure
+from scann_tpu_torch.quantization.scalar import (
+    QuantizedDataset,
+    ScalarQuantizer,
+    ScalarQuantizerConfig,
+)
 
 __all__ = [
     "AsymmetricHasher",
     "AsymmetricHasherConfig",
     "BlockSweepConfig",
     "BlockSweepSearcher",
+    "BruteForceSearcher",
     "DenseDataset",
     "DistanceMeasure",
     "ErrorCode",
+    "QuantizedDataset",
+    "ScalarQuantizedBruteForceSearcher",
+    "ScalarQuantizedConfig",
+    "ScalarQuantizer",
+    "ScalarQuantizerConfig",
     "ScannError",
     "SearchParameters",
     "TreeXHybridConfig",

@@ -1,12 +1,14 @@
 """Index loading (counterpart of the ``kind == "tree_ah"``,
-``kind == "block_sweep"`` and ``kind == "hashed"`` readers of
-``scann_tpu/io.py``).
+``"block_sweep"``, ``"hashed"``, ``"brute_force"`` and
+``"scalar_quantized"`` readers of ``scann_tpu/io.py``).
 
 The file format is the JAX package's ``save_index`` npz: every array plus a
 JSON header (``__meta__``, uint8 bytes) with the config and index kind. This
-module reads it with numpy and ``json`` alone, so a tree-AH, block-sweep or
-asymmetric-hashing index saved by the JAX package serves through the port.
-Other index kinds wait for ROADMAP.md queue 1, item 9.
+module reads it with numpy and ``json`` alone, so a tree-AH, block-sweep,
+asymmetric-hashing, brute-force or scalar-quantized index saved by the JAX
+package serves through the port (a scalar-quantized index with its very
+codes, so both packages score the same bytes). Other index kinds wait for
+ROADMAP.md queue 1, item 9.
 """
 
 from __future__ import annotations
@@ -29,6 +31,11 @@ from scann_tpu_torch.models.block_sweep import (
     BlockSweepConfig,
     BlockSweepSearcher,
 )
+from scann_tpu_torch.models.brute_force import BruteForceSearcher
+from scann_tpu_torch.models.scalar_quantized import (
+    ScalarQuantizedBruteForceSearcher,
+    ScalarQuantizedConfig,
+)
 from scann_tpu_torch.models.tree_x_hybrid import (
     TreeXHybridConfig,
     TreeXHybridSearcher,
@@ -38,6 +45,11 @@ from scann_tpu_torch.partitioning.partitioner import DatabaseTokenization
 from scann_tpu_torch.partitioning.tree_partitioner import (
     TreePartitioner,
     TreePartitionerConfig,
+)
+from scann_tpu_torch.quantization.scalar import (
+    QuantizedDataset,
+    ScalarQuantizer,
+    ScalarQuantizerConfig,
 )
 from scann_tpu_torch.types import DEFAULT_DEVICE, require_device
 
@@ -88,24 +100,54 @@ def _block_sweep(arrays: Dict[str, np.ndarray], meta: dict,
         sweep_dtype=str(meta.get("sweep_dtype", "bfloat16"))), device=device)
 
 
+def _scalar_quantized(arrays: Dict[str, np.ndarray], meta: dict,
+                      device: torch.device
+                      ) -> ScalarQuantizedBruteForceSearcher:
+    """The JAX package's ``kind == "scalar_quantized"`` reader: int8 / int4
+    codes with their calibration (the range's top rebuilt as min + scale *
+    levels), or the float32 data of a bf16 / fp8 index, re-encoded."""
+    measure = DistanceMeasure(meta["measure"])
+    if "codes" in arrays:
+        quant = ScalarQuantizer(ScalarQuantizerConfig(bits=meta["bits"]),
+                                device=device)
+        quant.min_value = meta["min_value"]
+        quant.scale = meta["scale"]
+        quant.max_value = meta["min_value"] + meta["scale"] * quant.num_levels
+        quant.inv_scale = 1.0 / meta["scale"] if meta["scale"] else 1.0
+        return ScalarQuantizedBruteForceSearcher.from_quantized(
+            QuantizedDataset(arrays["codes"], quant), measure, device=device)
+    return ScalarQuantizedBruteForceSearcher(
+        DenseDataset(arrays["data"]),
+        ScalarQuantizedConfig(distance_measure=measure,
+                              storage=meta["storage"]), device=device)
+
+
+_READERS = {
+    "block_sweep": _block_sweep,
+    "hashed": _hashed,
+    "brute_force": lambda arrays, meta, device: BruteForceSearcher(
+        DenseDataset(arrays["data"]), DistanceMeasure(meta["measure"]),
+        device=device),
+    "scalar_quantized": _scalar_quantized,
+}
+
+
 def from_numpy_state(arrays: Dict[str, np.ndarray], meta: dict,
                      device: Union[str, torch.device] = DEFAULT_DEVICE):
     """A port searcher on ``device`` (the current CUDA device by default)
     from a saved index's arrays and its JSON header — the state
     ``scann_tpu.io.save_index`` writes: a tree-AH index (data, centers,
-    tokens, csr_offsets, csr_points, codes, codebook), a block-sweep index
-    (data) or an asymmetric-hashing index (codes, codebook, data when
-    stored)."""
+    tokens, csr_offsets, csr_points, codes, codebook), a block-sweep or
+    brute-force index (data), an asymmetric-hashing index (codes, codebook,
+    data when stored) or a scalar-quantized index (codes, or data)."""
     kind = meta.get("kind")
-    if kind not in ("tree_ah", "block_sweep", "hashed"):
+    if kind != "tree_ah" and kind not in _READERS:
         raise NotImplementedError(
             f"loading index kind {kind!r} is not ported yet (ROADMAP.md "
             f"queue 1, item 9: io)")
     device = require_device(device)
-    if kind == "block_sweep":
-        return _block_sweep(arrays, meta, device)
-    if kind == "hashed":
-        return _hashed(arrays, meta, device)
+    if kind in _READERS:
+        return _READERS[kind](arrays, meta, device)
     cfg = TreeXHybridConfig(
         num_partitions=int(meta["num_partitions"]),
         partitions_to_search=int(meta["partitions_to_search"]),
@@ -149,9 +191,9 @@ def from_numpy_state(arrays: Dict[str, np.ndarray], meta: dict,
 
 
 def load_index(path: str, device: Union[str, torch.device] = DEFAULT_DEVICE):
-    """Load a tree-AH, block-sweep or asymmetric-hashing index saved by
-    ``scann_tpu.io.save_index`` onto ``device`` (the current CUDA device by
-    default)."""
+    """Load a tree-AH, block-sweep, asymmetric-hashing, brute-force or
+    scalar-quantized index saved by ``scann_tpu.io.save_index`` onto
+    ``device`` (the current CUDA device by default)."""
     with np.load(path, allow_pickle=False) as z:
         meta = json.loads(bytes(z["__meta__"]).decode())
         if meta.get("format_version") != _FORMAT_VERSION:

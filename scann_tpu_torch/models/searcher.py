@@ -1,11 +1,12 @@
 """Common searcher interface (counterpart of
 ``scann_tpu/models/searcher.py``): search parameters, the epsilon ladder,
-query validation and result padding."""
+query validation, result padding and the per-query object API (``search``,
+``search_batched``) over each searcher's batched array search."""
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import List, Optional
 
 import numpy as np
 import torch
@@ -62,6 +63,34 @@ def pad_results_to_k(idx: torch.Tensor, dists: torch.Tensor, k: int):
     return pi, pd
 
 
+@dataclasses.dataclass
+class NNResult:
+    """One neighbour."""
+
+    index: int
+    distance: float
+    docid: Optional[object] = None
+
+
+class SearchResult:
+    """One query's neighbours, ascending by distance."""
+
+    def __init__(self, neighbors: Optional[List[NNResult]] = None):
+        self.neighbors: List[NNResult] = neighbors or []
+
+    def __len__(self) -> int:
+        return len(self.neighbors)
+
+    def __iter__(self):
+        return iter(self.neighbors)
+
+    def indices(self) -> List[int]:
+        return [nb.index for nb in self.neighbors]
+
+    def distances(self) -> List[float]:
+        return [nb.distance for nb in self.neighbors]
+
+
 class Searcher:
     """Base searcher: subclasses implement ``search_batched_arrays``."""
 
@@ -70,6 +99,12 @@ class Searcher:
 
     def dimensionality(self) -> int:
         raise NotImplementedError
+
+    def _docids(self):
+        """Document ids by index. None: the port has no docid collection
+        until ``data/docid.py`` is ported (ROADMAP.md queue 1, item 8), so
+        results carry ``docid=None``."""
+        return None
 
     def search_batched_arrays(self, queries: np.ndarray, k: int,
                               params: Optional[SearchParameters] = None):
@@ -91,3 +126,49 @@ class Searcher:
         if self.dataset_size() == 0:
             raise ScannError.failed_precondition("dataset is empty")
         return queries
+
+    def _to_results(self, indices: np.ndarray,
+                    dists: np.ndarray) -> List[SearchResult]:
+        """[B, k] arrays -> one :class:`SearchResult` per row, missing
+        (index -1) slots dropped."""
+        docids = self._docids()
+        out = []
+        for row_idx, row_dist in zip(indices, dists):
+            neighbors = []
+            for i, d in zip(row_idx, row_dist):
+                i = int(i)
+                if i < 0:
+                    continue
+                docid = docids.get(i) if docids is not None else None
+                neighbors.append(NNResult(i, float(d), docid))
+            out.append(SearchResult(neighbors))
+        return out
+
+    def search(self, query, k: Optional[int] = None,
+               params: Optional[SearchParameters] = None) -> SearchResult:
+        """One query [D]; k defaults to ``params.num_neighbors`` or 10."""
+        params = params or SearchParameters()
+        k = k if k is not None else (params.num_neighbors or 10)
+        q = self._validate_queries(np.asarray(query))
+        idx, dist = self.search_batched_arrays(q, k, params)
+        return self._to_results(idx, dist)[0]
+
+    def search_batched(self, queries, k: Optional[int] = None,
+                       params: Optional[SearchParameters] = None
+                       ) -> List[SearchResult]:
+        """Queries [B, D], one :class:`SearchResult` each."""
+        params = params or SearchParameters()
+        k = k if k is not None else (params.num_neighbors or 10)
+        q = self._validate_queries(np.asarray(queries))
+        idx, dist = self.search_batched_arrays(q, k, params)
+        return self._to_results(idx, dist)
+
+    def supports_allow_mask(self) -> bool:
+        """Whether ``search_batched_arrays`` takes an ``allow_mask``."""
+        import inspect
+
+        try:
+            return "allow_mask" in inspect.signature(
+                self.search_batched_arrays).parameters
+        except (TypeError, ValueError):
+            return False

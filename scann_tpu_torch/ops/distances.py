@@ -8,10 +8,12 @@ float32 products run in full float32, which holds only while TF32 is off
 (``torch.backends.cuda.matmul.allow_tf32``, PyTorch's default). Sign
 conventions follow the reference: dot-product distance is the negated dot.
 
-``many_to_many`` covers SQUARED_L2 and DOT_PRODUCT; ``gathered_distances``
-(the exact re-rank) adds COSINE and GENERAL_INNER_PRODUCT, the four measures
-the block sweep serves. The other measures raise ``NotImplementedError``
-until they are ported (ROADMAP.md queue 1, item 4).
+``many_to_many`` covers every dense measure (L1, HAMMING and
+NON_ZERO_INTERSECT stream database chunks; JACCARD and DICE are squared L2
+on dense rows, as in the reference); ``gathered_distances`` (the exact
+re-rank) covers the measures the JAX package's does. WEIGHTED_JACCARD and
+OVERLAP are sparse-only and raise ``NotImplementedError`` (ROADMAP.md queue
+1, item 8).
 """
 
 from __future__ import annotations
@@ -41,17 +43,17 @@ class DistanceMeasure(enum.Enum):
     OVERLAP = "Overlap"
 
 
-_PORTED = (DistanceMeasure.SQUARED_L2, DistanceMeasure.DOT_PRODUCT)
-_PORTED_GATHERED = _PORTED + (DistanceMeasure.COSINE,
-                              DistanceMeasure.GENERAL_INNER_PRODUCT)
-
-
-def _check_ported(measure: DistanceMeasure, fn: str,
-                  ported=_PORTED) -> None:
-    if measure not in ported:
-        raise NotImplementedError(
-            f"{fn} for {measure} is not ported yet (ROADMAP.md queue 1, "
-            f"item 4: all distance measures)")
+# measures with no dense form: the sparse searcher's (ROADMAP.md queue 1,
+# item 8)
+_SPARSE_ONLY = (DistanceMeasure.WEIGHTED_JACCARD, DistanceMeasure.OVERLAP)
+# measures without a bilinear form, streamed over database chunks
+_ELEMENTWISE = (DistanceMeasure.L1, DistanceMeasure.HAMMING,
+                DistanceMeasure.NON_ZERO_INTERSECT)
+# dense Jaccard and Dice are squared L2, as in the reference
+_SQUARED_L2_LIKE = (DistanceMeasure.SQUARED_L2, DistanceMeasure.JACCARD,
+                    DistanceMeasure.DICE)
+_NEG_DOT = (DistanceMeasure.DOT_PRODUCT,
+            DistanceMeasure.GENERAL_INNER_PRODUCT)
 
 
 def approx_to_measure_units(approx: torch.Tensor,
@@ -72,18 +74,89 @@ def squared_norms(x: torch.Tensor) -> torch.Tensor:
 
 def many_to_many(measure: DistanceMeasure, queries: torch.Tensor,
                  db: torch.Tensor,
-                 db_sq_norms: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """[B, N] distances between ``queries`` [B, D] and ``db`` [N, D]."""
-    _check_ported(measure, "many_to_many")
+                 db_sq_norms: Optional[torch.Tensor] = None,
+                 chunk_size: int = 4096) -> torch.Tensor:
+    """[B, N] distances between ``queries`` [B, D] and ``db`` [N, D], for
+    every dense measure. L1, HAMMING and NON_ZERO_INTERSECT have no bilinear
+    form and stream the database in chunks of ``chunk_size`` rows; the
+    others are one float32 product plus a score transform."""
+    if measure in _SPARSE_ONLY:
+        raise NotImplementedError(
+            f"many_to_many for {measure} is not ported yet: it is a sparse "
+            f"measure (ROADMAP.md queue 1, item 8: sparse datasets)")
     queries = queries.float()
     db = db.float()
+    if measure in _ELEMENTWISE:
+        return _chunked_elementwise(measure, queries, db, chunk_size)
     dots = queries @ db.T
-    if measure == DistanceMeasure.DOT_PRODUCT:
+    if measure in _NEG_DOT:
         return -dots
     if db_sq_norms is None:
         db_sq_norms = squared_norms(db)
-    d = squared_norms(queries)[:, None] + db_sq_norms[None, :] - 2.0 * dots
-    return d.clamp_min(0.0)
+    q_sq = squared_norms(queries)
+    if measure in _SQUARED_L2_LIKE:
+        return (q_sq[:, None] + db_sq_norms[None, :] - 2.0 * dots).clamp_min(
+            0.0)
+    if measure == DistanceMeasure.L2:
+        return (q_sq[:, None] + db_sq_norms[None, :] - 2.0 * dots).clamp_min(
+            0.0).sqrt()
+    if measure == DistanceMeasure.COSINE:
+        # zero-norm rows have similarity 0, distance 1
+        denom = q_sq.sqrt()[:, None] * db_sq_norms.sqrt()[None, :]
+        sim = torch.where(denom > 0.0, dots / denom.clamp_min(1e-30), 0.0)
+        return 1.0 - sim
+    # LIMITED_INNER_PRODUCT: +inf when either vector's squared norm is > 1
+    bad = (q_sq[:, None] > 1.0) | (db_sq_norms[None, :] > 1.0)
+    return torch.where(bad, float("inf"), -dots)
+
+
+def _chunked_elementwise(measure: DistanceMeasure, queries: torch.Tensor,
+                         db: torch.Tensor, chunk_size: int) -> torch.Tensor:
+    """L1, dense HAMMING (count of differing positions) and dense
+    NON_ZERO_INTERSECT (minus the count of positions non-zero in both), one
+    [B, chunk, D] intermediate at a time."""
+    n = db.shape[0]
+    out = torch.empty(queries.shape[0], n, dtype=torch.float32,
+                      device=queries.device)
+    q = queries[:, None, :]
+    for lo in range(0, n, max(1, chunk_size)):
+        c = db[None, lo:lo + chunk_size, :]
+        if measure == DistanceMeasure.L1:
+            part = (q - c).abs().sum(dim=-1)
+        elif measure == DistanceMeasure.HAMMING:
+            part = (q != c).float().sum(dim=-1)
+        else:
+            part = -((q != 0.0) & (c != 0.0)).float().sum(dim=-1)
+        out[:, lo:lo + chunk_size] = part
+    return out
+
+
+def one_to_many(measure: DistanceMeasure, query: torch.Tensor,
+                db: torch.Tensor,
+                db_sq_norms: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Distances [N] from one query [D] to all database rows."""
+    return many_to_many(measure, query[None, :], db, db_sq_norms)[0]
+
+
+def pairwise_distances(measure: DistanceMeasure,
+                       data: torch.Tensor) -> torch.Tensor:
+    """[N, N] all-pairs distances within one set."""
+    return many_to_many(measure, data, data)
+
+
+def one_to_one(measure: DistanceMeasure, a: torch.Tensor,
+               b: torch.Tensor) -> torch.Tensor:
+    """Scalar distance between two dense vectors."""
+    return many_to_many(measure, a[None, :], b[None, :])[0, 0]
+
+
+def mask_padded_rows(dists: torch.Tensor, n_valid: int,
+                     masked_value: float) -> torch.Tensor:
+    """``dists`` with columns >= ``n_valid`` set to ``masked_value``."""
+    col = torch.arange(dists.shape[-1], device=dists.device)
+    return torch.where(col < n_valid, dists,
+                       torch.tensor(masked_value, dtype=dists.dtype,
+                                    device=dists.device))
 
 
 def gathered_distances(measure: DistanceMeasure, queries: torch.Tensor,
@@ -92,12 +165,12 @@ def gathered_distances(measure: DistanceMeasure, queries: torch.Tensor,
                        ) -> torch.Tensor:
     """[B, C] distances from each query to its own candidate rows
     ``rows`` [B, C, D] (the exact re-rank)."""
-    _check_ported(measure, "gathered_distances", _PORTED_GATHERED)
     queries = queries.float()
     rows = rows.float()
+    if measure == DistanceMeasure.L1:
+        return (queries[:, None, :] - rows).abs().sum(dim=-1)
     dots = torch.einsum("bd,bcd->bc", queries, rows)
-    if measure in (DistanceMeasure.DOT_PRODUCT,
-                   DistanceMeasure.GENERAL_INNER_PRODUCT):
+    if measure in _NEG_DOT:
         return -dots
     if rows_sq_norms is None:
         rows_sq_norms = (rows * rows).sum(dim=-1)
@@ -106,4 +179,9 @@ def gathered_distances(measure: DistanceMeasure, queries: torch.Tensor,
         denom = q_sq.sqrt()[:, None] * rows_sq_norms.sqrt()
         sim = torch.where(denom > 0.0, dots / denom.clamp_min(1e-30), 0.0)
         return 1.0 - sim
-    return (q_sq[:, None] + rows_sq_norms - 2.0 * dots).clamp_min(0.0)
+    d = (q_sq[:, None] + rows_sq_norms - 2.0 * dots).clamp_min(0.0)
+    if measure in _SQUARED_L2_LIKE:
+        return d
+    if measure == DistanceMeasure.L2:
+        return d.sqrt()
+    raise NotImplementedError(f"gathered_distances for {measure}")

@@ -1,8 +1,8 @@
-"""LUT16 scoring kernels (counterpart of ``scann_tpu/ops/pallas_kernels.py``;
-the name drops "pallas" because the kernels here are CUDA).
+"""Scoring kernels (counterpart of ``scann_tpu/ops/pallas_kernels.py``; the
+name drops "pallas" because the kernels here are CUDA).
 
-Two kernels of one CUDA source (``csrc/lut16_scoring.cu``), each with a
-plain PyTorch twin beside it:
+Three kernels, each with a plain PyTorch twin beside it. Two share one CUDA
+source (``csrc/lut16_scoring.cu``):
 
   - :func:`lut16_score` — ``out[b, n] = Σ_s bf16(luts[b, s, codes_t[s, n]])``
     summed in float32, as float32 or bf16 (TPU kernel ``_lut16_kernel``);
@@ -13,11 +13,19 @@ plain PyTorch twin beside it:
     minimum picks the best (sum, row) pair; blocks with no row below
     ``n_valid`` hold ``INVALID_COMBINED``.
 
+The third has its own (``csrc/int8_dots.cu``):
+
+  - :func:`int8_dots` — ``out[b, n] = Σ_d q[b, d] · float(codes_t[d, n])``,
+    float32 queries against uint8 codes without a float copy of the codes
+    in device memory (TPU kernel ``_int8_dots_kernel``); the scalar-quantized
+    searcher folds its affine codec around it (``ops/asymmetric.py``).
+
 CPU tensors take the twins; CUDA tensors launch the kernel or raise. Each
-kernel launch adds one to its entry in :data:`LAUNCHES`. Both twins add in
-the kernels' order (ascending subspace, float32 or int32) and stream N in
+kernel launch adds one to its entry in :data:`LAUNCHES`. The LUT16 twins add
+in the kernels' order (ascending subspace, float32 or int32) and stream N in
 chunks, so they agree with the kernels bit for bit and never hold a
-[B, S, N] gather.
+[B, S, N] gather; the int8-dots twin is a float32 matrix product, within
+1e-5 of Σ_d |q_d · c_d| of the kernel's FMA chain.
 """
 
 from __future__ import annotations
@@ -37,7 +45,8 @@ INVALID_COMBINED = 1e9
 # Kernel launches since the last reset, one entry per kernel. Only a launch
 # of a CUDA kernel counts, never a call of a plain twin; a run reads these to
 # show that its main path went through the kernels.
-LAUNCHES: Dict[str, int] = {"lut16_score": 0, "lut16_fused_sweep": 0}
+LAUNCHES: Dict[str, int] = {"lut16_score": 0, "lut16_fused_sweep": 0,
+                             "int8_dots": 0}
 
 # the CUDA kernels' tiles (csrc/lut16_scoring.cu): score kernel words per
 # (subspace, code) row of 32 queries; fused kernel queries and rows per CTA
@@ -45,8 +54,12 @@ _SCORE_ROW_WORDS = 17
 _FUSED_Q, _FUSED_ROWS = 64, 1024
 # elements of the [B, T] accumulator one step of a twin holds
 _TWIN_ELEMS = 1 << 24
+# the int8-dots kernel's column tile (csrc/int8_dots.cu kBN); the transposed
+# codes of the scalar-quantized dataset pad their columns to it
+INT8_DOTS_TILE_N = 128
 
 _fns = None
+_int8_fn = None
 
 
 def reset_launches() -> None:
@@ -268,3 +281,71 @@ def lut16_fused_sweep(luts_i8: torch.Tensor, codes_packed_t: torch.Tensor,
                 out.data_ptr(), b, sh, n, int(n_valid), r, stream)
     return out
 
+
+
+# ---------------------------------------------------------------------------
+# int8 dots (#9)
+# ---------------------------------------------------------------------------
+
+
+def _check_int8_args(queries: torch.Tensor, codes_t: torch.Tensor):
+    if queries.dim() != 2 or codes_t.dim() != 2:
+        raise ValueError("queries must be [B, D] and codes_t [D, N]")
+    if queries.dtype != torch.float32:
+        raise ValueError(f"queries must be float32, got {queries.dtype}")
+    if codes_t.dtype != torch.uint8:
+        raise ValueError(f"codes_t must be uint8, got {codes_t.dtype}")
+    if queries.shape[1] != codes_t.shape[0]:
+        raise ValueError(f"queries have D={queries.shape[1]}, codes_t "
+                         f"{codes_t.shape[0]} rows")
+
+
+def int8_dots_reference(queries: torch.Tensor,
+                        codes_t: torch.Tensor) -> torch.Tensor:
+    """Twin of the int8-dots kernel: the float32 product of ``queries``
+    with the codes cast to float32. Works on any device."""
+    _check_int8_args(queries, codes_t)
+    return queries @ codes_t.float()
+
+
+def _int8_dots_fn():
+    global _int8_fn
+    if _int8_fn is None:
+        from scann_tpu_torch import native
+
+        fn = native.load("int8_dots").int8_dots
+        vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        fn.argtypes = [vp, vp, vp, i32, i32, i64, vp]
+        fn.restype = ctypes.c_int
+        _int8_fn = fn
+    return _int8_fn
+
+
+def int8_dots(queries: torch.Tensor, codes_t: torch.Tensor) -> torch.Tensor:
+    """Raw dots [B, N] float32 of float32 queries [B, D] with uint8 codes
+    ``codes_t`` [D, N]: ``out[b, n] = Σ_d q[b, d] · codes_t[d, n]``. The
+    caller folds in the codec's scale and offset (``ops/asymmetric.py``).
+
+    CPU tensors go to :func:`int8_dots_reference`; CUDA tensors to the CUDA
+    kernel, built from ``csrc/int8_dots.cu`` at first use, or raise."""
+    if not on_card(queries, "int8_dots"):
+        return int8_dots_reference(queries, codes_t)
+    _check_int8_args(queries, codes_t)
+    if codes_t.device != queries.device:
+        raise ValueError(f"codes_t is on {codes_t.device}, queries on "
+                         f"{queries.device}")
+    b, d = queries.shape
+    n = codes_t.shape[1]
+    out = torch.empty(b, n, dtype=torch.float32, device=queries.device)
+    if b == 0 or n == 0:
+        return out
+    if d == 0:
+        return out.zero_()
+    q = queries.contiguous()
+    codes = codes_t.contiguous()
+    fn = _int8_dots_fn()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        _launch(fn, "int8_dots", q.data_ptr(), codes.data_ptr(),
+                out.data_ptr(), b, d, n, stream)
+    return out

@@ -349,3 +349,140 @@ def test_asymmetric_hasher_on_card():
             assert recall >= 0.9, (pre_k, recall)
             np.testing.assert_allclose(dist, np.take_along_axis(d2, idx, 1),
                                        rtol=1e-4, atol=1e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b", [1, 7, 256])
+@pytest.mark.parametrize("d,n", [(13, 1000), (64, 777), (100, 2049),
+                                 (128, 130)])
+def test_int8_dots_kernel_matches_twin(b, d, n):
+    """|kernel - twin| <= 1e-5 * sum_d |q_d * c_d| per entry: one FMA chain
+    in ascending d against a float32 matrix product's order. N is never a
+    multiple of the 128-column tile; N % 4 != 0 takes the scalar stores."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from scann_tpu_torch.ops import scoring_kernels as sk
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.default_rng(b * 1000 + d)
+    q = torch.from_numpy(rng.normal(size=(b, d)).astype(np.float32)).cuda()
+    codes = torch.from_numpy(
+        rng.integers(0, 256, size=(d, n)).astype(np.uint8)).cuda()
+    before = sk.LAUNCHES["int8_dots"]
+    got = sk.int8_dots(q, codes)
+    torch.cuda.synchronize()
+    assert sk.LAUNCHES["int8_dots"] == before + 1
+    want = sk.int8_dots_reference(q, codes)
+    bound = 1e-5 * (q.abs() @ codes.float())
+    assert got.shape == (b, n) and got.dtype == torch.float32
+    assert bool(((got - want).abs() <= bound).all())
+
+
+def _fused_case(rng, n, d, b, dup=False):
+    db = rng.random((n, d), dtype=np.float32)
+    q = rng.random((b, d), dtype=np.float32)
+    if dup:
+        # rows 3 and 9 equal row 20, row 7 equals row 8; queries sit on them
+        db[3] = db[9] = db[20]
+        db[7] = db[8]
+        q[0], q[1] = db[20], db[8]
+    norms = (db.astype(np.float64) ** 2).sum(1).astype(np.float32)
+    return [torch.from_numpy(a).cuda() for a in (q, db, norms)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 10, 16])
+@pytest.mark.parametrize("n,d,b,n_valid,dup", [
+    (10_000, 64, 100, 10_000, False),     # bench.py's shape: many splits
+    (3_000, 13, 37, 2_500, True),         # n_valid < N, duplicates
+    (200, 8, 5, 200, True),               # one split: no merge
+    (50_000, 32, 8, 49_990, False),       # many sub-chunks per split
+    (20, 4, 3, 6, False),                 # k > n_valid: (inf, -1) slots
+])
+def test_fused_bf_kernel_matches_twin(k, n, d, b, n_valid, dup):
+    """Values within 1e-5 of the terms |q|^2 + |x|^2, ids equal away from
+    ties, missing slots equal (``fused_bf.check_against_twin``); equal
+    values lowest row first."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from scann_tpu_torch.ops import fused_bf as fb
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.default_rng(n + k)
+    q, db, norms = _fused_case(rng, n, d, b, dup)
+    before = fb.LAUNCHES
+    vals, idx = fb.fused_bf_search(q, db, norms, n_valid, k)
+    torch.cuda.synchronize()
+    assert fb.LAUNCHES == before + 1
+    assert vals.shape == (b, k) and idx.dtype == torch.int32
+    fb.check_against_twin(q, db, norms, n_valid, k, vals, idx)
+    i = idx.cpu().numpy()
+    assert (i < n_valid).all()
+    if n_valid < k:
+        assert (i[:, n_valid:] == -1).all()
+        assert torch.isinf(vals[:, n_valid:]).all()
+    if dup:
+        assert list(i[0, :min(k, 3)]) == [3, 9, 20][:k]
+        assert list(i[1, :min(k, 2)]) == [7, 8][:k]
+        assert vals[0, 0] == 0.0 or bool(vals[0, 0] < 1e-4)
+
+
+@pytest.mark.cuda
+def test_fused_bf_kernel_rejects_bad_arguments():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from scann_tpu_torch.ops import fused_bf as fb
+
+    rng = np.random.default_rng(0)
+    q, db, norms = _fused_case(rng, 100, 8, 4)
+    before = fb.LAUNCHES
+    with pytest.raises(ValueError, match="k must be"):
+        fb.fused_bf_search(q, db, norms, 100, 17)
+    with pytest.raises(ValueError, match="float32"):
+        fb.fused_bf_search(q.double(), db, norms, 100, 5)
+    with pytest.raises(ValueError, match="n_valid"):
+        fb.fused_bf_search(q, db, norms, 101, 5)
+    with pytest.raises(ValueError, match="is on"):
+        fb.fused_bf_search(q, db.cpu(), norms, 100, 5)
+    assert fb.LAUNCHES == before
+
+
+@pytest.mark.cuda
+def test_brute_force_searchers_on_card():
+    """Both searchers default to the card, launch their kernels on their
+    paths and agree with the same searchers on the CPU."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from scann_tpu_torch import (BruteForceSearcher, DenseDataset,
+                                 ScalarQuantizedBruteForceSearcher,
+                                 ScalarQuantizedConfig)
+    from scann_tpu_torch.ops import fused_bf as fb
+    from scann_tpu_torch.ops import scoring_kernels as sk
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.default_rng(42)
+    db = rng.random((10_000, 64), dtype=np.float32)
+    q = rng.random((100, 64), dtype=np.float32)
+    bf = BruteForceSearcher(DenseDataset(db))
+    assert bf.device.type == "cuda"
+    before = fb.LAUNCHES
+    idx, dist = bf.search_batched_arrays(q, 10)
+    assert fb.LAUNCHES == before + 1
+    gt = np.argsort(((q[:, None] - db[None]) ** 2).sum(-1), axis=1)[:, :10]
+    assert np.mean([len(set(a) & set(g)) / 10 for a, g in zip(idx, gt)]) == 1
+    idx2, _ = bf.search_batched_arrays(np.repeat(q, 64, axis=0), 10)
+    assert fb.LAUNCHES == before + 1          # B=6400: the composed path
+    np.testing.assert_array_equal(idx2[::64], idx)
+    for storage, kernel in (("int8", True), ("int4", True), ("bf16", False),
+                            ("fp8_e4m3", False)):
+        cfg = ScalarQuantizedConfig(storage=storage)
+        card = ScalarQuantizedBruteForceSearcher(DenseDataset(db), cfg)
+        cpu = ScalarQuantizedBruteForceSearcher(DenseDataset(db), cfg,
+                                                device="cpu")
+        sk.reset_launches()
+        got_i, got_d = card.search_batched_arrays(q, 10)
+        assert card.uses_kernel() == kernel
+        assert sk.LAUNCHES["int8_dots"] == int(kernel), storage
+        want_i, want_d = cpu.search_batched_arrays(q, 10)
+        np.testing.assert_allclose(got_d, want_d, rtol=1e-5, atol=1e-4)
+        assert (got_i == want_i).mean() > 0.99, storage

@@ -1,6 +1,7 @@
-"""The PyTorch port never imports JAX. Checked in a fresh interpreter:
-tests/conftest.py imports jax into the pytest process, so an in-process
-check would prove nothing."""
+"""The PyTorch port never imports JAX, the JAX package or ``ml_dtypes``
+(it must run where none of them is installed). Checked in a fresh
+interpreter: tests/conftest.py imports jax into the pytest process, so an
+in-process check would prove nothing."""
 
 import os
 import subprocess
@@ -16,7 +17,8 @@ mods = [m.name for m in pkgutil.walk_packages(scann_tpu_torch.__path__,
 for name in mods:
     importlib.import_module(name)
 bad = sorted(m for m in sys.modules
-             if m == "jax" or m.startswith(("jax.", "jaxlib", "scann_tpu.")))
+             if m in ("jax", "ml_dtypes")
+             or m.startswith(("jax.", "jaxlib", "scann_tpu.", "ml_dtypes.")))
 bad += ["scann_tpu"] if "scann_tpu" in sys.modules else []
 print(len(mods), bad)
 sys.exit(1 if bad or len(mods) < 10 else 0)
@@ -40,5 +42,6 @@ def test_port_sources_name_no_jax():
                 with open(os.path.join(root, f)) as fh:
                     src = fh.read()
                 for bad in ("import jax", "from jax", "import scann_tpu.",
-                            "from scann_tpu."):
+                            "from scann_tpu.", "import ml_dtypes",
+                            "from ml_dtypes"):
                     assert bad not in src, (f, bad)

@@ -58,8 +58,8 @@ def test_squared_norms_and_units(arrays):
 def test_unported_measures_raise(arrays):
     q, db, _ = arrays
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        td.many_to_many(td.DistanceMeasure.L1, torch.from_numpy(q),
-                        torch.from_numpy(db))
+        td.many_to_many(td.DistanceMeasure.WEIGHTED_JACCARD,
+                        torch.from_numpy(q), torch.from_numpy(db))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -89,3 +89,41 @@ def test_top_k_wide_bf16_rows_take_the_int64_key():
     got_v, got_i = top_k_smallest(xt, 20)
     np.testing.assert_array_equal(got_i.numpy(), np.asarray(want_i))
     np.testing.assert_array_equal(got_v.float().numpy(), np.asarray(want_v))
+
+
+@pytest.mark.parametrize("ties", ["none", "inside", "boundary", "signed_zero"])
+def test_wide_float32_rows_select_by_value_like_lax_top_k(ties):
+    """float32 rows past VALUE_SELECT_MIN_N select on their values and fall
+    back to the key where a tie crosses the k-th place; either way the
+    result is the key's alone and the JAX package's, ties lower index first.
+    (Signed zeros: the key orders -0.0 first; the JAX package's k-rounds
+    selection at this width takes them as equal, so that case is held to
+    the key only.)"""
+    from scann_tpu_torch.ops import topk as tk
+
+    rng = np.random.default_rng(len(ties))
+    n, k = tk.VALUE_SELECT_MIN_N + 37, 10
+    x = np.abs(rng.normal(size=(6, n))).astype(np.float32) + 1.0
+    if ties == "inside":        # equal values among the k smallest
+        x[:, [5, 900, 30_000]] = -1.0
+    elif ties == "boundary":    # a tie group across the k-th place
+        x[:3, :2000:100] = -2.0
+    elif ties == "signed_zero":  # -0.0 orders before +0.0, as in lax.top_k
+        x[:, 7:20] = 0.0
+        x[:, 3] = -0.0
+        x[2:, 500] = -0.0
+    got_v, got_i = top_k_smallest(torch.from_numpy(x), k)
+    key_v, key_i = tk._top_k_by_key(torch.from_numpy(x), k)
+    assert torch.equal(key_i, got_i)
+    assert torch.equal(key_v.view(torch.int32), got_v.view(torch.int32))
+    if ties != "signed_zero":
+        want_v, want_i = jax_top_k(jnp.asarray(x), k)
+        np.testing.assert_array_equal(got_i.numpy(), np.asarray(want_i))
+        np.testing.assert_array_equal(got_v.numpy(), np.asarray(want_v))
+    else:
+        assert list(got_i[2, :3].numpy()) == [3, 500, 7]
+    # a leading batch dimension and a transposed view select the same
+    got3 = top_k_smallest(torch.from_numpy(x)[None], k)[1][0]
+    assert torch.equal(got3, got_i)
+    got_t = top_k_smallest(torch.from_numpy(x.T.copy()).T, k)[1]
+    assert torch.equal(got_t, got_i)
