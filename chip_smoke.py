@@ -39,6 +39,17 @@ queries:
   exact top-10 over the dequantized rows away from ties), and one batch
   each with int4 codes (the same kernel) and bf16 and fp8 storage (the
   float32 product);
+- SOAR tree-x-AH (the JAX package's bench.py SOAR row): builds a balanced
+  index with one SOAR secondary assignment per point on the card, checks
+  the int8-LUT grouped scorer and the per-pair float32 leaf scorer against
+  their twins bit for bit on the first batch's real inputs, serves the
+  batches through three paths, each counted from zero: the searcher (bf16
+  grouped scorer, recall@10 >= 0.95), ``tree_ah_search_grouped`` with int8
+  tables (>= 0.9) and ``tree_ah_search`` over the unpacked slab (per-pair
+  kernel, >= 0.95); then one batch each of the bf16 / int8 / int16 re-rank
+  stores, the id-embedded CSR store on the first tree-x-AH index, an
+  allowlist of the even ids, and DOT_PRODUCT and COSINE indexes over the
+  first 100,000 rows;
 
 then times every kernel against its twin (L2 flushed) and the search stages
 with CUDA events.
@@ -72,11 +83,17 @@ BF_RECALL_FLOOR, SQ_RECALL_FLOOR = 0.999, 0.9
 # bench.py's headline: 10,000 x 64 uniform [0, 1) rows, seed 42, B=100 (the
 # fused kernel) and B=6400 (the composed path)
 HEAD_N, HEAD_D, HEAD_B, HEAD_B_SAT = 10_000, 64, 100, 6400
+SOAR_P, SOAR_PRE_K, SOAR_FLOOR, SOAR_INT8_FLOOR = 30, 300, 0.95, 0.9
+SIDE_N = 100_000
 KERNEL_SOURCES = ("tree_ah_grouped", "block_min_sweep", "lut16_scoring",
-                  "int8_dots", "fused_bf")
+                  "int8_dots", "fused_bf", "tree_ah_leaf")
 # published H100 SXM peaks (dense): bf16 tensor cores, int8 tensor cores,
 # float32 outside the tensor cores, HBM3
 PEAK_BF16, PEAK_INT8, PEAK_F32, PEAK_HBM = 989e12, 1979e12, 67e12, 3.35e12
+# int32 adds outside the tensor cores: 64 INT32 lanes per SM (Hopper white
+# paper), half the 128 float32 lanes behind PEAK_F32 (which counts an FMA
+# as 2), one add per lane per clock: 132 SMs x 64 x 1.98 GHz
+PEAK_I32_ADD = PEAK_F32 / 4
 
 
 def log(msg: str) -> None:
@@ -348,6 +365,8 @@ def main() -> int:
     records += hasher_phases(ds, queries, db_dev, gt_np, cold_ms, turns, smi)
     records += brute_force_phases(ds, queries, db_dev, gt_np, cold_ms, turns,
                                   smi)
+    records += soar_phases(ds, queries, db_dev, gt_np, cold_ms, turns, smi,
+                           searcher)
     print(json.dumps({"kernels": records}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
@@ -1230,6 +1249,313 @@ def brute_force_phases(ds, queries, db_dev, gt_np, cold_ms, turns, smi):
         "ms": k2, "plain_ms": p2, "bound_ms": b2, "bound_by": by2,
         "library_ms": None})
     return records
+
+
+def variant(s, **changes):
+    """A searcher sharing ``s``'s index and slabs under a changed config
+    (its re-rank stores are built anew)."""
+    import copy
+    import dataclasses
+
+    v = copy.copy(s)
+    v.config = dataclasses.replace(s.config, **changes)
+    v._lp_cache = None
+    v._csr_store_cache = None
+    return v
+
+
+def soar_phases(ds, queries, db_dev, gt_np, cold_ms, turns, smi, base):
+    """Phases 20-23, SOAR tree-x-AH and the tree-x-AH variants; returns the
+    JSON records of kernels #1b and #10. ``base`` is phase 4's index."""
+    import numpy as np
+    import torch
+
+    from scann_tpu_torch import (
+        AsymmetricHasherConfig,
+        DenseDataset,
+        DistanceMeasure,
+        SearchParameters,
+        TreeXHybridConfig,
+        TreeXHybridSearcher,
+    )
+    from scann_tpu_torch.models import tree_x_hybrid as tx
+    from scann_tpu_torch.ops import tree_ah_grouped as tag
+    from scann_tpu_torch.ops import tree_ah_leaf as tal
+    from scann_tpu_torch.utils.benchmarking import recall_at_k
+
+    dev = queries.device
+    inf = float("inf")
+
+    # -- 20. SOAR build on the card ---------------------------------------------
+    cfg = TreeXHybridConfig(
+        num_partitions=2000, partitions_to_search=SOAR_P,
+        max_partition_size="auto", spilling=True, spilling_mode="soar",
+        soar_lambda=1.0, hash_config=AsymmetricHasherConfig(
+            num_codes=16, num_subspaces=50, seed=42, max_iterations=12,
+            training_sample_size=100_000))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    s = TreeXHybridSearcher(cfg, device=dev).build(ds)
+    codes_p, off, sizes, perm, l_cap = s._csr_state()
+    codes_u = s._csr_state(packed=False)[0]
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    tk = s.partitioner.tokenization
+    cap = s.partitioner._cap_value(ds.size)
+    mult = tk.max_multiplicity
+    log(f"[20 soar build] {build_s:.2f}s on the card: K "
+        f"{s.partitioner.num_partitions} (configured 2000), cap {cap}, "
+        f"largest partition {tk.max_partition_size} (<= 2 * cap = "
+        f"{2 * cap}), multiplicity {mult}, assignments "
+        f"{len(tk.point_indices)}, l_cap {l_cap}, packed slab "
+        f"{codes_p.numel()} bytes {list(codes_p.shape)}, unpacked slab "
+        f"{codes_u.numel()} bytes {list(codes_u.shape)}")
+    if tk.max_partition_size > 2 * cap or mult != 2:
+        raise AssertionError(f"SOAR build: largest partition "
+                             f"{tk.max_partition_size}, cap {cap}, "
+                             f"multiplicity {mult}")
+
+    # -- 21. #1b and #10 against their twins on the first batch's inputs ------
+    cent, cb = s.partitioner.centers, s.codebook.centroids
+    q0 = queries[:BATCH]
+    q_cap = s.effective_q_cap(BATCH, SOAR_P)
+    l_tile = cfg.score_l_tile
+    s_pad = 2 * codes_p.shape[0]
+    if codes_u.shape[0] != s_pad:
+        raise AssertionError("packed and unpacked slabs pad S differently")
+    parts = tx._select_partitions(cent, q0, p=SOAR_P)
+    luts_flat = tx._residual_luts(q0, cent, parts, cb, s_pad=s_pad,
+                                  use_residuals=True)
+    luts_i8, _, _ = tx.quantize_luts_int8(luts_flat)
+    lg8, go, gs, _ = tx._group_luts(luts_i8, parts, off, sizes, s_pad=s_pad,
+                                    q_cap=q_cap, packed=True)
+    args8 = (lg8, codes_p, go, gs)
+    kw8 = dict(l_cap=l_cap, l_tile=l_tile, q_cap=q_cap, packed=True)
+    got = tag.tree_ah_grouped_scores(*args8, **kw8)
+    torch.cuda.synchronize()
+    want = tag.tree_ah_grouped_scores_reference(*args8, **kw8)
+    if got.dtype != torch.int16 or not torch.equal(got, want):
+        raise AssertionError("int8 grouped kernel differs from its twin")
+    err8 = float((got.float() - want.float()).abs().max())
+    n_groups = lg8.shape[0] // q_cap
+    log(f"[21 kernel check] tree_ah_grouped int8 (#1b): NG {n_groups}, q_cap "
+        f"{q_cap}, l_tile {l_tile}, out {list(got.shape)} int16: "
+        f"bit-identical True, max abs err {err8} (tolerance: bit for bit, "
+        f"exact integer sums), masked slots {int((want == tag.I16_MASK).sum())}")
+    del got, want
+    luts4 = luts_flat.reshape(BATCH, SOAR_P, s_pad, -1)
+    p_off = off[parts].int().contiguous()
+    p_size = sizes[parts].int().contiguous()
+    args10 = (luts4, codes_u, p_off, p_size)
+    got = tal.tree_ah_leaf_scores(*args10, l_cap=l_cap)
+    torch.cuda.synchronize()
+    want = tal.tree_ah_leaf_scores_reference(*args10, l_cap=l_cap)
+    if not torch.equal(got, want):
+        bad = int((got != want).sum())
+        raise AssertionError(f"per-pair leaf kernel differs from its twin "
+                             f"at {bad} slots")
+    err10 = float((got - want).abs().max())
+    log(f"[21 kernel check] tree_ah_leaf (#10): pairs {BATCH} x {SOAR_P}, "
+        f"S_pad {s_pad}, l_cap {l_cap}, out {list(got.shape)} float32: "
+        f"bit-identical True, max abs err {err10} (tolerance: bit for bit, "
+        f"float32 sums in ascending s on both sides), masked slots "
+        f"{int((want >= tx.MASKED_DISTANCE / 2).sum())}")
+    del got, want
+
+    # -- 22. searches: three paths, each counted from zero ------------------------
+    params = SearchParameters(num_leaves_to_search=SOAR_P,
+                              pre_reordering_num_neighbors=SOAR_PRE_K)
+    db_f32 = s._device_state()
+    common = dict(p=SOAR_P, pre_k=SOAR_PRE_K, k=K, l_cap=l_cap,
+                  use_residuals=True, multiplicity=mult)
+    def searcher_path(qb):
+        ids, dists = s.search_batched_tensors(qb, K, params)
+        return dists, ids
+
+    paths = {  # label: (search returning (dists, ids), launch counter, floor)
+        "searcher (bf16 grouped, #1)": (searcher_path, tag, SOAR_FLOOR),
+        "tree_ah_search_grouped int8_luts (#1b)": (
+            lambda qb: tx.tree_ah_search_grouped(
+                db_f32, cent, codes_p, off, sizes, perm, cb, qb, inf, inf,
+                q_cap=q_cap, l_tile=l_tile, packed=True, int8_luts=True,
+                **common), tag, SOAR_INT8_FLOOR),
+        "tree_ah_search per pair (#10)": (
+            lambda qb: tx.tree_ah_search(
+                db_f32, cent, codes_u, off, sizes, perm, cb, qb, inf, inf,
+                **common), tal, SOAR_FLOOR),
+    }
+    launches, recalls = {}, {}
+    for label, (fn, mod, floor) in paths.items():
+        mod.LAUNCHES = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = [fn(queries[i * BATCH:(i + 1) * BATCH]) for i in range(BATCHES)]
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches[label] = mod.LAUNCHES
+        dists = torch.cat([r[0] for r in res])
+        idx = torch.cat([r[1] for r in res])
+        err = check_results(idx, dists, queries, db_dev, BATCH * BATCHES)
+        recalls[label] = recall_at_k(idx.cpu().numpy(), gt_np, K)
+        log(f"[22 soar search/{label}] {BATCHES} x B={BATCH}, p={SOAR_P}, "
+            f"pre_k={SOAR_PRE_K}, k={K}: recall@10 {recalls[label]:.4f} "
+            f"(floor {floor}), kernel launches {launches[label]}, returned "
+            f"vs recomputed distances max rel err {err:.3g}, host wall "
+            f"{wall:.3f}s")
+        if recalls[label] < floor:
+            raise AssertionError(f"{label}: recall@10 {recalls[label]} < "
+                                 f"{floor}")
+        if launches[label] <= 0:
+            raise AssertionError(f"{label}: its kernel was never launched")
+
+    def side(srch, qs, gt, prm=params):
+        ids, dists = srch.search_batched_tensors(qs, K, prm)
+        check_results(ids, dists, qs, None, len(qs), exact_check=False)
+        return ids, dists, recall_at_k(ids.cpu().numpy(), gt, K)
+
+    g0 = gt_np[:BATCH]
+    for dt in ("bfloat16", "int8", "int16"):
+        v = variant(s, rerank_dtype=dt)
+        ids, dists, rec = side(v, q0, g0)
+        exact = ((q0[:, None, :] - db_dev[ids]) ** 2).sum(-1)
+        rel = float(((dists - exact).abs() / exact.clamp_min(1e-6)).max())
+        store = v._device_state()
+        t = store[0] if isinstance(store, tuple) else store
+        log(f"[22 soar side/rerank {dt}] B={BATCH}: recall@10 {rec:.4f} (no "
+            f"floor), returned vs exact float32 distances max rel err "
+            f"{rel:.3g}, store {t.numel() * t.element_size()} bytes "
+            f"{t.dtype}")
+    p4 = SearchParameters(num_leaves_to_search=P,
+                          pre_reordering_num_neighbors=PRE_K)
+    csr4 = variant(base, rerank_layout="csr")
+    i_id, d_id = base.search_batched_tensors(q0, K, p4)
+    i_csr, d_csr = csr4.search_batched_tensors(q0, K, p4)
+    same = torch.equal(i_id, i_csr) and torch.equal(d_id, d_csr)
+    log(f"[22 soar side/rerank csr] phase 4's index, B={BATCH}, p={P}: ids and "
+        f"distances equal to the id layout's: {same}")
+    if not same:
+        raise AssertionError("csr and id layouts disagree at one assignment")
+    even = np.arange(ds.size) % 2 == 0
+    ids, _ = s.search_batched_tensors(q0, K, params, even)
+    odd = int(((ids >= 0) & (ids % 2 == 1)).sum())
+    filled = float((ids >= 0).float().mean())
+    log(f"[22 soar side/allow even ids] B={BATCH}: odd ids returned {odd}, "
+        f"slots filled {filled:.4f}")
+    if odd:
+        raise AssertionError(f"the allowlist let {odd} odd ids through")
+    sub = DenseDataset(ds.numpy()[:SIDE_N])
+    sub_db = db_dev[:SIDE_N]
+    for measure in (DistanceMeasure.DOT_PRODUCT, DistanceMeasure.COSINE):
+        t0 = time.perf_counter()
+        ms = TreeXHybridSearcher(TreeXHybridConfig(
+            num_partitions=200, partitions_to_search=10,
+            distance_measure=measure, hash_config=cfg.hash_config),
+            device=dev).build(sub)
+        torch.cuda.synchronize()
+        b_s = time.perf_counter() - t0
+        if measure == DistanceMeasure.DOT_PRODUCT:
+            score = q0 @ sub_db.T
+        else:
+            score = ((q0 / q0.norm(dim=1, keepdim=True))
+                     @ (sub_db / sub_db.norm(dim=1, keepdim=True)).T)
+        gt_m = torch.topk(score, K, dim=1).indices.cpu().numpy()
+        _, _, rec = side(ms, q0, gt_m, SearchParameters(
+            num_leaves_to_search=10, pre_reordering_num_neighbors=SOAR_PRE_K))
+        log(f"[22 soar side/{measure.value}] {SIDE_N} rows, K "
+            f"{ms.partitioner.num_partitions} (configured 200), "
+            f"p=10, pre_k={SOAR_PRE_K}: build {b_s:.2f}s, recall@10 {rec:.4f}"
+            f" against exact {measure.value} (no floor)")
+        del ms
+
+    # -- 23. timings -----------------------------------------------------------------
+    k8, p8 = turns(lambda: tag.tree_ah_grouped_scores(*args8, **kw8),
+                   lambda: tag.tree_ah_grouped_scores_reference(*args8, **kw8),
+                   20, 2)
+    probed = torch.unique(parts)
+    bytes8 = (lg8.numel() + int(sizes[probed].sum()) * codes_p.shape[0]
+              + n_groups * 8 + lg8.shape[0] * l_cap * 2)
+    ops8 = int(gs.sum()) * q_cap * s_pad
+    b8, by8 = bound(ops8, PEAK_I32_ADD, bytes8)
+    log(f"[23 kernel time] tree_ah_grouped int8 (#1b), L2 flushed: kernel "
+        f"{k8:.4f} ms, plain twin {p8:.4f} ms, bound {b8:.4f} ms, bound by "
+        f"{by8} ({bytes8} bytes, {ops8} int32 adds at {PEAK_I32_ADD:.4g}/s) "
+        f"-> {b8 / k8:.3f} of the bound ({smi})")
+    k10, p10 = turns(lambda: tal.tree_ah_leaf_scores(*args10, l_cap=l_cap),
+                     lambda: tal.tree_ah_leaf_scores_reference(*args10,
+                                                               l_cap=l_cap),
+                     20, 2)
+    bytes10 = (luts4.numel() * 4 + int(sizes[probed].sum()) * s_pad
+               + BATCH * SOAR_P * (8 + 4 * l_cap))
+    ops10 = int(p_size.sum()) * s_pad
+    b10, by10 = bound(ops10, PEAK_F32, bytes10)
+    log(f"[23 kernel time] tree_ah_leaf (#10), L2 flushed: kernel {k10:.4f} "
+        f"ms, plain twin {p10:.4f} ms, bound {b10:.4f} ms, bound by {by10} "
+        f"({bytes10} bytes, {ops10} float32 adds) -> {b10 / k10:.3f} of the "
+        f"bound ({smi})")
+
+    def staged(qb, leaf):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+        ev[0].record()
+        pt = tx._select_partitions(cent, qb, p=SOAR_P)
+        ev[1].record()
+        lf = tx._residual_luts(qb, cent, pt, cb, s_pad=s_pad,
+                               use_residuals=True)
+        ev[2].record()
+        flat = leaf(lf, pt)
+        ev[3].record()
+        tx._finalize(db_f32, qb, flat, pt, off, codes_p.shape[1], perm, inf,
+                     inf, pre_k=SOAR_PRE_K, k=K, p=SOAR_P,
+                     measure=cfg.distance_measure, multiplicity=mult)
+        ev[4].record()
+        torch.cuda.synchronize()
+        return [ev[i].elapsed_time(ev[i + 1]) for i in range(4)]
+
+    leaves = {
+        "bf16 grouped #1": lambda lf, pt: tx.leaf_scores_grouped(
+            lf, pt, codes_p, off, sizes, p=SOAR_P, l_cap=l_cap, q_cap=q_cap,
+            l_tile=l_tile, packed=True),
+        "int8 grouped #1b": lambda lf, pt: tx.leaf_scores_grouped(
+            lf, pt, codes_p, off, sizes, p=SOAR_P, l_cap=l_cap, q_cap=q_cap,
+            l_tile=l_tile, packed=True, int8_luts=True),
+        "per pair #10": lambda lf, pt: tx.leaf_scores_per_pair(
+            lf, pt, codes_u, off, sizes, p=SOAR_P, l_cap=l_cap,
+            c=cb.shape[1]),
+    }
+    for (label, leaf), (search, _, _) in zip(leaves.items(), paths.values()):
+        staged(q0, leaf)
+        rows = np.array([staged(queries[i * BATCH:(i + 1) * BATCH], leaf)
+                         for i in range(BATCHES)])
+        med, top = event_ms(search, queries, BATCH, BATCHES)
+        log(f"[23 soar stages/{label}] per batch ms: " + ", ".join(
+            f"{n} {v:.4f}" for n, v in zip(
+                ("select", "lut", "leaf", "finalize"),
+                rows.mean(0))) + f", sum {rows.sum(1).mean():.4f}; whole "
+            f"path median {med:.4f} ms, max {top:.4f} ms -> "
+            f"{BATCH / med * 1e3:.0f} queries/s ({smi})")
+    by_layout = {}
+    for label, srch in (("id", base), ("csr", csr4)):
+        by_layout[label] = event_ms(
+            lambda qb: srch.search_batched_tensors(qb, K, p4), queries,
+            BATCH, BATCHES)
+    log(f"[23 aside] phase 4's index, search_batched_tensors per batch: id "
+        f"layout median {by_layout['id'][0]:.4f} ms (max "
+        f"{by_layout['id'][1]:.4f}), csr layout median "
+        f"{by_layout['csr'][0]:.4f} ms (max {by_layout['csr'][1]:.4f}) "
+        f"({smi})")
+    return [
+        {"name": "tree_ah_grouped_int8", "route": "cuda",
+         "source": "scann_tpu_torch/csrc/tree_ah_grouped.cu",
+         "replaces": "scann_tpu/ops/tree_ah_grouped.py:137",
+         "launches": launches["tree_ah_search_grouped int8_luts (#1b)"],
+         "max_abs_err": err8, "ms": k8, "plain_ms": p8, "bound_ms": b8,
+         "bound_by": by8, "library_ms": None},
+        {"name": "tree_ah_leaf", "route": "cuda",
+         "source": "scann_tpu_torch/csrc/tree_ah_leaf.cu",
+         "replaces": "scann_tpu/ops/tree_ah_pallas.py:36",
+         "launches": launches["tree_ah_search per pair (#10)"],
+         "max_abs_err": err10, "ms": k10, "plain_ms": p10, "bound_ms": b10,
+         "bound_by": by10, "library_ms": None},
+    ]
 
 
 if __name__ == "__main__":

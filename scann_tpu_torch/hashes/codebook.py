@@ -69,7 +69,7 @@ class Codebook:
         if self.config.anisotropic_threshold is not None:
             raise NotImplementedError(
                 "anisotropic (AVQ) codebook training is not ported yet "
-                "(ROADMAP.md queue 1, item 3: AVQ)")
+                "(ROADMAP.md queue 1, item 8: AVQ)")
         x = torch.as_tensor(data, dtype=torch.float32,
                             device=require_device(self.device))
         if x.shape[0] == 0:

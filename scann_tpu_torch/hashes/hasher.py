@@ -23,9 +23,9 @@ plain twins):
 
 SQUARED_L2, COSINE (rows normalized at build, queries at search; the L2
 tables then rank as cosine) and DOT_PRODUCT / GENERAL_INNER_PRODUCT (-dot
-tables). The re-rank store is the float32 dataset; ``rerank_dtype`` other
-than float32 raises ``NotImplementedError`` (ROADMAP.md queue 1, item 3:
-rerank dtypes), as does anisotropic (AVQ) training.
+tables). The re-rank store is the float32 dataset, or for ``rerank_dtype``
+bfloat16 / int8 a low-precision store (``utils/reordering``). Anisotropic
+(AVQ) training raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -73,6 +73,7 @@ from scann_tpu_torch.types import (
     require_device,
 )
 from scann_tpu_torch.utils.reordering import (
+    build_rerank_store,
     gather_rerank_rows,
     rerank_store_rows,
 )
@@ -96,7 +97,8 @@ class AsymmetricHasherConfig:
     # item 3); builds raise when it is set. An index trained with it
     # serves like any other.
     anisotropic_threshold: Optional[float] = None
-    # dtype of the re-rank store; only "float32" is ported
+    # dtype of the re-rank store: "float32", "bfloat16" or "int8" (the
+    # per-dimension affine codec)
     rerank_dtype: str = "float32"
 
 
@@ -122,11 +124,12 @@ def _normalize(x: torch.Tensor) -> torch.Tensor:
     return x / norms.clamp_min(1e-30)
 
 
-def rerank_exact(db: torch.Tensor, queries: torch.Tensor,
+def rerank_exact(db, queries: torch.Tensor,
                  cand: torch.Tensor, pre_valid: torch.Tensor,
                  measure: DistanceMeasure) -> torch.Tensor:
-    """[B, C] exact float32 distances of the candidates from the float32
-    re-rank store ``db``, MASKED_DISTANCE where not ``pre_valid``."""
+    """[B, C] exact float32 distances of the candidates from the re-rank
+    store ``db`` (float32 rows or a low-precision store), MASKED_DISTANCE
+    where not ``pre_valid``."""
     safe = cand.clamp(0, rerank_store_rows(db) - 1)
     rows = gather_rerank_rows(db, safe)                       # [B, C, D]
     norms = torch.sum(rows * rows, dim=-1)
@@ -244,10 +247,6 @@ class AsymmetricHasher(Searcher):
             raise ScannError.invalid_argument(
                 f"rerank_dtype must be float32, bfloat16 or int8, got "
                 f"{self.config.rerank_dtype!r}")
-        if self.config.rerank_dtype != "float32":
-            raise NotImplementedError(
-                f"rerank_dtype={self.config.rerank_dtype!r} is not ported yet "
-                f"(ROADMAP.md queue 1, item 3: rerank dtypes)")
         self.device = torch.device(device)
         self.codebook: Optional[Codebook] = None
         self.codes: Optional[torch.Tensor] = None     # [N, S] uint8
@@ -256,6 +255,7 @@ class AsymmetricHasher(Searcher):
         self._dim = 0
         self._codes_t: Optional[torch.Tensor] = None
         self._codes_packed_t: Optional[torch.Tensor] = None
+        self._rerank_store = None
 
     # -- build ----------------------------------------------------------------
     def build(self, dataset: DenseDataset) -> "AsymmetricHasher":
@@ -296,6 +296,7 @@ class AsymmetricHasher(Searcher):
         self._dataset = dataset if cfg.store_dataset else None
         self._codes_t = None
         self._codes_packed_t = None
+        self._rerank_store = None
         return self
 
     # -- device layouts -------------------------------------------------------
@@ -427,9 +428,7 @@ class AsymmetricHasher(Searcher):
                         pre_eps: float = float("inf"),
                         post_eps: float = float("inf")
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
-        if self._dataset is None:
-            raise ScannError.failed_precondition("Dataset not stored")
-        db = self._dataset.device_tensor(self.codes.device)
+        db = self._rerank_state()
         cent = self.codebook.centroids
         measure = self.config.distance_measure
         fused = self._use_fused(pre_k)
@@ -453,6 +452,20 @@ class AsymmetricHasher(Searcher):
             out_d.append(dists)
             out_i.append(idx)
         return torch.cat(out_i), torch.cat(out_d)
+
+    def _rerank_state(self):
+        """The re-rank store on the codes' device: the float32 rows, or the
+        ``rerank_dtype`` store encoded on the host and uploaded once."""
+        if self._dataset is None:
+            raise ScannError.failed_precondition("Dataset not stored")
+        device = self.codes.device
+        if self.config.rerank_dtype == "float32":
+            return self._dataset.device_tensor(device)
+        if self._rerank_store is None:
+            data = self._dataset.numpy()
+            self._rerank_store, _ = build_rerank_store(
+                data, len(data), self.config.rerank_dtype, 1, device)
+        return self._rerank_store
 
     def _check_built(self):
         if self.codebook is None:

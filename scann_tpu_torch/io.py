@@ -7,8 +7,11 @@ JSON header (``__meta__``, uint8 bytes) with the config and index kind. This
 module reads it with numpy and ``json`` alone, so a tree-AH, block-sweep,
 asymmetric-hashing, brute-force or scalar-quantized index saved by the JAX
 package serves through the port (a scalar-quantized index with its very
-codes, so both packages score the same bytes). Other index kinds wait for
-ROADMAP.md queue 1, item 9.
+codes, so both packages score the same bytes). A tree-AH index carries its
+whole state across: spilled (multi-assignment) CSR tables, the centres a
+balanced build grew past ``num_partitions``, per-assignment codes, the
+re-rank dtype and layout and the measure (a cosine index's rows were
+normalized at build). Other index kinds wait for ROADMAP.md queue 1, item 9.
 """
 
 from __future__ import annotations
@@ -136,8 +139,10 @@ def from_numpy_state(arrays: Dict[str, np.ndarray], meta: dict,
                      device: Union[str, torch.device] = DEFAULT_DEVICE):
     """A port searcher on ``device`` (the current CUDA device by default)
     from a saved index's arrays and its JSON header — the state
-    ``scann_tpu.io.save_index`` writes: a tree-AH index (data, centers,
-    tokens, csr_offsets, csr_points, codes, codebook), a block-sweep or
+    ``scann_tpu.io.save_index`` writes: a tree-AH index (data, centers --
+    as many as the build made --, primary tokens, the CSR tables csr_offsets
+    and csr_points with every assignment, per-assignment codes, codebook),
+    a block-sweep or
     brute-force index (data), an asymmetric-hashing index (codes, codebook,
     data when stored) or a scalar-quantized index (codes, or data)."""
     kind = meta.get("kind")

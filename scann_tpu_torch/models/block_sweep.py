@@ -8,10 +8,9 @@ float32. No training: the index is the augmented copy, the float32 re-rank
 rows in the same stored order and the inverse of the stride shuffle.
 
 This slice serves SQUARED_L2, DOT_PRODUCT, COSINE and GENERAL_INNER_PRODUCT
-with a float32 re-rank store, the bf16 or int8 sweep copy, top-1 or top-2
-blocks, the stride shuffle, pre/post epsilons and fused allowlists.
-``rerank_dtype`` bfloat16 or int8 raises ``NotImplementedError`` (ROADMAP.md
-queue 1, item 3: rerank dtypes).
+with a float32, bfloat16 or int8 re-rank store (``utils/reordering``), the
+bf16 or int8 sweep copy, top-1 or top-2 blocks, the stride shuffle,
+pre/post epsilons and fused allowlists.
 """
 
 from __future__ import annotations
@@ -41,6 +40,10 @@ from scann_tpu_torch.ops.sweep import (
     sweep_search,
 )
 from scann_tpu_torch.types import DEFAULT_DEVICE, cdiv, require_device
+from scann_tpu_torch.utils.reordering import (
+    build_rerank_store,
+    rerank_store_bytes,
+)
 
 _SWEEP_MEASURES = (DistanceMeasure.SQUARED_L2, DistanceMeasure.DOT_PRODUCT,
                    DistanceMeasure.GENERAL_INNER_PRODUCT,
@@ -66,7 +69,8 @@ class BlockSweepConfig:
     # stride-shuffle rows at build so cluster-sorted datasets spread over
     # the blocks; survivors' ids resolve through the inverse table
     shuffle: bool = True
-    # dtype of the re-rank store; only "float32" is ported
+    # dtype of the re-rank store: "float32", "bfloat16" (half the bytes) or
+    # "int8" (a quarter: the per-dimension affine codec)
     rerank_dtype: str = "float32"
     # dtype of the streamed sweep copy: "bfloat16" or "int8"
     sweep_dtype: str = "bfloat16"
@@ -92,10 +96,6 @@ class BlockSweepSearcher(Searcher):
             raise ScannError.invalid_argument(
                 f"rerank_dtype must be float32, bfloat16 or int8, got "
                 f"{cfg.rerank_dtype!r}")
-        if cfg.rerank_dtype != "float32":
-            raise NotImplementedError(
-                f"rerank_dtype={cfg.rerank_dtype!r} is not ported yet "
-                f"(ROADMAP.md queue 1, item 3: rerank dtypes)")
         if cfg.sweep_dtype not in ("bfloat16", "int8"):
             raise ScannError.invalid_argument(
                 f"sweep_dtype must be bfloat16 or int8, got "
@@ -104,7 +104,7 @@ class BlockSweepSearcher(Searcher):
         self._dataset = dataset
         self._measure = cfg.distance_measure
         self.device = torch.device(device)
-        self._state = None      # (aug, rerank rows, n) on the device
+        self._state = None      # (aug, re-rank store, n) on the device
         self._aug_scales: Optional[torch.Tensor] = None
         self._aug_sn = 0.0
         self._inv_perm: Optional[torch.Tensor] = None
@@ -126,18 +126,25 @@ class BlockSweepSearcher(Searcher):
         return self._dataset.dimensionality
 
     def memory_usage(self) -> int:
-        """Device bytes beyond the raw dataset: the augmented sweep copy (the
-        float32 re-rank rows are the dataset itself, in stored order, and
-        are not counted — as in the JAX package)."""
+        """Device bytes beyond the raw dataset: the augmented sweep copy plus
+        a low-precision re-rank store (the float32 re-rank rows are the
+        dataset itself, in stored order, and are not counted — as in the
+        JAX package)."""
         if self._state is None:
             return 0
-        aug = self._state[0]
-        return aug.numel() * aug.element_size()
+        aug, rows, _ = self._state
+        total = aug.numel() * aug.element_size()
+        if self._config.rerank_dtype != "float32":
+            total += rerank_store_bytes(rows)
+        return total
 
     # -- device state ---------------------------------------------------------
-    def device_state(self) -> Tuple[torch.Tensor, torch.Tensor, int]:
-        """(augmented sweep copy [N_pad, D1] bf16 or int8, float32 re-rank
-        rows [N, D] in the same stored order, N), built on the device once.
+    def device_state(self):
+        """(augmented sweep copy [N_pad, D1] bf16 or int8, re-rank store in
+        the same stored order, N), built on the device once. The store is
+        the float32 rows [N, D], or for ``rerank_dtype`` bfloat16 / int8 the
+        low-precision store encoded on the host and uploaded once
+        (:func:`~scann_tpu_torch.utils.reordering.build_rerank_store`).
 
         Rows pad to a multiple of the q-major step rounded up to tile_n, as
         in the JAX package, so the same kernel forms apply. With the shuffle
@@ -157,10 +164,17 @@ class BlockSweepSearcher(Searcher):
             inv[pos] = np.arange(n, dtype=np.int64)
             self._inv_host = inv
             self._inv_perm = torch.from_numpy(inv).to(device)
-            rows = torch.from_numpy(data[inv]).to(device)
+            data_p = data[inv]
         else:
             stride, self._inv_perm, self._inv_host = 0, None, None
+            data_p = data
+        if cfg.rerank_dtype != "float32":
+            rows, _ = build_rerank_store(data_p, n, cfg.rerank_dtype, 1,
+                                         device)
+        elif data_p is data:
             rows = self._dataset.device_tensor(device)
+        else:
+            rows = torch.from_numpy(data_p).to(device)
         if cfg.sweep_dtype == "int8":
             aug, scales, self._aug_sn = build_int8_augmented_db(
                 data, n, self._measure, tile_n=pad_to, shuffle_stride=stride)

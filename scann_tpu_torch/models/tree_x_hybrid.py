@@ -1,25 +1,33 @@
 """Tree-x-AH hybrid searcher (counterpart of
 ``scann_tpu/models/tree_x_hybrid.py``).
 
-Build: k-means partitions; a global PQ codebook trained on residuals
-(point - partition centroid) of a seeded sample; codes per assignment in
-one partition-contiguous CSR slab.
+Build: k-means partitions (optionally balanced to a size cap, and spilled:
+a second assignment per point by distance or by the SOAR loss); a global PQ
+codebook trained on residuals (point - partition centroid) of a seeded
+sample; codes per ASSIGNMENT in one partition-contiguous CSR slab, so a
+spilled point's two rows each encode the residual against their own
+partition's centroid.
 
 Search, one batch of queries on the device with no host round trip:
 
     centroid matmul -> top-p partitions               (_select_partitions)
-    -> per-(query, partition) residual LUTs           (_residual_luts)
-    -> pairs grouped by partition, LUT rows gathered  (_group_luts)
-    -> grouped leaf scoring over the CSR slab          (CUDA kernel,
-                                                        ops/tree_ah_grouped)
-    -> leaf-major flat scores [B, p*l_cap]             (_leaf_major)
-    -> top-pre_k -> rows -> exact re-rank -> top-k     (_finalize)
+    -> per-(query, partition) LUTs                     (_residual_luts)
+    -> leaf scoring over the CSR slab, one of:
+         grouped: pairs grouped by partition, LUT rows gathered, the
+           grouped scorer (CUDA kernel, ops/tree_ah_grouped) with bf16 or
+           int8 tables                                 (tree_ah_search_grouped)
+         per pair: every pair's float32 table over its partition's codes
+           (CUDA kernel, ops/tree_ah_leaf)             (tree_ah_search)
+    -> leaf-major flat scores [B, p*l_cap], allowlist mask
+    -> top-pre_k (x multiplicity under spilling, then keep-best-per-id)
+    -> rows from the re-rank store -> exact re-rank -> top-k   (_finalize)
 
-This slice serves one assignment per point, squared L2, residual PQ with
-packed int4 codes (or the unpacked u8 slab), and an exact float32 re-rank
-over the id-ordered store. Balancing, spilling/SOAR, the id-embedded CSR
-store, low-precision re-rank stores, non-L2 measures, restricts and int8
-LUTs raise ``NotImplementedError`` naming their ROADMAP.md item.
+The searcher serves the grouped path. Measures: squared L2 (and L2-like),
+COSINE (rows normalized at build, queries at search) and DOT_PRODUCT /
+GENERAL_INNER_PRODUCT (-dot tables, the centroid term folded into subspace
+0, partitions selected by dot product). Re-rank stores: float32, bfloat16,
+int8 (residual-anchored) and int16 (residual-anchored), in id order or in
+CSR order with the id in digit lanes (``rerank_layout="csr"``).
 """
 
 from __future__ import annotations
@@ -34,7 +42,7 @@ import torch
 from scann_tpu_torch.data.dataset import DenseDataset
 from scann_tpu_torch.errors import ScannError
 from scann_tpu_torch.hashes.codebook import Codebook, CodebookConfig, lut_kernel
-from scann_tpu_torch.hashes.hasher import AsymmetricHasherConfig
+from scann_tpu_torch.hashes.hasher import AsymmetricHasherConfig, _normalize
 from scann_tpu_torch.models.searcher import SearchParameters, Searcher, epsilons
 from scann_tpu_torch.ops.distances import (
     DistanceMeasure,
@@ -42,11 +50,19 @@ from scann_tpu_torch.ops.distances import (
     gathered_distances,
     many_to_many,
 )
-from scann_tpu_torch.ops.topk import approx_top_k_smallest, top_k_smallest
+from scann_tpu_torch.ops.topk import (
+    approx_top_k_smallest,
+    dedup_top_k,
+    keep_best_per_id,
+    top_k_smallest,
+    top_k_unique,
+)
 from scann_tpu_torch.ops.tree_ah_grouped import (
+    I16_MASK,
     group_pairs_by_partition,
     tree_ah_grouped_scores,
 )
+from scann_tpu_torch.ops.tree_ah_leaf import tree_ah_leaf_scores
 from scann_tpu_torch.partitioning.tree_partitioner import (
     TreePartitioner,
     TreePartitionerConfig,
@@ -58,13 +74,20 @@ from scann_tpu_torch.types import (
     align_up,
     require_device,
 )
+from scann_tpu_torch.utils.reordering import (
+    build_csr_rerank_store,
+    build_rerank_store,
+    build_residual_rerank_store,
+    gather_csr_rerank_rows,
+    gather_rerank_rows,
+)
+
+RERANK_DTYPES = ("float32", "bfloat16", "int8", "int16")
 
 
 @dataclasses.dataclass
 class TreeXHybridConfig:
-    """The JAX package's ``TreeXHybridConfig`` fields this slice reads.
-    ``max_partition_size`` defaults to None here (balancing is not ported);
-    the JAX package's default is "auto"."""
+    """The JAX package's ``TreeXHybridConfig`` fields the port reads."""
 
     num_partitions: int = 100
     partitions_to_search: int = 10
@@ -74,8 +97,16 @@ class TreeXHybridConfig:
     use_residuals: bool = True
     pre_reorder_multiplier: float = 3.0
     distance_measure: DistanceMeasure = DistanceMeasure.SQUARED_L2
-    max_partition_size: Optional[object] = None
+    # partition balancing cap ("auto" = 1.5 x the mean size, None = off)
+    max_partition_size: Optional[object] = "auto"
+    # principal-axis split of partitions the demote rounds left oversized
+    split_stragglers: bool = True
+    # spilling: "distance" = 2nd-nearest partition within the threshold
+    # ratio; "soar" = one secondary for every point by the SOAR loss
     spilling: bool = False
+    spilling_threshold: float = 0.1
+    spilling_mode: str = "distance"
+    soar_lambda: float = 1.0
     partition_max_iterations: int = 100
     partition_convergence_threshold: float = 1e-5
     partition_num_levels: int = 1
@@ -86,30 +117,38 @@ class TreeXHybridConfig:
     score_l_tile: int = 512
     # packed int4 slab (None = pack when num_codes <= 16)
     pack_codes: Optional[bool] = None
+    # spilling: keep each id's best approximate slot before the re-rank
+    # gather (False = gather pre_k x multiplicity rows, dedup after)
+    spill_dedup: bool = True
+    # dtype of the re-rank store: float32, bfloat16, int8 or int16 (the
+    # two integer codecs quantize the residual to the point's partition)
     rerank_dtype: str = "float32"
-    # rerank store layout: None or "id" (the id-ordered store; the JAX
-    # package's auto choice "csr" returns identical results)
+    # re-rank store layout: "id" (id order, candidates translated through
+    # the CSR perm table) or "csr" (CSR row order, the id in digit lanes).
+    # None = "id": the JAX package's auto picks "csr" at one assignment
+    # per point, which returns the same results; the port keeps "id" until
+    # a card measurement says otherwise (PERF.md)
     rerank_layout: Optional[str] = None
 
 
 def _check_config(cfg: TreeXHybridConfig) -> None:
     check_flat_partitioning(TreePartitionerConfig(
-        max_partition_size=cfg.max_partition_size, spilling=cfg.spilling,
-        num_levels=cfg.partition_num_levels,
-        distance_measure=cfg.distance_measure))
-    if cfg.rerank_dtype != "float32":
-        raise NotImplementedError(
-            f"rerank_dtype={cfg.rerank_dtype!r} is not ported yet "
-            f"(ROADMAP.md queue 1, item 3: rerank dtypes)")
-    if cfg.rerank_layout == "csr":
-        raise NotImplementedError(
-            "the id-embedded CSR rerank store is not ported yet (ROADMAP.md "
-            "queue 1, item 3: id-embedded CSR store)")
-    if cfg.rerank_layout not in (None, "id"):
+        num_levels=cfg.partition_num_levels))
+    if cfg.rerank_dtype not in RERANK_DTYPES:
+        raise ScannError.invalid_argument(
+            f"rerank_dtype must be one of {RERANK_DTYPES}, got "
+            f"{cfg.rerank_dtype!r}")
+    if cfg.rerank_layout not in (None, "id", "csr"):
         raise ScannError.invalid_argument(
             f"rerank_layout must be None, 'id' or 'csr', got "
             f"{cfg.rerank_layout!r}")
+    if cfg.spilling_mode not in ("distance", "soar"):
+        raise ScannError.invalid_argument(
+            f"spilling_mode must be 'distance' or 'soar', got "
+            f"{cfg.spilling_mode!r}")
 
+
+_MIPS = (DistanceMeasure.DOT_PRODUCT, DistanceMeasure.GENERAL_INNER_PRODUCT)
 
 # build-time residual-encode chunking: elements per [chunk, D] residual block
 _ENCODE_CHUNK_ELEMS = 150_000_000
@@ -121,37 +160,72 @@ _ENCODE_CHUNK_ELEMS = 150_000_000
 
 
 def _select_partitions(centers: torch.Tensor, queries: torch.Tensor, *,
-                       p: int) -> torch.Tensor:
-    """[B, p] nearest centroids, exact (a TPU run of the JAX package selects
-    approximately past 1024 centroids; its CPU run is exact, like this)."""
-    cd = many_to_many(DistanceMeasure.SQUARED_L2, queries, centers)
-    return top_k_smallest(cd, p)[1]
+                       p: int,
+                       measure: DistanceMeasure = DistanceMeasure.SQUARED_L2
+                       ) -> torch.Tensor:
+    """[B, p] selected partitions: largest dot product for MIPS measures,
+    nearest centroid otherwise (cosine rows are normalized). Exact; a TPU
+    run of the JAX package selects approximately past 1024 centroids, its
+    CPU run exactly, like this."""
+    sel = measure if measure in _MIPS else DistanceMeasure.SQUARED_L2
+    return top_k_smallest(many_to_many(sel, queries, centers), p)[1]
 
 
 def _residual_luts(queries: torch.Tensor, centers: torch.Tensor,
                    parts: torch.Tensor, codebook: torch.Tensor, *, s_pad: int,
-                   use_residuals: bool) -> torch.Tensor:
-    """[B*p, s_pad*C] squared-L2 LUTs of the residual queries q - c_t, zero
-    rows for pad subspaces (pad code 0 then adds nothing)."""
+                   use_residuals: bool,
+                   measure: DistanceMeasure = DistanceMeasure.SQUARED_L2
+                   ) -> torch.Tensor:
+    """[B*p, s_pad*C] per-(query, partition) LUTs, zero rows for pad
+    subspaces (pad code 0 then adds nothing).
+
+    Squared L2 (and cosine on normalized vectors): LUTs of the residual
+    queries q - c_t. MIPS: -dot(q_s, codebook[s][c]) tables with the
+    partition's constant -dot(q, c_t) folded into subspace 0, so the sums
+    are -dot(q, c_t + r) and compare across partitions."""
     b, d = queries.shape
     p = parts.shape[1]
-    if use_residuals:
-        q_eff = queries[:, None, :] - centers[parts]           # [B, p, D]
+    if measure in _MIPS:
+        s, c, dsub = codebook.shape
+        qs = queries.reshape(b, s, dsub)
+        luts = -torch.einsum("bsd,scd->bsc", qs, codebook)     # [B, S, C]
+        luts = luts[:, None].expand(b, p, s, c).clone()
+        if use_residuals:
+            bias = -torch.einsum("bd,bpd->bp", queries, centers[parts])
+            luts[:, :, 0, :] += bias[:, :, None]
+        luts = luts.reshape(b * p, s, c)
     else:
-        q_eff = queries[:, None, :].expand(b, p, d)
-    luts = lut_kernel(q_eff.reshape(b * p, d), codebook)       # [B*p, S, C]
+        if use_residuals:
+            q_eff = queries[:, None, :] - centers[parts]       # [B, p, D]
+        else:
+            q_eff = queries[:, None, :].expand(b, p, d)
+        luts = lut_kernel(q_eff.reshape(b * p, d), codebook)   # [B*p, S, C]
     s, c = luts.shape[1], luts.shape[2]
     if s_pad != s:
         luts = torch.nn.functional.pad(luts, (0, 0, 0, s_pad - s))
     return luts.reshape(b * p, s_pad * c)
 
 
+def quantize_luts_int8(luts_flat: torch.Tensor
+                       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(int8 tables, lo, scale): one affine per batch over the whole padded
+    table, ``clip(round((lut - lo) / scale), 0, 255) - 128`` (round half to
+    even, as ``jnp.round``). Pad subspaces are zero rows, so lo <= 0 once
+    S_pad > S. Divisions are tensor by tensor (a Python-scalar divisor
+    would multiply by a rounded reciprocal)."""
+    lo = luts_flat.min()
+    span = torch.clamp_min(luts_flat.max() - lo, 1e-6)
+    scale = span / torch.full_like(span, 255.0)
+    q = torch.clamp(torch.round((luts_flat - lo) / scale), 0, 255)
+    return (q - 128.0).to(torch.int8), lo, scale
+
+
 def _group_luts(luts_flat: torch.Tensor, parts: torch.Tensor,
                 csr_offsets: torch.Tensor, part_sizes: torch.Tensor, *,
                 s_pad: int, q_cap: int, packed: bool):
-    """Grouped scorer inputs: (luts_grouped [NG*q_cap, S_pad*C] bf16,
-    grp_off [NG] i32, grp_size [NG] i32 with 0 for unused groups,
-    slot [B*p] row of each pair)."""
+    """Grouped scorer inputs: (luts_grouped [NG*q_cap, S_pad*C] bf16, or
+    int8 when ``luts_flat`` is int8; grp_off [NG] i32, grp_size [NG] i32
+    with 0 for unused groups, slot [B*p] row of each pair)."""
     bp = luts_flat.shape[0]
     grp_part, slot, ng = group_pairs_by_partition(
         parts, part_sizes.shape[0], q_cap)
@@ -162,7 +236,8 @@ def _group_luts(luts_flat: torch.Tensor, parts: torch.Tensor,
                                device=luts_flat.device)
     pair_of_slot[slot] = torch.arange(bp, device=luts_flat.device)
     # bf16 before the gather: the scorer sums bf16 table entries anyway
-    luts = luts_flat.to(torch.bfloat16)
+    luts = (luts_flat if luts_flat.dtype == torch.int8
+            else luts_flat.to(torch.bfloat16))
     if packed:
         # even-first subspace order, the order the nibble unpack yields
         l3 = luts.reshape(bp, s_pad, -1)
@@ -183,18 +258,44 @@ def _leaf_major(scores_g: torch.Tensor, slot: torch.Tensor, *, b: int, p: int,
 def leaf_scores_grouped(luts_flat: torch.Tensor, parts: torch.Tensor,
                         codes_csr: torch.Tensor, csr_offsets: torch.Tensor,
                         part_sizes: torch.Tensor, *, p: int, l_cap: int,
-                        q_cap: int, l_tile: int, packed: bool
-                        ) -> torch.Tensor:
-    """[B, p*l_cap] leaf-major bf16 scores, ``MASKED_DISTANCE`` past each
-    partition's size, from the grouped scorer."""
+                        q_cap: int, l_tile: int, packed: bool,
+                        int8_luts: bool = False) -> torch.Tensor:
+    """[B, p*l_cap] leaf-major scores, ``MASKED_DISTANCE`` past each
+    partition's size, from the grouped scorer: bf16, or with ``int8_luts``
+    float32 restored from the int16 sums by the batch's affine
+    ``scale * (s + 128 * s_pad) + s_pad * lo`` (real units survive, so
+    epsilons keep their meaning)."""
     s_pad = 2 * codes_csr.shape[0] if packed else codes_csr.shape[0]
+    if int8_luts:
+        luts_flat, lo, scale = quantize_luts_int8(luts_flat)
     luts_grouped, grp_off, grp_size, slot = _group_luts(
         luts_flat, parts, csr_offsets, part_sizes, s_pad=s_pad, q_cap=q_cap,
         packed=packed)
     scores_g = tree_ah_grouped_scores(
         luts_grouped, codes_csr, grp_off, grp_size, l_cap=l_cap,
         l_tile=l_tile, q_cap=q_cap, packed=packed)
-    return _leaf_major(scores_g, slot, b=parts.shape[0], p=p, l_cap=l_cap)
+    flat = _leaf_major(scores_g, slot, b=parts.shape[0], p=p, l_cap=l_cap)
+    if int8_luts:
+        real = scale * (flat.float() + 128.0 * s_pad) + s_pad * lo
+        flat = torch.where(flat == I16_MASK, float(MASKED_DISTANCE), real)
+    return flat
+
+
+def leaf_scores_per_pair(luts_flat: torch.Tensor, parts: torch.Tensor,
+                         codes_csr: torch.Tensor, csr_offsets: torch.Tensor,
+                         part_sizes: torch.Tensor, *, p: int, l_cap: int,
+                         c: int) -> torch.Tensor:
+    """[B, p*l_cap] leaf-major float32 scores, ``MASKED_DISTANCE`` past
+    each partition's size, one table per (query, partition) pair over the
+    unpacked [S_pad, N_csr] slab (the per-pair kernel, ops/tree_ah_leaf).
+    The counterpart of the JAX package's ``leaf_scores_xla``."""
+    b = parts.shape[0]
+    s_pad = codes_csr.shape[0]
+    scores = tree_ah_leaf_scores(
+        luts_flat.reshape(b, p, s_pad, c), codes_csr,
+        csr_offsets[parts].int().contiguous(),
+        part_sizes[parts].int().contiguous(), l_cap=l_cap)
+    return scores.transpose(1, 2).reshape(b, p * l_cap)
 
 
 def candidate_rows_from_positions(parts: torch.Tensor,
@@ -209,68 +310,185 @@ def candidate_rows_from_positions(parts: torch.Tensor,
     return (row0 + pos // p).clamp_max(num_rows - 1)
 
 
-def _finalize(db: torch.Tensor, queries: torch.Tensor,
-              flat_scores: torch.Tensor, parts: torch.Tensor,
-              csr_offsets: torch.Tensor, num_rows: int, perm: torch.Tensor,
-              pre_eps: float, post_eps: float, *, pre_k: int, k: int, p: int,
-              measure: DistanceMeasure
+def _csr_row_positions(parts: torch.Tensor, csr_offsets: torch.Tensor,
+                       num_rows: int, *, p: int, l_cap: int) -> torch.Tensor:
+    """[B, p*l_cap] leaf-major CSR rows of every candidate slot."""
+    b = parts.shape[0]
+    offs = csr_offsets.long()[parts]                          # [B, p]
+    iota_l = torch.arange(l_cap, device=parts.device)
+    rows = (offs[:, :, None] + iota_l).clamp_max(num_rows - 1)
+    return rows.transpose(1, 2).reshape(b, p * l_cap)
+
+
+def _mask_disallowed(flat_scores: torch.Tensor, allow_mask: torch.Tensor,
+                     perm: torch.Tensor, parts: torch.Tensor,
+                     csr_offsets: torch.Tensor, num_rows: int, *, p: int,
+                     l_cap: int) -> torch.Tensor:
+    """Restricts as a hard filter before selection: slots whose point id is
+    not in ``allow_mask`` ([N] bool on the device) get MASKED_DISTANCE."""
+    allow_csr = allow_mask[perm.clamp_min(0)]
+    rows = _csr_row_positions(parts, csr_offsets, num_rows, p=p, l_cap=l_cap)
+    return torch.where(allow_csr[rows], flat_scores,
+                       flat_scores.new_tensor(float(MASKED_DISTANCE)))
+
+
+def _finalize(db, queries: torch.Tensor, flat_scores: torch.Tensor,
+              parts: torch.Tensor, csr_offsets: torch.Tensor, num_rows: int,
+              perm: torch.Tensor, pre_eps: float, post_eps: float, *,
+              pre_k: int, k: int, p: int, measure: DistanceMeasure,
+              reorder: bool = True, multiplicity: int = 1,
+              spill_dedup: bool = True, csr_store: bool = False,
+              centers: Optional[torch.Tensor] = None
               ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Top-pre_k candidates -> point ids through ``perm`` -> exact re-rank
-    against the id-ordered float32 rows -> top-k. Returns (distances [B, k]
-    with inf for missing, ids [B, k] with -1 for missing)."""
-    pre_k = min(pre_k, flat_scores.shape[-1])
-    pre_vals, pre_pos = approx_top_k_smallest(flat_scores, pre_k)
+    """Approximate candidate selection -> (dedup) -> exact re-rank -> top-k.
+    Returns (distances [B, k] with inf for missing, ids [B, k] with -1).
+
+    Candidate CSR rows resolve arithmetically from the flat positions;
+    point ids resolve through ``perm`` for the survivors only.
+    ``reorder=False`` returns the approximate scores in measure units.
+    Under spilling (``multiplicity`` > 1) the approximate stage selects
+    pre_k x multiplicity slots; ``spill_dedup`` keeps each id's best slot
+    (:func:`keep_best_per_id`) before the gather, else every slot is
+    gathered and the exact top-k dedups (:func:`top_k_unique`).
+    ``csr_store``: ``db`` is an id-embedded CSR-ordered store; the gather
+    takes the CSR rows directly and the ids decode from its digit lanes,
+    an anchored store's residual rows getting each slot's partition
+    centroid (``centers``) back; copies dedup after the exact scores."""
+    if not reorder:
+        kp = min(k * max(int(multiplicity), 1), flat_scores.shape[-1])
+        vals, pos = top_k_smallest(flat_scores, kp)
+        rows_sel = candidate_rows_from_positions(parts, csr_offsets, num_rows,
+                                                 pos, p=p)
+        idx = perm[rows_sel]
+        if multiplicity > 1:
+            vals, idx = dedup_top_k(vals, idx, k)
+        else:
+            vals, idx = vals[..., :k], idx[..., :k]
+        vals = vals.float()
+        vals_m = approx_to_measure_units(vals, measure)
+        missing = (vals >= MASKED_DISTANCE / 2) | (vals_m > pre_eps)
+        return (torch.where(missing, float("inf"), vals_m),
+                torch.where(missing, -1, idx))
+
+    mult = max(int(multiplicity), 1)
+    dedup_first = spill_dedup and mult > 1 and not csr_store
+    width = flat_scores.shape[-1]
+    sel_k = min(pre_k * mult, width) if mult > 1 else min(pre_k, width)
+    pre_vals, pre_pos = approx_top_k_smallest(flat_scores, sel_k)
     pre_rows = candidate_rows_from_positions(
-        parts, csr_offsets, num_rows, pre_pos, p=p)         # [B, pre_k]
+        parts, csr_offsets, num_rows, pre_pos, p=p)         # [B, sel_k]
     pre_vals = pre_vals.float()
     pre_m = approx_to_measure_units(pre_vals, measure)
     pre_valid = (pre_vals < MASKED_DISTANCE / 2) & (pre_m <= pre_eps)
-    pre_cand = perm[pre_rows]
-    rows = db[pre_cand.clamp_min(0)]                        # [B, pre_k, D]
-    exact = gathered_distances(measure, queries, rows)
+    if csr_store:
+        rows, pre_cand = gather_csr_rerank_rows(db, pre_rows,
+                                                queries.shape[-1])
+        if isinstance(db, tuple):
+            # anchored store: slot j belongs to partition parts[b, j % p]
+            rows = rows + centers[torch.gather(parts, 1, pre_pos % p)]
+    else:
+        pre_cand = perm[pre_rows]
+        if dedup_first:
+            masked = torch.where(pre_valid, pre_vals, float(MASKED_DISTANCE))
+            dvals, pre_cand = keep_best_per_id(masked, pre_cand,
+                                               min(pre_k, sel_k))
+            pre_valid = dvals < MASKED_DISTANCE / 2
+        rows = gather_rerank_rows(db, pre_cand.clamp_min(0))  # [B, pre_k, D]
+    norms = torch.sum(rows * rows, dim=-1)
+    exact = gathered_distances(measure, queries, rows, norms)
     exact = torch.where(pre_valid, exact, float(MASKED_DISTANCE))
-    vals, pos = top_k_smallest(exact, k)
-    idx = torch.gather(pre_cand, 1, pos)
+    if mult > 1 and not dedup_first:
+        vals, idx = top_k_unique(exact, pre_cand, k, multiplicity)
+    else:
+        vals, pos = top_k_smallest(exact, k)
+        idx = torch.gather(pre_cand, 1, pos)
     missing = (vals >= MASKED_DISTANCE / 2) | (vals > post_eps)
     return (torch.where(missing, float("inf"), vals),
             torch.where(missing, -1, idx))
 
 
 def tree_ah_search_grouped(
-        db: torch.Tensor, centers: torch.Tensor, codes_csr: torch.Tensor,
+        db, centers: torch.Tensor, codes_csr: torch.Tensor,
         csr_offsets: torch.Tensor, part_sizes: torch.Tensor,
         perm: torch.Tensor, codebook: torch.Tensor, queries: torch.Tensor,
         pre_eps: float, post_eps: float, *, p: int, pre_k: int, k: int,
         l_cap: int, use_residuals: bool, q_cap: int, l_tile: int,
         packed: bool,
-        measure: DistanceMeasure = DistanceMeasure.SQUARED_L2
+        measure: DistanceMeasure = DistanceMeasure.SQUARED_L2,
+        allow_mask: Optional[torch.Tensor] = None, reorder: bool = True,
+        multiplicity: int = 1, spill_dedup: bool = True,
+        csr_store: bool = False, int8_luts: bool = False
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One batch through the grouped serving path: (distances, ids).
 
     Args:
-        db: [N, D] float32 rows in id order (the re-rank store).
+        db: the re-rank store (:mod:`scann_tpu_torch.utils.reordering`): [N,
+            D] float32 rows in id order, a low-precision id-order store, or
+            with ``csr_store`` an id-embedded CSR-order store.
         centers: [K, D] partition centroids.
         codes_csr: [S_pad/2, N_csr] packed (or [S_pad, N_csr] u8) slab.
         csr_offsets / part_sizes: [K] int32, 128-aligned partition starts
             and sizes.
         perm: [N_csr] int64 CSR row -> point id.
         codebook: [S, C, d_sub] PQ centroids.
-        queries: [B, D] float32.
+        queries: [B, D] float32 (normalized for COSINE).
+        allow_mask: [N] bool on the device, or None: restricts.
+        int8_luts: score with int8 tables (one affine per batch) and int16
+            sums; the flat scores come back in real units.
     """
-    if measure != DistanceMeasure.SQUARED_L2:
-        raise NotImplementedError(
-            f"tree-AH search under {measure} is not ported yet (ROADMAP.md "
-            f"queue 1, item 3: non-L2 measures)")
-    parts = _select_partitions(centers, queries, p=p)
+    parts = _select_partitions(centers, queries, p=p, measure=measure)
     s_pad = 2 * codes_csr.shape[0] if packed else codes_csr.shape[0]
     luts_flat = _residual_luts(queries, centers, parts, codebook, s_pad=s_pad,
-                               use_residuals=use_residuals)
+                               use_residuals=use_residuals, measure=measure)
     flat_scores = leaf_scores_grouped(
         luts_flat, parts, codes_csr, csr_offsets, part_sizes, p=p,
-        l_cap=l_cap, q_cap=q_cap, l_tile=l_tile, packed=packed)
-    return _finalize(db, queries, flat_scores, parts, csr_offsets,
-                     codes_csr.shape[1], perm, pre_eps, post_eps,
-                     pre_k=pre_k, k=k, p=p, measure=measure)
+        l_cap=l_cap, q_cap=q_cap, l_tile=l_tile, packed=packed,
+        int8_luts=int8_luts)
+    num_rows = codes_csr.shape[1]
+    if allow_mask is not None:
+        flat_scores = _mask_disallowed(flat_scores, allow_mask, perm, parts,
+                                       csr_offsets, num_rows, p=p,
+                                       l_cap=l_cap)
+    return _finalize(db, queries, flat_scores, parts, csr_offsets, num_rows,
+                     perm, pre_eps, post_eps, pre_k=pre_k, k=k, p=p,
+                     measure=measure, reorder=reorder,
+                     multiplicity=multiplicity, spill_dedup=spill_dedup,
+                     csr_store=csr_store, centers=centers)
+
+
+def tree_ah_search(
+        db, centers: torch.Tensor, codes_csr: torch.Tensor,
+        csr_offsets: torch.Tensor, part_sizes: torch.Tensor,
+        perm: torch.Tensor, codebook: torch.Tensor, queries: torch.Tensor,
+        pre_eps: float, post_eps: float, *, p: int, pre_k: int, k: int,
+        l_cap: int, use_residuals: bool,
+        measure: DistanceMeasure = DistanceMeasure.SQUARED_L2,
+        allow_mask: Optional[torch.Tensor] = None, reorder: bool = True,
+        multiplicity: int = 1, spill_dedup: bool = True,
+        csr_store: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One batch through the per-pair path (the JAX package's
+    ``tree_ah_search``): float32 per-pair leaf scores from the per-pair
+    kernel, then the same selection and re-rank as
+    :func:`tree_ah_search_grouped`. ``codes_csr`` is the unpacked
+    [S_pad, N_csr] u8 slab (the JAX function takes its row-major
+    transpose); the other arguments are the grouped path's."""
+    parts = _select_partitions(centers, queries, p=p, measure=measure)
+    s_pad = codes_csr.shape[0]
+    luts_flat = _residual_luts(queries, centers, parts, codebook, s_pad=s_pad,
+                               use_residuals=use_residuals, measure=measure)
+    flat_scores = leaf_scores_per_pair(
+        luts_flat, parts, codes_csr, csr_offsets, part_sizes, p=p,
+        l_cap=l_cap, c=codebook.shape[1])
+    num_rows = codes_csr.shape[1]
+    if allow_mask is not None:
+        flat_scores = _mask_disallowed(flat_scores, allow_mask, perm, parts,
+                                       csr_offsets, num_rows, p=p,
+                                       l_cap=l_cap)
+    return _finalize(db, queries, flat_scores, parts, csr_offsets, num_rows,
+                     perm, pre_eps, post_eps, pre_k=pre_k, k=k, p=p,
+                     measure=measure, reorder=reorder,
+                     multiplicity=multiplicity, spill_dedup=spill_dedup,
+                     csr_store=csr_store, centers=centers)
 
 
 # ---------------------------------------------------------------------------
@@ -288,16 +506,29 @@ class TreeXHybridSearcher(Searcher):
         self.device = torch.device(device)
         self.partitioner: Optional[TreePartitioner] = None
         self.codebook: Optional[Codebook] = None
-        # per-assignment codes [M, S] uint8 in CSR (partition-sorted) order
+        # per-assignment codes [M, S] uint8 in CSR (partition-sorted) order,
+        # M = len(tokenization.point_indices) >= N under spilling
         self.codes: Optional[torch.Tensor] = None
         self._dataset: Optional[DenseDataset] = None
-        self._csr_cache = None
+        self._reset_caches()
+
+    def _reset_caches(self) -> None:
+        self._csr_cache = {}          # packed -> _csr_state tuple
+        self._lp_cache = None         # low-precision id-order store
+        self._csr_store_cache = None  # id-embedded CSR-order store
 
     # -- build ----------------------------------------------------------------
     def build(self, dataset: DenseDataset) -> "TreeXHybridSearcher":
         if dataset.is_empty:
             raise ScannError.invalid_argument("Cannot build from empty dataset")
         cfg = self.config
+        if cfg.distance_measure == DistanceMeasure.COSINE:
+            # normalized rows: L2 selection, residual PQ and leaf scores
+            # then rank as cosine (the JAX package's host normalization)
+            raw = dataset.numpy()
+            norms = np.sqrt(np.einsum("nd,nd->n", raw, raw))
+            dataset = DenseDataset(
+                (raw / np.maximum(norms, 1e-30)[:, None]).astype(np.float32))
         hc = cfg.hash_config
         seed = hc.seed if hc.seed is not None else 42
         self._dataset = dataset
@@ -307,12 +538,16 @@ class TreeXHybridSearcher(Searcher):
             num_partitions=cfg.num_partitions,
             seed=seed,
             max_partition_size=cfg.max_partition_size,
+            split_stragglers=cfg.split_stragglers,
             spilling=cfg.spilling,
+            spilling_threshold=cfg.spilling_threshold,
+            spilling_mode=cfg.spilling_mode,
+            soar_lambda=cfg.soar_lambda,
             max_iterations=cfg.partition_max_iterations,
             convergence_threshold=cfg.partition_convergence_threshold,
             num_levels=cfg.partition_num_levels,
             training_sample_size=cfg.partition_training_sample_size,
-        ), device=self.device).build(data)
+        ), device=self.device).build(data, host=dataset.numpy())
 
         tk = self.partitioner.tokenization
         centers = self.partitioner.centers
@@ -354,7 +589,7 @@ class TreeXHybridSearcher(Searcher):
             hi = min(lo + chunk, m)
             codes[lo:hi] = self.codebook.encode_dataset(resid_rows(lo, hi))
         self.codes = codes
-        self._csr_cache = None
+        self._reset_caches()
         return self
 
     # -- metadata ---------------------------------------------------------------
@@ -372,31 +607,43 @@ class TreeXHybridSearcher(Searcher):
         pc = self.config.pack_codes
         return True if pc is None else bool(pc)
 
-    def _csr_state(self):
-        """Serving layout, built on the device once: (codes_csr, csr_offsets
-        [K] i32 with every partition start 128-aligned, part_sizes [K] i32,
-        perm [N_csr] int64 row -> point id, l_cap). The slab is
-        [S_pad/2, N_csr] packed low-nibble-first with
-        S_pad = 2*align_up(ceil(S/2), 8), or [align_up(S, 32), N_csr] u8;
-        N_csr leaves l_cap columns of slack after the last partition."""
-        if self._csr_cache is None:
+    def _csr_layout(self):
+        """(first aligned CSR row of each partition [K+1] int64, aligned CSR
+        row of each assignment [M] int64, partition of each assignment [M],
+        total rows, l_cap): partition starts 128-aligned, l_cap columns of
+        slack after the last partition."""
+        tk = self.partitioner.tokenization
+        device = self.codes.device
+        l_tile = max(int(self.config.score_l_tile), 128)
+        l_cap = int(align_up(max(tk.max_partition_size, 8), l_tile))
+        k = tk.num_partitions
+        sizes = tk.partition_sizes.to(device)
+        aligned = torch.zeros(k + 1, dtype=torch.int64, device=device)
+        aligned[1:] = torch.cumsum((sizes + 127) // 128 * 128, 0)
+        row_tok = torch.repeat_interleave(torch.arange(k, device=device),
+                                          sizes)
+        dest = (aligned[row_tok] + torch.arange(len(row_tok), device=device)
+                - tk.offsets.to(device)[row_tok])
+        return aligned, dest, row_tok, int(aligned[-1]) + l_cap, l_cap
+
+    def _csr_state(self, packed: Optional[bool] = None):
+        """Serving layout, built on the device once per slab form:
+        (codes_csr, csr_offsets [K] i32 with every partition start
+        128-aligned, part_sizes [K] i32, perm [N_csr] int64 row -> point id,
+        l_cap). The slab is [S_pad/2, N_csr] packed low-nibble-first with
+        S_pad = 2*align_up(ceil(S/2), 8), or [align_up(S, 32), N_csr] u8
+        (``packed=False``, the per-pair path's slab); ``packed=None`` takes
+        :meth:`_pack_codes`."""
+        packed = self._pack_codes() if packed is None else bool(packed)
+        if packed not in self._csr_cache:
+            if packed and self.codebook.num_codes > 16:
+                raise ValueError("packed int4 codes need num_codes <= 16")
             tk = self.partitioner.tokenization
             device = self.codes.device
-            l_tile = max(int(self.config.score_l_tile), 128)
-            l_cap = int(align_up(max(tk.max_partition_size, 8), l_tile))
-            k = tk.num_partitions
-            sizes = tk.partition_sizes.to(device)
-            aligned = torch.zeros(k + 1, dtype=torch.int64, device=device)
-            aligned[1:] = torch.cumsum((sizes + 127) // 128 * 128, 0)
-            total = int(aligned[-1]) + l_cap
+            aligned, dest, _, total, l_cap = self._csr_layout()
             m, s = self.codes.shape
-            packed = self._pack_codes()
             s_pad = (2 * int(align_up((s + 1) // 2, 8)) if packed
                      else int(align_up(s, 32)))
-            row_tok = torch.repeat_interleave(
-                torch.arange(k, device=device), sizes)
-            dest = (aligned[row_tok] + torch.arange(m, device=device)
-                    - tk.offsets.to(device)[row_tok])
             codes_aligned = torch.zeros(total, s_pad, dtype=torch.uint8,
                                         device=device)
             codes_aligned[dest, :s] = self.codes
@@ -407,9 +654,10 @@ class TreeXHybridSearcher(Searcher):
                 slab = codes_aligned[:, 0::2] | (codes_aligned[:, 1::2] << 4)
             else:
                 slab = codes_aligned
-            self._csr_cache = (slab.T.contiguous(), aligned[:-1].int(),
-                               sizes.int(), perm, l_cap)
-        return self._csr_cache
+            self._csr_cache[packed] = (
+                slab.T.contiguous(), aligned[:-1].int(),
+                tk.partition_sizes.to(device).int(), perm, l_cap)
+        return self._csr_cache[packed]
 
     def effective_q_cap(self, b: int, p: int) -> int:
         """Queries per group: the config's value, or 16 when a partition is
@@ -420,14 +668,78 @@ class TreeXHybridSearcher(Searcher):
         kparts = max(self.partitioner.num_partitions, 1)
         return 16 if (b * p) / kparts >= 12.0 else 8
 
+    # -- re-rank stores ---------------------------------------------------------
+    def _device_state(self):
+        """The id-order re-rank store on the device: the float32 rows, or
+        the low-precision store of ``rerank_dtype`` built from the host rows
+        once (bf16 rows; int8 / int16 quantize each row's residual to its
+        primary partition's centroid)."""
+        dt = self.config.rerank_dtype
+        if dt == "float32":
+            return self._dataset.device_tensor(self.device)
+        if self._lp_cache is None:
+            data = self._dataset.numpy()
+            if dt in ("int8", "int16"):
+                self._lp_cache, _ = build_residual_rerank_store(
+                    data, len(data),
+                    self.partitioner.tokenization.tokens.cpu().numpy(),
+                    self.partitioner.centers.cpu().numpy(), 1, self.device,
+                    levels=65535 if dt == "int16" else 255)
+            else:
+                self._lp_cache, _ = build_rerank_store(data, len(data), dt, 1,
+                                                       self.device)
+        return self._lp_cache
+
+    def _rerank_layout(self) -> str:
+        """Resolved re-rank layout: the config's, "id" when None."""
+        return self.config.rerank_layout or "id"
+
+    def _csr_store_state(self):
+        """The id-embedded CSR-order re-rank store (``rerank_layout='csr'``)
+        over the rows of :meth:`_csr_state`'s layout, built once with the
+        id-order store's codec (anchored codecs: calibrated on the primary
+        tokens' residuals, each CSR row encoded against its own
+        partition)."""
+        if self._csr_store_cache is None:
+            perm = self._csr_state()[3].cpu().numpy()
+            data = self._dataset.numpy()
+            dt = self.config.rerank_dtype
+            kw = {}
+            if dt in ("int8", "int16"):
+                _, dest, row_tok, total, _ = self._csr_layout()
+                parts = torch.zeros(total, dtype=torch.int64,
+                                    device=dest.device)
+                parts[dest] = row_tok
+                kw = dict(row_parts=parts.cpu().numpy(),
+                          tokens=self.partitioner.tokenization.tokens.cpu()
+                          .numpy(),
+                          centers=self.partitioner.centers.cpu().numpy())
+            self._csr_store_cache = build_csr_rerank_store(
+                data, perm, dt, self.device, **kw)
+        return self._csr_store_cache
+
+    def _allow_tensor(self, allow_mask) -> torch.Tensor:
+        """[N] bool allowlist on the device (ids past the mask: denied)."""
+        n = self.dataset_size()
+        m = np.zeros(n, dtype=bool)
+        a = np.asarray(allow_mask, dtype=bool).reshape(-1)[:n]
+        m[:len(a)] = a
+        return torch.from_numpy(m).to(self.device)
+
     # -- search -----------------------------------------------------------------
     def search_batched_tensors(self, queries: torch.Tensor, k: int,
-                               params: Optional[SearchParameters] = None
+                               params: Optional[SearchParameters] = None,
+                               allow_mask=None
                                ) -> Tuple[torch.Tensor, torch.Tensor]:
         """(ids [B, k] int64, distances [B, k] float32) for [B, D] float32
-        queries on the searcher's device; no host copy of the results."""
+        queries on the searcher's device; no host copy of the results.
+        ``allow_mask`` ([N] bool, host) restricts the results to the
+        allowed ids."""
         self._check_built()
         cfg = self.config
+        queries = queries.to(self.device).float()
+        if cfg.distance_measure == DistanceMeasure.COSINE:
+            queries = _normalize(queries)
         n = self.dataset_size()
         k = min(int(k), n)
         if k <= 0:
@@ -444,6 +756,10 @@ class TreeXHybridSearcher(Searcher):
         pre_eps, post_eps = epsilons(params)
 
         codes_csr, csr_offsets, part_sizes, perm, l_cap = self._csr_state()
+        # restricts go through the id layout (its perm table maps slots to
+        # the ids the mask is indexed by)
+        csr_store = self._rerank_layout() == "csr" and allow_mask is None
+        db = self._csr_store_state() if csr_store else self._device_state()
         max_cand = p * l_cap
         if pre_k > max_cand or k > max_cand:
             warnings.warn(
@@ -455,29 +771,28 @@ class TreeXHybridSearcher(Searcher):
         k_eff = min(k, max_cand)
 
         dists, idx = tree_ah_search_grouped(
-            self._dataset.device_tensor(self.device),
-            self.partitioner.centers, codes_csr, csr_offsets, part_sizes,
-            perm, self.codebook.centroids, queries.float(), pre_eps, post_eps,
+            db, self.partitioner.centers, codes_csr, csr_offsets, part_sizes,
+            perm, self.codebook.centroids, queries, pre_eps, post_eps,
             p=p, pre_k=pre_k, k=k_eff, l_cap=l_cap,
             use_residuals=cfg.use_residuals,
             q_cap=self.effective_q_cap(queries.shape[0], p),
             l_tile=cfg.score_l_tile, packed=self._pack_codes(),
-            measure=cfg.distance_measure)
+            measure=cfg.distance_measure,
+            allow_mask=(None if allow_mask is None
+                        else self._allow_tensor(allow_mask)),
+            multiplicity=self.partitioner.tokenization.max_multiplicity,
+            spill_dedup=cfg.spill_dedup, csr_store=csr_store)
         return idx, dists
 
     def search_batched_arrays(self, queries: np.ndarray, k: int,
                               params: Optional[SearchParameters] = None,
                               allow_mask: Optional[np.ndarray] = None):
         """(indices [B, k] int32, distances [B, k] float32) as numpy."""
-        if allow_mask is not None:
-            raise NotImplementedError(
-                "restricts (allow_mask) are not ported yet (ROADMAP.md "
-                "queue 1, item 3: restricts)")
         self._check_built()
         queries = self._validate_queries(queries)
         idx, dists = self.search_batched_tensors(
             torch.from_numpy(queries).to(require_device(self.device)), k,
-            params)
+            params, allow_mask)
         return (idx.cpu().numpy().astype(np.int32),
                 dists.cpu().numpy().astype(np.float32))
 

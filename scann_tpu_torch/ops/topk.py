@@ -1,10 +1,14 @@
-"""Top-k selection (counterpart of ``scann_tpu/ops/topk.py``)."""
+"""Top-k selection (counterpart of ``scann_tpu/ops/topk.py``), with the
+dedup selections that spilling needs (a point may sit in several
+partitions, so its candidates may repeat)."""
 
 from __future__ import annotations
 
 from typing import Tuple
 
 import torch
+
+from scann_tpu_torch.types import MASKED_DISTANCE
 
 # float dtype -> (same-width signed int dtype, mask of its magnitude bits)
 _ORDER_BITS = {
@@ -95,3 +99,85 @@ def approx_top_k_smallest(dists: torch.Tensor, k: int
     uses ``lax.approx_min_k``; on its CPU backend that lowers to exact
     selection, and the port selects exactly as well."""
     return top_k_smallest(dists, k)
+
+
+def top_k_with_threshold(dists: torch.Tensor, k: int, epsilon: float
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Top-k with an epsilon distance threshold: entries with distance
+    > epsilon come back as (inf, -1)."""
+    vals, idx = top_k_smallest(dists, k)
+    good = vals <= epsilon
+    return (torch.where(good, vals, float("inf")),
+            torch.where(good, idx, -1))
+
+
+def merge_top_k(dists: torch.Tensor, indices: torch.Tensor, k: int
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Top-k over candidate lists ``dists`` [..., M] whose global ids are
+    ``indices`` [..., M]: (values [..., k], ids [..., k])."""
+    vals, pos = top_k_smallest(dists, k)
+    return vals, torch.gather(indices, -1, pos)
+
+
+def dedup_top_k(vals: torch.Tensor, cand: torch.Tensor, k: int
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Keep-first-occurrence dedup over an ascending candidate list, then
+    truncate to k. Duplicate and missing slots come back as (inf, -1)."""
+    kp = cand.shape[-1]
+    # dup[i]: some j < i holds the same id (ascending, so j is closer)
+    eq = cand[..., :, None] == cand[..., None, :]
+    lower = torch.ones(kp, kp, dtype=torch.bool,
+                       device=cand.device).tril(diagonal=-1)
+    dup = (eq & lower).any(dim=-1) & (cand >= 0)
+    vals = torch.where(dup, float("inf"), vals)
+    cand = torch.where(dup, -1, cand)
+    # push the duplicates behind the (already ascending) unique entries
+    order = torch.argsort(dup.to(torch.uint8), dim=-1, stable=True)
+    return (torch.gather(vals, -1, order)[..., :k],
+            torch.gather(cand, -1, order)[..., :k])
+
+
+def top_k_unique(dists: torch.Tensor, ids: torch.Tensor, k: int,
+                 multiplicity: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Smallest-k over candidates whose ids may repeat, at most
+    ``multiplicity`` times each: the k * multiplicity smallest hold at least
+    k distinct ids, the first occurrence of each is kept. Duplicate and
+    missing slots come back as (inf, -1)."""
+    kp = min(k * max(int(multiplicity), 1), dists.shape[-1])
+    vals, pos = top_k_smallest(dists, kp)
+    return dedup_top_k(vals, torch.gather(ids, -1, pos), k)
+
+
+def keep_best_per_id(vals: torch.Tensor, ids: torch.Tensor, out_k: int,
+                     payload=None):
+    """Smallest-``out_k`` over unique ids, keeping each id's best copy.
+
+    The JAX package sorts (id, value) with one stable two-key ``lax.sort``;
+    here one stable sort on a combined int64 key does the same: the id
+    (shifted past -1) in the high 32 bits, the value's order bits in the low
+    32, so copies of an id come together best first and exact ties keep
+    their original order. Every entry equal to its left neighbour's id is
+    then a worse copy and is masked, and the survivors are selected by
+    value. Masked entries (``MASKED_DISTANCE``) sort behind the real copies
+    of their id, so they never displace one. ``vals`` are float32.
+
+    Returns ``(vals [..., out_k], ids [..., out_k])`` ascending with
+    (``MASKED_DISTANCE``, -1) fill, plus the payload gathered to the same
+    slots when ``payload`` is given."""
+    vals = vals.float()
+    low = _ordered_bits(vals) + (1 << 31)                 # in [0, 2**32)
+    key = ((ids.long() + 1) << 32) | low
+    order = torch.sort(key, dim=-1, stable=True).indices
+    ids_s = torch.gather(ids, -1, order)
+    vals_s = torch.gather(vals, -1, order)
+    prev = torch.cat([torch.full_like(ids_s[..., :1], -1), ids_s[..., :-1]],
+                     dim=-1)
+    dup = (ids_s == prev) & (ids_s >= 0)
+    vals_s = torch.where(dup, float(MASKED_DISTANCE), vals_s)
+    out_v, pos = top_k_smallest(vals_s, out_k)
+    out_i = torch.gather(ids_s, -1, pos)
+    out_i = torch.where(out_v >= MASKED_DISTANCE / 2, -1, out_i)
+    if payload is None:
+        return out_v, out_i
+    return out_v, out_i, torch.gather(torch.gather(payload, -1, order), -1,
+                                      pos)

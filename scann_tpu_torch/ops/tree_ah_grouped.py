@@ -9,9 +9,10 @@ once for all its queries.
 Two forms of the scorer compute the same thing:
 
   - ``csrc/tree_ah_grouped.cu``, a CUDA kernel written for Hopper, which
-    replaces the TPU kernel ``scann_tpu/ops/tree_ah_grouped.py::_kernel``.
-    Its source note gives what bounds it on the H100 and how the design
-    meets that;
+    replaces the TPU kernel ``scann_tpu/ops/tree_ah_grouped.py::_kernel``,
+    both of its branches: bf16 tables give bf16 scores, int8 tables (the
+    int8-LUT variant) give exact int16 sums. Its source note gives what
+    bounds it on the H100 and how the design meets that;
   - :func:`tree_ah_grouped_scores_reference`, its plain PyTorch twin.
 
 :func:`tree_ah_grouped_scores` takes the twin for CPU tensors only; for CUDA
@@ -21,8 +22,8 @@ Layout contract (the JAX package's):
   - codes_csr [S_pad, N_csr] uint8, or packed [S_pad/2, N_csr] uint8 with
     subspace 2j in the low nibble and 2j+1 in the high nibble of byte j;
     partition-contiguous columns with ``l_cap`` columns of slack at the end;
-  - luts [NG*q_cap, S_pad*C], zero rows for pad subspaces; with packed
-    codes the subspace order is even-first.
+  - luts [NG*q_cap, S_pad*C], zero rows for pad subspaces (float, cast
+    to bf16, or int8); with packed codes the subspace order is even-first.
 """
 
 from __future__ import annotations
@@ -38,8 +39,9 @@ from scann_tpu_torch.types import (
     on_card,
 )
 
-# int16 sentinel of the int8-LUT variant (not ported yet, ROADMAP.md
-# queue 2, kernel 1b); kept so the constant has one home in both packages
+# int16 sentinel for masked slots of the int8-LUT variant: real sums are
+# bounded by 128 * S_pad (the wrapper asserts S_pad * 255 < 32767, the JAX
+# package's bound)
 I16_MASK = 32767
 
 # q_cap values the CUDA kernel is instantiated for
@@ -90,10 +92,6 @@ def group_pairs_by_partition(parts: torch.Tensor, num_partitions: int,
 def _check_args(luts_grouped, codes_csr, grp_offsets, grp_sizes, *,
                 l_cap: int, l_tile: int, q_cap: int, packed: bool):
     """Shapes of a scorer call: (NG, S_pad, C)."""
-    if luts_grouped.dtype == torch.int8:
-        raise NotImplementedError(
-            "int8 LUTs (int16 scores) are not ported yet (ROADMAP.md "
-            "queue 2, kernel 1b)")
     if luts_grouped.dim() != 2 or codes_csr.dim() != 2:
         raise ValueError("luts_grouped and codes_csr must be 2-D")
     if codes_csr.dtype != torch.uint8:
@@ -110,6 +108,9 @@ def _check_args(luts_grouped, codes_csr, grp_offsets, grp_sizes, *,
         raise ValueError(f"{ngq} LUT rows are not a multiple of q_cap={q_cap}")
     if l_cap % l_tile != 0:
         raise ValueError(f"l_cap={l_cap} is not a multiple of l_tile={l_tile}")
+    if luts_grouped.dtype == torch.int8 and s_pad * 255 >= I16_MASK:
+        raise ValueError(f"int8 LUTs need S_pad * 255 < {I16_MASK}, got "
+                         f"S_pad={s_pad}")
     if grp_offsets.shape != (ng,) or grp_sizes.shape != (ng,):
         raise ValueError(f"grp_offsets/grp_sizes must be [{ng}]")
     return ng, s_pad, c
@@ -120,22 +121,31 @@ def tree_ah_grouped_scores_reference(
         grp_offsets: torch.Tensor, grp_sizes: torch.Tensor, *, l_cap: int,
         l_tile: int = 256, q_cap: int = 32, packed: bool = False
 ) -> torch.Tensor:
-    """Plain PyTorch twin of the CUDA kernel: [NG*q_cap, l_cap] bf16 scores,
-    ``MASKED_DISTANCE`` past each group's size. LUTs are cast to bf16 first,
-    sums run in float32 over subspaces in the kernel's order (for packed
-    codes byte j adds its low then its high nibble), so the two agree bit
-    for bit. Works on any device; memory is one [NG, q_cap, l_cap] float32
-    accumulator plus the [rows, NG, l_cap] gathered code bytes."""
+    """Plain PyTorch twin of the CUDA kernel: [NG*q_cap, l_cap] scores
+    masked past each group's size.
+
+    Float LUTs are cast to bf16 first, sums run in float32 over subspaces
+    in the kernel's order (for packed codes byte j adds its low then its
+    high nibble) and round once to bf16, so the two agree bit for bit;
+    masked slots hold bf16(``MASKED_DISTANCE``). int8 LUTs sum exactly in
+    int32 and come back as int16, masked slots ``I16_MASK``. Works on any
+    device; memory is one [NG, q_cap, l_cap] accumulator plus the
+    [rows, NG, l_cap] gathered code bytes."""
     ng, s_pad, c = _check_args(luts_grouped, codes_csr, grp_offsets,
                                grp_sizes, l_cap=l_cap, l_tile=l_tile,
                                q_cap=q_cap, packed=packed)
     s_rows, n_csr = codes_csr.shape
     device = codes_csr.device
-    luts = luts_grouped.to(torch.bfloat16).float().view(ng, q_cap, s_pad, c)
+    int8 = luts_grouped.dtype == torch.int8
+    if int8:
+        luts = luts_grouped.int().view(ng, q_cap, s_pad, c)
+    else:
+        luts = luts_grouped.to(torch.bfloat16).float().view(ng, q_cap, s_pad,
+                                                            c)
     iota_l = torch.arange(l_cap, device=device)
     cols = (grp_offsets.long()[:, None] + iota_l).clamp_max(n_csr - 1)
     codes_g = codes_csr[:, cols]                             # [rows, NG, l_cap]
-    acc = torch.zeros(ng, q_cap, l_cap, dtype=torch.float32, device=device)
+    acc = torch.zeros(ng, q_cap, l_cap, dtype=luts.dtype, device=device)
 
     def add(s: int, code: torch.Tensor) -> None:
         idx = code.long()[:, None, :].expand(ng, q_cap, l_cap)
@@ -148,9 +158,12 @@ def tree_ah_grouped_scores_reference(
         else:
             add(j, codes_g[j])
     valid = iota_l[None, :] < grp_sizes.long()[:, None]     # [NG, l_cap]
-    out = torch.where(valid[:, None, :], acc,
-                      torch.tensor(float(MASKED_DISTANCE), device=device))
-    return out.to(torch.bfloat16).reshape(ng * q_cap, l_cap)
+    if int8:
+        out = torch.where(valid[:, None, :], acc, I16_MASK).to(torch.int16)
+    else:
+        out = torch.where(valid[:, None, :], acc, torch.tensor(
+            float(MASKED_DISTANCE), device=device)).to(torch.bfloat16)
+    return out.reshape(ng * q_cap, l_cap)
 
 
 def _kernel_fn():
@@ -161,7 +174,7 @@ def _kernel_fn():
         fn = native.load("tree_ah_grouped").tree_ah_grouped_scores
         vp, i32 = ctypes.c_void_p, ctypes.c_int
         fn.argtypes = [vp, vp, vp, vp, vp, i32, i32, i32, i32,
-                       ctypes.c_longlong, i32, i32, i32, vp]
+                       ctypes.c_longlong, i32, i32, i32, i32, vp]
         fn.restype = ctypes.c_int
         _fn = fn
     return _fn
@@ -172,7 +185,8 @@ def tree_ah_grouped_scores(
         grp_offsets: torch.Tensor, grp_sizes: torch.Tensor, *, l_cap: int,
         l_tile: int = 256, q_cap: int = 32, packed: bool = False
 ) -> torch.Tensor:
-    """[NG*q_cap, l_cap] bf16 grouped leaf scores (masked past each size).
+    """[NG*q_cap, l_cap] grouped leaf scores (masked past each size): bf16
+    for float LUTs, int16 for int8 LUTs (``I16_MASK`` where masked).
 
     CPU tensors go to :func:`tree_ah_grouped_scores_reference`; CUDA tensors
     to the CUDA kernel, built from ``csrc/tree_ah_grouped.cu`` at first use.
@@ -198,20 +212,23 @@ def tree_ah_grouped_scores(
             raise ValueError(f"{name} must be contiguous")
     if q_cap not in KERNEL_Q_CAPS:
         raise ValueError(f"q_cap={q_cap} not in {KERNEL_Q_CAPS}")
-    smem = 2 * q_cap * s_pad * c
+    int8 = luts_grouped.dtype == torch.int8
+    smem = (1 if int8 else 2) * q_cap * s_pad * c
     if smem > MAX_SHARED_MEMORY:
         raise ValueError(f"LUT rows of one group need {smem} bytes of shared "
                          f"memory, more than the {MAX_SHARED_MEMORY} a block "
                          f"has")
-    luts = luts_grouped.to(torch.bfloat16).contiguous()
-    out = torch.empty(ng * q_cap, l_cap, dtype=torch.bfloat16, device=device)
+    luts = (luts_grouped if int8 else luts_grouped.to(torch.bfloat16)
+            ).contiguous()
+    out = torch.empty(ng * q_cap, l_cap, dtype=torch.int16 if int8
+                      else torch.bfloat16, device=device)
     fn = _kernel_fn()
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = fn(luts.data_ptr(), codes_csr.data_ptr(), grp_offsets.data_ptr(),
                  grp_sizes.data_ptr(), out.data_ptr(), ng, q_cap,
                  codes_csr.shape[0], c, codes_csr.shape[1], l_cap, l_tile,
-                 int(packed), stream)
+                 int(packed), int(int8), stream)
     if err != 0:
         raise RuntimeError(f"tree_ah_grouped kernel launch failed: CUDA "
                            f"error {err}")

@@ -125,11 +125,31 @@ def test_tensor_search_and_memory_usage(data):
 
 
 def test_unported_rerank_dtypes_raise(data):
+    """Re-rank dtypes the JAX block sweep rejects raise; bfloat16 and int8
+    are served (test_low_precision_rerank_matches_jax)."""
     db, _ = data
-    for rdt in ("bfloat16", "int8"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+    for rdt in ("int16", "float16"):
+        with pytest.raises(T.ScannError):
             T.BlockSweepSearcher(T.DenseDataset(db), T.BlockSweepConfig(
                 rerank_dtype=rdt), device="cpu")
+
+
+@pytest.mark.parametrize("rdt", ["bfloat16", "int8"])
+@pytest.mark.parametrize("cfg", [dict(), dict(shuffle=False, top2=True)],
+                         ids=["shuffled", "noshuffle-top2"])
+def test_low_precision_rerank_matches_jax(data, rdt, cfg):
+    """bf16 rows or the per-dimension int8 codec, in the sweep's stored
+    order: the same store bytes as the JAX searcher's, the same results."""
+    db, q = data
+    jax_s, port = _pair(db, rerank_dtype=rdt, **cfg)
+    want = jax_s.search_batched_arrays(q, K)
+    got = port.search_batched_arrays(q, K)
+    _same(want, got)
+    exact = port.search_batched_arrays(q, K)[1]
+    f32 = _pair(db, **cfg)[1].search_batched_arrays(q, K)[1]
+    assert np.abs(exact - f32).max() > 0          # the store is not f32
+    jax_s._device_state()
+    assert port.memory_usage() == jax_s.memory_usage()
 
 
 @pytest.mark.parametrize("cfg", [dict(), dict(sweep_dtype="int8", top2=True,

@@ -26,6 +26,7 @@ from scann_tpu_torch import (
     TreeXHybridConfig,
     TreeXHybridSearcher,
 )
+from scann_tpu_torch.errors import ScannError
 from scann_tpu_torch.hashes.codebook import encode_kernel, lut_kernel
 from scann_tpu_torch.partitioning.tree_partitioner import (
     TreePartitioner,
@@ -130,13 +131,21 @@ def test_partitioner_tokenization_is_csr_of_nearest_centers():
         assert np.all(np.diff(pts) > 0)            # stable sort by token
 
 
-@pytest.mark.parametrize("config", [
-    dict(max_partition_size="auto"), dict(spilling=True),
-    dict(partition_num_levels=2), dict(rerank_dtype="bfloat16"),
-    dict(rerank_layout="csr"),
-])
-def test_unported_options_raise(config):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+@pytest.mark.parametrize("config,error", [
+    (dict(partition_num_levels=2), NotImplementedError),
+    (dict(partition_num_levels=3), NotImplementedError),
+    (dict(rerank_dtype="float16"), ScannError),
+    (dict(rerank_layout="rows"), ScannError),
+    (dict(spilling=True, spilling_mode="nearest"), ScannError),
+], ids=[f"config{i}" for i in range(5)])
+def test_unported_options_raise(config, error):
+    """What the port does not serve raises when the searcher is made:
+    hierarchical trees name their ROADMAP item; values the JAX package has
+    no meaning for are invalid arguments. (Balancing, spilling, the
+    low-precision stores and the csr layout are served: the tests of
+    ``test_torch_partitioning.py`` and ``test_torch_tree_x_hybrid.py``.)"""
+    with pytest.raises(error, match="ROADMAP" if error is
+                       NotImplementedError else "must be"):
         TreeXHybridSearcher(TreeXHybridConfig(**config), device="cpu")
 
 

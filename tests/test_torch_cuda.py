@@ -69,6 +69,166 @@ def test_tree_ah_grouped_kernel_matches_twin(packed, q_cap, l_tile):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("packed", [True, False])
+@pytest.mark.parametrize("q_cap,l_tile,s_logical", [
+    (1, 128, 25), (8, 512, 50), (16, 256, 50), (32, 128, 7)])
+def test_tree_ah_grouped_int8_kernel_matches_twin(packed, q_cap, l_tile,
+                                                  s_logical):
+    """The int8-LUT branch (#1b): int16 sums equal bit for bit (integer
+    sums are exact), masked slots I16_MASK, one launch counted."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    rng = np.random.default_rng(11 + q_cap + l_tile + s_logical)
+    luts, codes, off, size, l_cap = _grouped_inputs(
+        rng, packed=packed, q_cap=q_cap, l_tile=l_tile, s_logical=s_logical)
+    luts_i8 = np.clip(np.round(luts * 8), -128, 127).astype(np.int8)
+    args = [torch.from_numpy(a).cuda() for a in (luts_i8, codes, off, size)]
+    kw = dict(l_cap=l_cap, l_tile=l_tile, q_cap=q_cap, packed=packed)
+    before = tag.LAUNCHES
+    got = tag.tree_ah_grouped_scores(*args, **kw)
+    torch.cuda.synchronize()
+    assert tag.LAUNCHES == before + 1
+    want = tag.tree_ah_grouped_scores_reference(*args, **kw)
+    assert got.dtype == torch.int16 and got.shape == want.shape
+    assert torch.equal(got, want)
+    assert bool((want == tag.I16_MASK).any())
+
+
+def _leaf_inputs(rng, *, b, p, s, s_pad, c, l_cap, t=30, aligned=False):
+    """CSR codes [S_pad, N_csr] (pad subspaces code 0), per-pair float32
+    tables [B, p, S, C], offsets (128-aligned or not) and sizes <= l_cap of
+    the pairs' partitions."""
+    sizes_t = rng.integers(0, l_cap + 1, size=t)
+    sizes_t[0] = l_cap
+    starts = np.zeros(t + 1, np.int64)
+    gaps = (sizes_t + 127) // 128 * 128 if aligned else sizes_t + \
+        rng.integers(0, 5, size=t)
+    starts[1:] = np.cumsum(gaps)
+    n_csr = int(starts[-1]) + l_cap
+    codes = rng.integers(0, c, size=(s_pad, n_csr)).astype(np.uint8)
+    codes[s:] = 0
+    parts = rng.integers(0, t, size=(b, p))
+    luts = (rng.normal(size=(b, p, s, c)) * 3).astype(np.float32)
+    return (luts, codes, starts[:-1][parts].astype(np.int32),
+            sizes_t[parts].astype(np.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,p,s,s_pad,c,l_cap,aligned", [
+    (1024, 30, 50, 64, 16, 2048, True),    # the per-pair path's shapes
+    (7, 3, 8, 32, 16, 300, False),         # l_cap not a multiple of the tile
+    (16, 4, 13, 13, 256, 512, False),      # C=256, S_pad = S
+    (3, 2, 4, 32, 16, 64, True),
+])
+def test_tree_ah_leaf_kernel_matches_twin(b, p, s, s_pad, c, l_cap, aligned):
+    """#10: float32 sums in ascending s on both sides, so every slot is
+    bit-identical; masked slots MASKED_DISTANCE; one launch counted."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from scann_tpu_torch.ops import tree_ah_leaf as tal
+    from scann_tpu_torch.types import MASKED_DISTANCE
+
+    rng = np.random.default_rng(b + p + s + l_cap)
+    arrays = _leaf_inputs(rng, b=b, p=p, s=s, s_pad=s_pad, c=c, l_cap=l_cap,
+                          aligned=aligned)
+    args = [torch.from_numpy(a).cuda() for a in arrays]
+    before = tal.LAUNCHES
+    got = tal.tree_ah_leaf_scores(*args, l_cap=l_cap)
+    torch.cuda.synchronize()
+    assert tal.LAUNCHES == before + 1
+    want = tal.tree_ah_leaf_scores_reference(*args, l_cap=l_cap)
+    assert got.dtype == torch.float32 and got.shape == (b, p, l_cap)
+    assert torch.equal(got, want)
+    masked = want >= MASKED_DISTANCE / 2
+    sizes = args[3].long()[:, :, None]
+    assert torch.equal(masked, torch.arange(l_cap, device="cuda") >= sizes)
+
+
+@pytest.mark.cuda
+def test_tree_ah_leaf_kernel_rejects_bad_arguments():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from scann_tpu_torch.ops import tree_ah_leaf as tal
+
+    rng = np.random.default_rng(0)
+    args = [torch.from_numpy(a).cuda() for a in _leaf_inputs(
+        rng, b=2, p=2, s=8, s_pad=32, c=16, l_cap=128)]
+    before = tal.LAUNCHES
+    with pytest.raises(ValueError, match="int32"):
+        tal.tree_ah_leaf_scores(args[0], args[1], args[2].long(), args[3],
+                                l_cap=128)
+    with pytest.raises(ValueError, match="float32"):
+        tal.tree_ah_leaf_scores(args[0].double(), *args[1:], l_cap=128)
+    with pytest.raises(ValueError, match="is on"):
+        tal.tree_ah_leaf_scores(args[0], args[1].cpu(), *args[2:], l_cap=128)
+    assert tal.LAUNCHES == before
+
+
+@pytest.mark.cuda
+def test_tree_ah_searcher_variants_on_card():
+    """A balanced SOAR index built on the card: the searcher (#1), the
+    int8-LUT path (#1b) and the per-pair path (#10) launch their kernels
+    and agree with the same index served on the CPU; restricts return only
+    allowed ids."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from scann_tpu_torch import (AsymmetricHasherConfig, DenseDataset,
+                                 SearchParameters, TreeXHybridConfig,
+                                 TreeXHybridSearcher)
+    from scann_tpu_torch.models import tree_x_hybrid as tx
+    from scann_tpu_torch.ops import tree_ah_leaf as tal
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.default_rng(3)
+    cent = rng.normal(size=(40, 32)).astype(np.float32) * 3
+    db = (cent[rng.integers(0, 40, 20_000)]
+          + rng.normal(size=(20_000, 32))).astype(np.float32)
+    q = (cent[rng.integers(0, 40, 64)]
+         + rng.normal(size=(64, 32))).astype(np.float32)
+    s = TreeXHybridSearcher(TreeXHybridConfig(
+        num_partitions=64, partitions_to_search=8, spilling=True,
+        spilling_mode="soar", hash_config=AsymmetricHasherConfig(
+            num_codes=16, num_subspaces=16, seed=0, max_iterations=8,
+            training_sample_size=10_000))).build(DenseDataset(db))
+    assert s.partitioner.tokenization.max_multiplicity == 2
+    d2 = ((q[:, None, :] - db[None]) ** 2).sum(-1)
+    gt = np.argsort(d2, axis=1)[:, :10]
+    params = SearchParameters(pre_reordering_num_neighbors=100)
+    before = tag.LAUNCHES
+    idx, dist = s.search_batched_arrays(q, 10, params)
+    assert tag.LAUNCHES == before + 1
+    recall = np.mean([len(set(a) & set(g)) / 10 for a, g in zip(idx, gt)])
+    assert recall >= 0.9
+    np.testing.assert_allclose(dist, np.take_along_axis(d2, idx, 1),
+                               rtol=1e-4, atol=1e-3)
+    idx_m, _ = s.search_batched_arrays(q, 10, params,
+                                       allow_mask=np.arange(20_000) % 2 == 0)
+    assert ((idx_m % 2 == 0) | (idx_m < 0)).all()
+    qt = torch.from_numpy(q).cuda()
+    common = dict(p=8, pre_k=100, k=10, use_residuals=True)
+    db_dev = s._device_state()
+    codes, off, sizes, perm, l_cap = s._csr_state()
+    before = tag.LAUNCHES
+    _, i8 = tx.tree_ah_search_grouped(
+        db_dev, s.partitioner.centers, codes, off, sizes, perm,
+        s.codebook.centroids, qt, float("inf"), float("inf"), l_cap=l_cap,
+        q_cap=8, l_tile=512, packed=True, multiplicity=2, int8_luts=True,
+        **common)
+    assert tag.LAUNCHES == before + 1
+    codes_u, off, sizes, perm, l_cap = s._csr_state(packed=False)
+    before = tal.LAUNCHES
+    _, ip = tx.tree_ah_search(
+        db_dev, s.partitioner.centers, codes_u, off, sizes, perm,
+        s.codebook.centroids, qt, float("inf"), float("inf"), l_cap=l_cap,
+        multiplicity=2, **common)
+    assert tal.LAUNCHES == before + 1
+    for got in (i8, ip):
+        got = got.cpu().numpy()
+        assert np.mean([len(set(a) & set(g)) / 10
+                        for a, g in zip(got, gt)]) >= 0.9
+
+
+@pytest.mark.cuda
 def test_tree_ah_grouped_kernel_rejects_wrong_dtype():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")

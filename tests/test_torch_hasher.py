@@ -35,6 +35,7 @@ from scann_tpu.hashes.hasher import (
 )
 from scann_tpu.hashes.lut16 import pack_codes_4bit
 from scann_tpu.io import save_index
+from scann_tpu.models.searcher import SearchParameters as JaxParams
 from scann_tpu.ops.distances import DistanceMeasure as JaxMeasure
 import scann_tpu_torch as T
 from scann_tpu_torch import io as tio
@@ -242,6 +243,35 @@ def test_reorder_path_matches_jax(indexes, data, measure, monkeypatch):
                                rtol=1e-5, atol=1e-6)
 
 
+@pytest.mark.parametrize("rdt", ["bfloat16", "int8"])
+def test_low_precision_rerank_matches_jax(indexes, data, rdt):
+    """The re-rank store in bfloat16 or the per-dimension int8 codec:
+    re-ranking every row (pre_k = N) over the store gives the JAX
+    searcher's ids exactly and its distances to float32 rounding; the
+    fused path re-ranks its candidates from the same store."""
+    jax_h, _ = indexes["SQUARED_L2"]
+    db, q = data
+    jax_s = JaxHasher(dataclasses.replace(
+        jax_h.config, rerank_dtype=rdt)).build(JaxDataset(db))
+    port = T.AsymmetricHasher(T.AsymmetricHasherConfig(
+        num_codes=16, num_subspaces=S, seed=1, max_iterations=8,
+        rerank_dtype=rdt), device="cpu").build(T.DenseDataset(db))
+    want_i, want_d = jax_s.search_batched_arrays(q, K, JaxParams(
+        pre_reordering_num_neighbors=N))
+    got_i, got_d = port.search_batched_arrays(q, K, T.SearchParameters(
+        pre_reordering_num_neighbors=N))
+    np.testing.assert_array_equal(got_i, want_i)
+    np.testing.assert_allclose(got_d, want_d, rtol=1e-5, atol=1e-5)
+    assert np.abs(got_d - ((q[:, None] - db[got_i]) ** 2).sum(-1)).max() > 0
+    fused_i, fused_d = port.search_batched_arrays(q, K, T.SearchParameters(
+        pre_reordering_num_neighbors=FUSED_PRE_K))
+    store = port._rerank_state()
+    rows = ph.gather_rerank_rows(store, torch.from_numpy(fused_i).long())
+    np.testing.assert_allclose(
+        fused_d, ((torch.from_numpy(q)[:, None] - rows) ** 2).sum(-1).numpy(),
+        rtol=1e-4, atol=1e-4)
+
+
 # -- epsilons -------------------------------------------------------------------------
 
 
@@ -405,9 +435,6 @@ def test_tensor_search_and_reordering_agree(indexes, data):
 
 
 def test_options_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        T.AsymmetricHasher(T.AsymmetricHasherConfig(rerank_dtype="bfloat16"),
-                           device="cpu")
     with pytest.raises(ScannError):
         T.AsymmetricHasher(T.AsymmetricHasherConfig(rerank_dtype="float16"),
                            device="cpu")

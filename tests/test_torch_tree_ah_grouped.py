@@ -1,6 +1,7 @@
 """Grouped leaf scorer of the PyTorch port against the JAX package: the
 grouping must be identical, and the plain PyTorch scorer must match the
-Pallas kernel (interpret mode) within one bf16 ulp."""
+Pallas kernel (interpret mode) within one bf16 ulp with bf16 tables, and
+exactly with int8 tables (int16 sums)."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -89,6 +90,31 @@ def test_reference_scorer_matches_pallas(packed, q_cap, l_tile):
     np.testing.assert_allclose(got[~masked], want[~masked], rtol=2**-7)
 
 
+@pytest.mark.parametrize("packed", [True, False])
+@pytest.mark.parametrize("q_cap,l_tile", [(1, 128), (4, 128), (8, 256),
+                                          (16, 128)])
+def test_int8_reference_scorer_matches_pallas_exactly(packed, q_cap, l_tile):
+    """The int8-LUT branch: int16 sums equal the Pallas int8 branch's bit
+    for bit (both sum integers exactly), masked slots I16_MASK."""
+    rng = np.random.default_rng(q_cap * 100 + l_tile + packed + 7)
+    s_pad = 16 if packed else 32
+    luts_g, codes, grp_off, grp_size, l_cap = _grouped_inputs(
+        rng, s_pad=s_pad, packed=packed, q_cap=q_cap, l_tile=l_tile,
+        s_logical=13)
+    luts_i8 = np.clip(np.round(luts_g * 10), -128, 127).astype(np.int8)
+    want = np.asarray(tree_ah_grouped_scores_pallas(
+        jnp.asarray(luts_i8), jnp.asarray(codes), jnp.asarray(grp_off),
+        jnp.asarray(grp_size), l_cap=l_cap, l_tile=l_tile, q_cap=q_cap,
+        interpret=True, packed=packed))
+    got = tag.tree_ah_grouped_scores(
+        torch.from_numpy(luts_i8), torch.from_numpy(codes),
+        torch.from_numpy(grp_off), torch.from_numpy(grp_size), l_cap=l_cap,
+        l_tile=l_tile, q_cap=q_cap, packed=packed)
+    assert got.dtype == torch.int16 and want.dtype == np.int16
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert (want == tag.I16_MASK).any()
+
+
 def test_unused_groups_are_masked_without_codes():
     """A group of size 0 must come back fully masked even when its offset
     points at real codes."""
@@ -114,10 +140,12 @@ def test_scorer_validates_shapes():
     with pytest.raises(ValueError, match="q_cap"):
         tag.tree_ah_grouped_scores(luts, codes, off, off, l_cap=256,
                                    l_tile=128, q_cap=3, packed=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tag.tree_ah_grouped_scores(luts.to(torch.int8), codes, off, off,
-                                   l_cap=256, l_tile=128, q_cap=4,
-                                   packed=True)
+    # int8 tables: S_pad * 255 must stay below the int16 sentinel
+    with pytest.raises(ValueError, match="S_pad"):
+        tag.tree_ah_grouped_scores(
+            torch.zeros(8, 256 * 16, dtype=torch.int8),
+            torch.zeros(128, 512, dtype=torch.uint8), off, off, l_cap=256,
+            l_tile=128, q_cap=4, packed=True)
 
 
 def test_cpu_tensors_never_launch_the_kernel():
