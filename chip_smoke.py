@@ -52,7 +52,8 @@ queries:
   first 100,000 rows;
 
 then times every kernel against its twin (L2 flushed) and the search stages
-with CUDA events.
+with CUDA events (the grouped and per-pair SOAR paths also at twice the
+batch, past the pair density where groups widen).
 
     python3 chip_smoke.py
 
@@ -92,8 +93,9 @@ KERNEL_SOURCES = ("tree_ah_grouped", "block_min_sweep", "lut16_scoring",
 PEAK_BF16, PEAK_INT8, PEAK_F32, PEAK_HBM = 989e12, 1979e12, 67e12, 3.35e12
 # int32 adds outside the tensor cores: 64 INT32 lanes per SM (Hopper white
 # paper), half the 128 float32 lanes behind PEAK_F32 (which counts an FMA
-# as 2), one add per lane per clock: 132 SMs x 64 x 1.98 GHz
-PEAK_I32_ADD = PEAK_F32 / 4
+# as 2), two adds per lane per clock (IADD3 sums three operands):
+# 132 SMs x 64 x 2 x 1.98 GHz
+PEAK_I32_ADD = PEAK_F32 / 2
 
 
 def log(msg: str) -> None:
@@ -105,6 +107,26 @@ def bound(ops: float, ops_peak: float, nbytes: float):
     t_ops, t_bytes = ops / ops_peak, nbytes / PEAK_HBM
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes
                                        else "bytes")
+
+
+def leaf_bound(parts, part_sizes, *, s, c, entry_bytes, row_bytes,
+               out_bytes, l_cap, index_bytes, peak):
+    """(bound ms, bound by, bytes, adds) of a tree-x-AH leaf scorer on one
+    batch, counting only what the batch needs: each real (query, partition)
+    pair's S x C table read once (no padded subspaces, no empty group
+    slots), each probed partition's codes read once (``row_bytes`` a row),
+    ``index_bytes`` of offsets and sizes, each pair's ``l_cap`` scores
+    written once; one add per real subspace per (pair, row) the pair's
+    partition holds."""
+    import torch
+
+    pairs = parts.numel()
+    probed = torch.unique(parts)
+    nbytes = (pairs * s * c * entry_bytes
+              + int(part_sizes[probed].sum()) * row_bytes + index_bytes
+              + pairs * l_cap * out_bytes)
+    adds = int(part_sizes[parts].sum()) * s
+    return (*bound(adds, peak, nbytes), nbytes, adds)
 
 
 def main() -> int:
@@ -295,18 +317,16 @@ def main() -> int:
     kernel_ms, plain_ms = turns(
         lambda: tag.tree_ah_grouped_scores(*kargs, **kkw),
         lambda: tag.tree_ah_grouped_scores_reference(*kargs, **kkw))
-    # bound on this batch's inputs: LUT rows, the probed partitions' code
-    # columns, offsets and sizes read once, the whole output written once;
-    # one float32 add per table entry per valid column and query
-    probed = torch.unique(parts)
-    tree_bytes = (luts_g.numel() * 2 + int(part_sizes[probed].sum())
-                  * codes_csr.shape[0] + n_groups * 8 + got.numel() * 2)
-    tree_ops = int(grp_size.sum()) * q_cap * s_pad
-    tree_bound, tree_by = bound(tree_ops, PEAK_F32, tree_bytes)
+    n_sub = searcher.codebook.num_subspaces
+    tree_bound, tree_by, tree_bytes, tree_ops = leaf_bound(
+        parts, part_sizes, s=n_sub, c=cb.shape[1], entry_bytes=2,
+        row_bytes=(n_sub + 1) // 2 if packed else n_sub, out_bytes=2,
+        l_cap=l_cap, index_bytes=n_groups * 8, peak=PEAK_F32)
     log(f"[7 kernel time] grouped leaf scorer, L2 flushed: kernel "
         f"{kernel_ms:.4f} ms, plain twin {plain_ms:.4f} ms, bound "
         f"{tree_bound:.4f} ms, bound by {tree_by} ({tree_bytes} bytes, "
-        f"{tree_ops} float32 adds) ({smi})")
+        f"{tree_ops} float32 adds) -> {tree_bound / kernel_ms:.3f} of the "
+        f"bound ({smi})")
 
     def staged(qb, score_fn):
         ev = [torch.cuda.Event(enable_timing=True) for _ in range(6)]
@@ -1251,19 +1271,6 @@ def brute_force_phases(ds, queries, db_dev, gt_np, cold_ms, turns, smi):
     return records
 
 
-def variant(s, **changes):
-    """A searcher sharing ``s``'s index and slabs under a changed config
-    (its re-rank stores are built anew)."""
-    import copy
-    import dataclasses
-
-    v = copy.copy(s)
-    v.config = dataclasses.replace(s.config, **changes)
-    v._lp_cache = None
-    v._csr_store_cache = None
-    return v
-
-
 def soar_phases(ds, queries, db_dev, gt_np, cold_ms, turns, smi, base):
     """Phases 20-23, SOAR tree-x-AH and the tree-x-AH variants; returns the
     JSON records of kernels #1b and #10. ``base`` is phase 4's index."""
@@ -1415,7 +1422,7 @@ def soar_phases(ds, queries, db_dev, gt_np, cold_ms, turns, smi, base):
 
     g0 = gt_np[:BATCH]
     for dt in ("bfloat16", "int8", "int16"):
-        v = variant(s, rerank_dtype=dt)
+        v = s.with_rerank_store(rerank_dtype=dt)
         ids, dists, rec = side(v, q0, g0)
         exact = ((q0[:, None, :] - db_dev[ids]) ** 2).sum(-1)
         rel = float(((dists - exact).abs() / exact.clamp_min(1e-6)).max())
@@ -1427,7 +1434,7 @@ def soar_phases(ds, queries, db_dev, gt_np, cold_ms, turns, smi, base):
             f"{t.dtype}")
     p4 = SearchParameters(num_leaves_to_search=P,
                           pre_reordering_num_neighbors=PRE_K)
-    csr4 = variant(base, rerank_layout="csr")
+    csr4 = base.with_rerank_store(rerank_layout="csr")
     i_id, d_id = base.search_batched_tensors(q0, K, p4)
     i_csr, d_csr = csr4.search_batched_tensors(q0, K, p4)
     same = torch.equal(i_id, i_csr) and torch.equal(d_id, d_csr)
@@ -1471,11 +1478,11 @@ def soar_phases(ds, queries, db_dev, gt_np, cold_ms, turns, smi, base):
     k8, p8 = turns(lambda: tag.tree_ah_grouped_scores(*args8, **kw8),
                    lambda: tag.tree_ah_grouped_scores_reference(*args8, **kw8),
                    20, 2)
-    probed = torch.unique(parts)
-    bytes8 = (lg8.numel() + int(sizes[probed].sum()) * codes_p.shape[0]
-              + n_groups * 8 + lg8.shape[0] * l_cap * 2)
-    ops8 = int(gs.sum()) * q_cap * s_pad
-    b8, by8 = bound(ops8, PEAK_I32_ADD, bytes8)
+    n_sub = s.codebook.num_subspaces
+    b8, by8, bytes8, ops8 = leaf_bound(
+        parts, sizes, s=n_sub, c=cb.shape[1], entry_bytes=1,
+        row_bytes=(n_sub + 1) // 2, out_bytes=2, l_cap=l_cap,
+        index_bytes=n_groups * 8, peak=PEAK_I32_ADD)
     log(f"[23 kernel time] tree_ah_grouped int8 (#1b), L2 flushed: kernel "
         f"{k8:.4f} ms, plain twin {p8:.4f} ms, bound {b8:.4f} ms, bound by "
         f"{by8} ({bytes8} bytes, {ops8} int32 adds at {PEAK_I32_ADD:.4g}/s) "
@@ -1484,10 +1491,10 @@ def soar_phases(ds, queries, db_dev, gt_np, cold_ms, turns, smi, base):
                      lambda: tal.tree_ah_leaf_scores_reference(*args10,
                                                                l_cap=l_cap),
                      20, 2)
-    bytes10 = (luts4.numel() * 4 + int(sizes[probed].sum()) * s_pad
-               + BATCH * SOAR_P * (8 + 4 * l_cap))
-    ops10 = int(p_size.sum()) * s_pad
-    b10, by10 = bound(ops10, PEAK_F32, bytes10)
+    b10, by10, bytes10, ops10 = leaf_bound(
+        parts, sizes, s=n_sub, c=cb.shape[1], entry_bytes=4, row_bytes=n_sub,
+        out_bytes=4, l_cap=l_cap, index_bytes=BATCH * SOAR_P * 8,
+        peak=PEAK_F32)
     log(f"[23 kernel time] tree_ah_leaf (#10), L2 flushed: kernel {k10:.4f} "
         f"ms, plain twin {p10:.4f} ms, bound {b10:.4f} ms, bound by {by10} "
         f"({bytes10} bytes, {ops10} float32 adds) -> {b10 / k10:.3f} of the "
@@ -1542,6 +1549,19 @@ def soar_phases(ds, queries, db_dev, gt_np, cold_ms, turns, smi, base):
         f"{by_layout['id'][1]:.4f}), csr layout median "
         f"{by_layout['csr'][0]:.4f} ms (max {by_layout['csr'][1]:.4f}) "
         f"({smi})")
+    # aside: the served grouped path against the per-pair path at twice the
+    # batch, where the pair density B*p/K passes the q_cap rule's 12
+    kparts = s.partitioner.num_partitions
+    big = 2 * BATCH
+    by_density = {label: event_ms(paths[label][0], queries, big, BATCHES // 2)
+                  for label in ("searcher (bf16 grouped, #1)",
+                                "tree_ah_search per pair (#10)")}
+    log(f"[23 aside] pair density B*p/K {BATCH * SOAR_P / kparts:.2f} at "
+        f"B={BATCH} (q_cap {q_cap}; stages above), "
+        f"{big * SOAR_P / kparts:.2f} at B={big} (q_cap "
+        f"{s.effective_q_cap(big, SOAR_P)}), per batch of {big}: "
+        + "; ".join(f"{label} median {m:.4f} ms (max {t:.4f})"
+                    for label, (m, t) in by_density.items()) + f" ({smi})")
     return [
         {"name": "tree_ah_grouped_int8", "route": "cuda",
          "source": "scann_tpu_torch/csrc/tree_ah_grouped.cu",

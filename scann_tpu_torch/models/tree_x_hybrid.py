@@ -32,6 +32,7 @@ CSR order with the id in digit lanes (``rerank_layout="csr"``).
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 import warnings
 from typing import Optional, Tuple, Union
@@ -407,55 +408,6 @@ def _finalize(db, queries: torch.Tensor, flat_scores: torch.Tensor,
             torch.where(missing, -1, idx))
 
 
-def tree_ah_search_grouped(
-        db, centers: torch.Tensor, codes_csr: torch.Tensor,
-        csr_offsets: torch.Tensor, part_sizes: torch.Tensor,
-        perm: torch.Tensor, codebook: torch.Tensor, queries: torch.Tensor,
-        pre_eps: float, post_eps: float, *, p: int, pre_k: int, k: int,
-        l_cap: int, use_residuals: bool, q_cap: int, l_tile: int,
-        packed: bool,
-        measure: DistanceMeasure = DistanceMeasure.SQUARED_L2,
-        allow_mask: Optional[torch.Tensor] = None, reorder: bool = True,
-        multiplicity: int = 1, spill_dedup: bool = True,
-        csr_store: bool = False, int8_luts: bool = False
-) -> Tuple[torch.Tensor, torch.Tensor]:
-    """One batch through the grouped serving path: (distances, ids).
-
-    Args:
-        db: the re-rank store (:mod:`scann_tpu_torch.utils.reordering`): [N,
-            D] float32 rows in id order, a low-precision id-order store, or
-            with ``csr_store`` an id-embedded CSR-order store.
-        centers: [K, D] partition centroids.
-        codes_csr: [S_pad/2, N_csr] packed (or [S_pad, N_csr] u8) slab.
-        csr_offsets / part_sizes: [K] int32, 128-aligned partition starts
-            and sizes.
-        perm: [N_csr] int64 CSR row -> point id.
-        codebook: [S, C, d_sub] PQ centroids.
-        queries: [B, D] float32 (normalized for COSINE).
-        allow_mask: [N] bool on the device, or None: restricts.
-        int8_luts: score with int8 tables (one affine per batch) and int16
-            sums; the flat scores come back in real units.
-    """
-    parts = _select_partitions(centers, queries, p=p, measure=measure)
-    s_pad = 2 * codes_csr.shape[0] if packed else codes_csr.shape[0]
-    luts_flat = _residual_luts(queries, centers, parts, codebook, s_pad=s_pad,
-                               use_residuals=use_residuals, measure=measure)
-    flat_scores = leaf_scores_grouped(
-        luts_flat, parts, codes_csr, csr_offsets, part_sizes, p=p,
-        l_cap=l_cap, q_cap=q_cap, l_tile=l_tile, packed=packed,
-        int8_luts=int8_luts)
-    num_rows = codes_csr.shape[1]
-    if allow_mask is not None:
-        flat_scores = _mask_disallowed(flat_scores, allow_mask, perm, parts,
-                                       csr_offsets, num_rows, p=p,
-                                       l_cap=l_cap)
-    return _finalize(db, queries, flat_scores, parts, csr_offsets, num_rows,
-                     perm, pre_eps, post_eps, pre_k=pre_k, k=k, p=p,
-                     measure=measure, reorder=reorder,
-                     multiplicity=multiplicity, spill_dedup=spill_dedup,
-                     csr_store=csr_store, centers=centers)
-
-
 def tree_ah_search(
         db, centers: torch.Tensor, codes_csr: torch.Tensor,
         csr_offsets: torch.Tensor, part_sizes: torch.Tensor,
@@ -465,20 +417,47 @@ def tree_ah_search(
         measure: DistanceMeasure = DistanceMeasure.SQUARED_L2,
         allow_mask: Optional[torch.Tensor] = None, reorder: bool = True,
         multiplicity: int = 1, spill_dedup: bool = True,
-        csr_store: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
-    """One batch through the per-pair path (the JAX package's
-    ``tree_ah_search``): float32 per-pair leaf scores from the per-pair
-    kernel, then the same selection and re-rank as
-    :func:`tree_ah_search_grouped`. ``codes_csr`` is the unpacked
-    [S_pad, N_csr] u8 slab (the JAX function takes its row-major
-    transpose); the other arguments are the grouped path's."""
+        csr_store: bool = False, leaf: str = "per_pair", q_cap: int = 8,
+        l_tile: int = 512, packed: bool = False, int8_luts: bool = False
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One batch of tree-x-AH search: (distances, ids).
+
+    Args:
+        db: the re-rank store (:mod:`scann_tpu_torch.utils.reordering`): [N,
+            D] float32 rows in id order, a low-precision id-order store, or
+            with ``csr_store`` an id-embedded CSR-order store.
+        centers: [K, D] partition centroids.
+        codes_csr: [S_pad/2, N_csr] packed (``packed``) or [S_pad, N_csr] u8
+            slab; the per-pair path takes the u8 slab (the JAX function
+            takes its row-major transpose).
+        csr_offsets / part_sizes: [K] int32, 128-aligned partition starts
+            and sizes.
+        perm: [N_csr] int64 CSR row -> point id.
+        codebook: [S, C, d_sub] PQ centroids.
+        queries: [B, D] float32 (normalized for COSINE).
+        allow_mask: [N] bool on the device, or None: restricts.
+        leaf: "per_pair" — float32 per-pair leaf scores from the per-pair
+            kernel (the JAX package's ``tree_ah_search``); "grouped" — the
+            grouped scorer (``tree_ah_search_grouped``), shaped by ``q_cap``,
+            ``l_tile`` and ``packed``, with ``int8_luts`` scoring int8
+            tables (one affine per batch) into int16 sums, the flat scores
+            coming back in real units.
+    """
+    if leaf not in ("per_pair", "grouped"):
+        raise ValueError(f"unknown leaf scorer {leaf!r}")
     parts = _select_partitions(centers, queries, p=p, measure=measure)
-    s_pad = codes_csr.shape[0]
+    s_pad = 2 * codes_csr.shape[0] if packed else codes_csr.shape[0]
     luts_flat = _residual_luts(queries, centers, parts, codebook, s_pad=s_pad,
                                use_residuals=use_residuals, measure=measure)
-    flat_scores = leaf_scores_per_pair(
-        luts_flat, parts, codes_csr, csr_offsets, part_sizes, p=p,
-        l_cap=l_cap, c=codebook.shape[1])
+    if leaf == "grouped":
+        flat_scores = leaf_scores_grouped(
+            luts_flat, parts, codes_csr, csr_offsets, part_sizes, p=p,
+            l_cap=l_cap, q_cap=q_cap, l_tile=l_tile, packed=packed,
+            int8_luts=int8_luts)
+    else:
+        flat_scores = leaf_scores_per_pair(
+            luts_flat, parts, codes_csr, csr_offsets, part_sizes, p=p,
+            l_cap=l_cap, c=codebook.shape[1])
     num_rows = codes_csr.shape[1]
     if allow_mask is not None:
         flat_scores = _mask_disallowed(flat_scores, allow_mask, perm, parts,
@@ -489,6 +468,12 @@ def tree_ah_search(
                      measure=measure, reorder=reorder,
                      multiplicity=multiplicity, spill_dedup=spill_dedup,
                      csr_store=csr_store, centers=centers)
+
+
+def tree_ah_search_grouped(*args, **kwargs):
+    """:func:`tree_ah_search` with ``leaf="grouped"`` (the JAX package's
+    name for the grouped serving path)."""
+    return tree_ah_search(*args, leaf="grouped", **kwargs)
 
 
 # ---------------------------------------------------------------------------
@@ -718,6 +703,21 @@ class TreeXHybridSearcher(Searcher):
                 data, perm, dt, self.device, **kw)
         return self._csr_store_cache
 
+    def with_rerank_store(self, **changes) -> "TreeXHybridSearcher":
+        """A searcher serving this built index (partitions, codebook, codes)
+        under another ``rerank_dtype`` and / or ``rerank_layout``; its
+        serving layouts and re-rank stores are built anew, its own."""
+        self._check_built()
+        unknown = set(changes) - {"rerank_dtype", "rerank_layout"}
+        if unknown:
+            raise ScannError.invalid_argument(
+                f"only the re-rank store can change, not {sorted(unknown)}")
+        other = copy.copy(self)
+        other.config = dataclasses.replace(self.config, **changes)
+        _check_config(other.config)
+        other._reset_caches()
+        return other
+
     def _allow_tensor(self, allow_mask) -> torch.Tensor:
         """[N] bool allowlist on the device (ids past the mask: denied)."""
         n = self.dataset_size()
@@ -770,7 +770,7 @@ class TreeXHybridSearcher(Searcher):
         pre_k = min(max(pre_k, k), max_cand)
         k_eff = min(k, max_cand)
 
-        dists, idx = tree_ah_search_grouped(
+        dists, idx = tree_ah_search(
             db, self.partitioner.centers, codes_csr, csr_offsets, part_sizes,
             perm, self.codebook.centroids, queries, pre_eps, post_eps,
             p=p, pre_k=pre_k, k=k_eff, l_cap=l_cap,
@@ -781,7 +781,7 @@ class TreeXHybridSearcher(Searcher):
             allow_mask=(None if allow_mask is None
                         else self._allow_tensor(allow_mask)),
             multiplicity=self.partitioner.tokenization.max_multiplicity,
-            spill_dedup=cfg.spill_dedup, csr_store=csr_store)
+            spill_dedup=cfg.spill_dedup, csr_store=csr_store, leaf="grouped")
         return idx, dists
 
     def search_batched_arrays(self, queries: np.ndarray, k: int,

@@ -316,6 +316,30 @@ def test_rerank_stores_match_jax(soar, dtype, layout):
     assert port._rerank_layout() == layout
 
 
+@pytest.mark.parametrize("change", [dict(rerank_dtype="int8"),
+                                    dict(rerank_layout="csr")])
+def test_with_rerank_store_serves_like_the_loaded_store(soar, change):
+    """with_rerank_store re-serves a built index under another re-rank
+    store: the same ids and distances (to 1e-5 absolute) as the index
+    loaded with that store, while the original searcher keeps its own."""
+    from scann_tpu_torch.errors import ScannError
+
+    arrays, meta, q = soar
+    _, port = _both(arrays, meta)
+    _, loaded = _both(arrays, meta, **change)
+    params = SearchParameters(num_leaves_to_search=SP,
+                              pre_reordering_num_neighbors=_full(port))
+    config = port.config
+    before = port.search_batched_arrays(q, K, params)
+    other = port.with_rerank_store(**change)
+    _match(loaded.search_batched_arrays(q, K, params),
+           other.search_batched_arrays(q, K, params), rtol=0)
+    _match(before, port.search_batched_arrays(q, K, params), rtol=0)
+    assert port.config is config
+    with pytest.raises(ScannError):
+        port.with_rerank_store(num_partitions=3)
+
+
 def test_allow_mask_matches_jax(soar):
     arrays, meta, q = soar
     jax_s, port = _both(arrays, meta)
