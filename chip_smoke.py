@@ -702,7 +702,9 @@ def hasher_phases(ds, queries, db_dev, gt_np, cold_ms, turns, smi):
         f"{list(packed_t.shape)} -> minima {list(got.shape)}: bit-identical "
         f"{torch.equal(got.view(torch.int32), want.view(torch.int32))}, max "
         f"abs err {fused_err} (tolerance: bit for bit), invalid blocks "
-        f"{int((want >= sk.INVALID_COMBINED / 2).sum())}")
+        f"{int((want >= sk.INVALID_COMBINED / 2).sum())}, "
+        f"{sk.lut16_fused_smem_bytes(packed_t.shape[0])} bytes of shared "
+        f"memory per CTA")
     if not torch.equal(got.view(torch.int32), want.view(torch.int32)):
         raise AssertionError("lut16_fused_sweep differs from its twin")
     del got, want
@@ -1101,19 +1103,23 @@ def brute_force_phases(ds, queries, db_dev, gt_np, cold_ms, turns, smi):
         f"{sq.memory_usage()}")
     got = sk.int8_dots(q0, codes_t)
     torch.cuda.synchronize()
-    dots_err = 0.0
+    dots_err = dots_ratio = 0.0
     for lo in range(0, codes_t.shape[1], 1 << 17):
         c = codes_t[:, lo:lo + (1 << 17)]
         want = sk.int8_dots_reference(q0, c)
         diff = (got[:, lo:lo + c.shape[1]] - want).abs()
-        if bool((diff > 1e-5 * (q0.abs() @ c.float())).any()):
+        tol = 1e-5 * (q0.abs() @ c.float())
+        if bool((diff > tol).any()):
             raise AssertionError("int8_dots differs from its twin past "
                                  "1e-5 * sum|q c|")
         dots_err = max(dots_err, float(diff.max()))
-    del got, want, diff
+        dots_ratio = max(dots_ratio, float((diff / tol).max()))
+    del got, want, diff, tol
     log(f"[18 kernel check] int8_dots: B={BATCH}, codes {list(codes_t.shape)}"
-        f" -> [{BATCH}, {codes_t.shape[1]}]: max abs err {dots_err:.6g} "
-        f"(tolerance 1e-5 * sum_d |q_d c_d| per entry)")
+        f" -> [{BATCH}, {codes_t.shape[1]}]: max abs err {dots_err:.6g}, "
+        f"at most {dots_ratio:.4f} of the tolerance (1e-5 * sum_d |q_d c_d| "
+        f"per entry); {sk.int8_dots_smem_bytes(D)} bytes of shared memory "
+        f"per CTA")
     scale = torch.tensor(quant.scale, dtype=torch.float32, device=dev)
     lo_v = torch.tensor(quant.min_value, dtype=torch.float32, device=dev)
     deq = (codes_t[:, :n].T.float() * scale + lo_v).contiguous()
@@ -1160,17 +1166,31 @@ def brute_force_phases(ds, queries, db_dev, gt_np, cold_ms, turns, smi):
                    lambda: sk.int8_dots_reference(q0, codes_t), 10, 3)
     codes_f = codes_t.float()
     lib9 = cold_ms(lambda: torch.matmul(q0, codes_f), 5)
-    del codes_f
     n_pad = codes_t.shape[1]
-    ops9 = 2 * BATCH * D * n_pad
+    q_chunk = q0[:pbf.query_chunk(n_pad)]
+    k9c = cold_ms(lambda: sk.int8_dots(q_chunk, codes_t), 10)
+    lib9c = cold_ms(lambda: torch.matmul(q_chunk, codes_f), 5)
+    del codes_f
+    b9c, by9c = bound(6 * len(q_chunk) * D * n_pad, PEAK_BF16,
+                      D * n_pad + 4 * len(q_chunk) * (D + n_pad))
+    log(f"[19 aside] int8_dots at the searcher's query chunk, "
+        f"B={len(q_chunk)}, L2 flushed: kernel {k9c:.4f} ms (the wrapper's "
+        f"query split and layout included), torch.matmul of float codes "
+        f"{lib9c:.4f} ms, bound {b9c:.4f} ms, bound by {by9c} -> "
+        f"{b9c / k9c:.3f} of the bound ({smi})")
+    # the kernel's work as the tensor cores do it: three bf16 products of
+    # the split queries with the codes
+    ops9 = 3 * 2 * BATCH * D * n_pad
     bytes9 = D * n_pad + 4 * BATCH * D + 4 * BATCH * n_pad
-    b9, by9 = bound(ops9, PEAK_F32, bytes9)
+    b9, by9 = bound(ops9, PEAK_BF16, bytes9)
+    f32_b9, _ = bound(ops9 // 3, PEAK_F32, bytes9)
     log(f"[19 kernel time] int8_dots: B={BATCH}, D={D}, N_pad {n_pad}, L2 "
         f"flushed: kernel {k9:.4f} ms, plain twin {p9:.4f} ms, torch.matmul "
         f"of float codes made beforehand {lib9:.4f} ms, bound {b9:.4f} ms, "
-        f"bound by {by9} ({ops9} float32 FLOP on the CUDA cores, {bytes9} "
-        f"bytes) -> {ops9 / k9 / 1e9:.1f} TFLOP/s, {b9 / k9:.3f} of the bound "
-        f"({smi})")
+        f"bound by {by9} ({ops9} bf16 FLOP of the three split products, "
+        f"{bytes9} bytes; the float32 FMA form on the CUDA cores "
+        f"{f32_b9:.4f} ms) -> {ops9 / k9 / 1e9:.1f} TFLOP/s, "
+        f"{b9 / k9:.3f} of the bound ({smi})")
     records.append({
         "name": "int8_dots", "route": "cuda",
         "source": "scann_tpu_torch/csrc/int8_dots.cu",

@@ -52,34 +52,46 @@
 // counted as the one-hot product the TPU runs, 1.94e12 int8 operations,
 // 0.98 ms at the 1,979 TOPS int8 tensor-core peak; the bytes (29.6 MB of
 // packed codes, 51 KB of tables, 151.5 MB of block minima) need 0.054 ms.
-// The design is the TPU's own: the one-hot int8 product on the tensor cores
-// (mma.sync m16n8k32 s8, int32 accumulate). Queries are the M side, rows
-// the N side. One k32 step is one packed byte: k 0..15 are the 16 codes of
-// its low nibble (LUT row j), k 16..31 those of its high nibble (LUT row
-// sh + j). A fragments (tables) come from shared memory by ldmatrix, with
-// rows padded to an odd multiple of 16 bytes so the eight rows of a matrix
-// hit eight different bank groups. B fragments (one-hot) are built in
-// registers from the nibbles: a thread's four bytes for k = 4t..4t+3 are
-// 1 << 8*(code - 4t) when the code falls there, else 0 (a clamped shift:
-// three integer instructions per register with the nibble's extraction).
-// Column n of n-tile nt carries row 4n + nt of a 32-row chunk, so one
-// 32-bit word of codes feeds all four n-tiles of a thread. A CTA owns 64
-// queries (four m-tiles) and a tile of 1024 rows whose codes it stages in
-// shared memory; each warp reduces one 32-row chunk at a time: the
-// accumulators of a chunk never leave registers, a thread holds rows
-// 8t..8t+7 of each of its queries, and two shuffles finish r = 32. Blocks
-// of r > 32 rows carry a running minimum across chunks; blocks of 8 or 16
-// rows end inside a thread or a lane pair.
-// The one-hot registers still cost about as many integer instructions per
-// k-step as there are mma instructions; wgmma, a deeper pipeline and more
-// queries per warp are later work.
+//
+// The design: the one-hot int8 product on the tensor cores through wgmma
+// (m64n128k32 s8, int32 sums), rows on M and queries on N. One k32 step is
+// one packed byte: k 0..15 are the 16 codes of its low nibble (table row
+// j), k 16..31 those of its high nibble (row sh + j).
+//  - A, the one-hot, is built in registers from the nibbles: a thread's
+//    four bytes for k = 4t..4t+3 are 1 << 8*(code - 4t) when the code falls
+//    there, else 0 (a clamped shift). Two register sets alternate, so a set
+//    is rebuilt only after the product reading it has completed.
+//  - B, the tables of 128 queries, K-major in shared memory in the
+//    canonical no-swizzle core-matrix layout, laid out by the wrapper
+//    (sh x 4 KB); a CTA loads its query tile's tables once with a bulk copy
+//    and keeps them for its whole life. The grid is one CTA per SM, the
+//    SMs shared out among the query tiles, each CTA walking a range of rows.
+//    Past S_pad 74 a tile of 128 queries' tables and the code stages no
+//    longer fit a block's shared memory; S_pad up to 150 then takes tiles
+//    of 64 queries (m64n64k32), with one code stage per warpgroup past
+//    S_pad 112 (ops/scoring_kernels.lut16_fused_plan).
+//  - The codes stream by TMA into a ring of two stages per warpgroup. The
+//    rows are cut into units of max(r, 16) rows; an item is 32 units, one
+//    per (warp, lane group g) of a warpgroup, and a stage holds 16 rows of
+//    each of them (a 3-D box {16 rows, 32 units, sh bytes}). The kernel
+//    builds A itself, so it chooses the row in each M slot: slots g and
+//    g + 8 of warp w carry two rows of unit 8w + g, and successive 64-row
+//    products walk through the units. Every row of a block thus meets in
+//    one thread, whose running minimum of (sum + 128 S_pad) * r + row % r
+//    over its 32 (or 16) queries needs no shuffle and no exchange; r = 8
+//    keeps two blocks per 16-row unit, one per slot. The offset stays the
+//    true row within the block, so the lowest row wins among equal sums.
+//  - Two warpgroups take a CTA's items in turn, so one's one-hot and
+//    minimum instructions overlap the other's products.
 
 #include <cuda_bf16.h>
-#include <cuda_runtime.h>
 #include <limits.h>
-#include <stdint.h>
+
+#include "sm90.cuh"
 
 namespace {
+
+using namespace sm90;
 
 // ---------------------------------------------------------------------------
 // lut16_score
@@ -174,30 +186,11 @@ int launch_score(const void* luts, const void* codes, void* out, int b, int s,
 // lut16_fused_sweep
 // ---------------------------------------------------------------------------
 
-constexpr int kFusedThreads = 256;  // 8 warps
-constexpr int kFusedQ = 64;         // queries per CTA: four m16 tiles
-constexpr int kFusedM = kFusedQ / 16;
-constexpr int kFusedRows = 1024;    // rows per CTA tile
+constexpr int kFusedThreads = 256;  // two consumer warpgroups
+constexpr int kFusedUnits = 32;     // units of an item: 4 warps x 8 lanes g
+constexpr int kFusedWin = 16;       // rows of each unit one code stage holds
+constexpr int kMaxStages = 2;       // code stages in flight per warpgroup
 constexpr float kInvalidCombined = 1e9f;  // ops/scoring_kernels.INVALID_COMBINED
-
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-
-__device__ __forceinline__ void mma_s8(int (&d)[4], const uint32_t (&a)[4],
-                                       uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
 
 // The four one-hot int8 entries k = 4t..4t+3 of a 16-entry code, from
 // code8 = 8 * code and t32 = 32 * t: byte (code - 4t) is 1 when the code
@@ -210,173 +203,298 @@ __device__ __forceinline__ uint32_t onehot4(uint32_t code8, uint32_t t32) {
   return d;
 }
 
-__global__ void __launch_bounds__(kFusedThreads)
-lut16_fused_kernel(const int8_t* __restrict__ luts,   // [B, S_pad*16]
-                   const uint8_t* __restrict__ codes,  // [sh, N]
-                   float* __restrict__ out,            // [N/r, B]
-                   int b, int sh, long long n, long long n_valid, int r,
-                   int q_tiles) {
-  extern __shared__ __align__(16) uint8_t smem[];
-  const int s_pad = 2 * sh;
-  const int row_bytes = s_pad * 16;
-  const int lut_stride = row_bytes + 16;  // an odd multiple of 16 bytes
-  uint8_t* lut_s = smem;                                 // [kFusedQ][lut_stride]
-  uint8_t* code_s = smem + kFusedQ * lut_stride;         // [sh][kFusedRows]
+// The A registers of one k32 step (the mma A layout: [0] slot g at k 4t..,
+// [1] slot g + 8, [2] and [3] the same at k 16 + 4t..) from w, whose low
+// byte is slot g's packed code and whose second byte is slot g + 8's: k
+// 0..15 are the low nibble's one-hot, k 16..31 the high nibble's.
+__device__ __forceinline__ void onehot_a(uint32_t (&a)[4], uint32_t w,
+                                         uint32_t t32) {
+  a[0] = onehot4((w << 3) & 0x78u, t32);
+  a[1] = onehot4((w >> 5) & 0x78u, t32);
+  a[2] = onehot4((w >> 1) & 0x78u, t32);
+  a[3] = onehot4((w >> 9) & 0x78u, t32);
+}
 
-  const int qt = blockIdx.x % q_tiles;
-  const long long tile = blockIdx.x / q_tiles;
-  const int q0 = qt * kFusedQ;
-  const long long row0 = tile * kFusedRows;
-  const int tid = threadIdx.x;
+// D[64 x 128] (+)= A[64 x 32] (registers) * B[32 x 128] (shared memory),
+// int8 in, int32 sums (the 128-query tile)
+__device__ __forceinline__ void wgmma_s8_rs(int (&d)[64],
+                                            const uint32_t (&a)[4],
+                                            uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "
+      "%29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, "
+      "%43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, "
+      "%57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p;\n"
+      "}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]),
+        "+r"(d[5]), "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]),
+        "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]),
+        "+r"(d[15]), "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
+        "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]), "+r"(d[24]),
+        "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]),
+        "+r"(d[30]), "+r"(d[31]), "+r"(d[32]), "+r"(d[33]), "+r"(d[34]),
+        "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
+        "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]), "+r"(d[44]),
+        "+r"(d[45]), "+r"(d[46]), "+r"(d[47]), "+r"(d[48]), "+r"(d[49]),
+        "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]),
+        "+r"(d[55]), "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]),
+        "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),
+        "r"(scale_d));
+}
 
-  // stage the tables (16-byte chunks, zero rows past B) ...
-  for (int i = tid; i < kFusedQ * s_pad; i += kFusedThreads) {
-    const int q = i / s_pad;
-    const int ch = i - q * s_pad;
-    uint4 v = make_uint4(0u, 0u, 0u, 0u);
-    if (q0 + q < b)
-      v = reinterpret_cast<const uint4*>(luts + (long long)(q0 + q) * row_bytes)[ch];
-    *reinterpret_cast<uint4*>(lut_s + q * lut_stride + ch * 16) = v;
+// D[64 x 64] (+)= A[64 x 32] * B[32 x 64]: the 64-query tile of wide codes
+__device__ __forceinline__ void wgmma_s8_rs(int (&d)[32],
+                                            const uint32_t (&a)[4],
+                                            uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "
+      "%29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p;\n"
+      "}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]),
+        "+r"(d[5]), "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]),
+        "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]),
+        "+r"(d[15]), "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
+        "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]), "+r"(d[24]),
+        "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]),
+        "+r"(d[30]), "+r"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),
+        "r"(scale_d));
+}
+
+// The sums of one 64-row tile of a warpgroup over all sh packed bytes. The
+// stage holds [sh][32 units][16 rows] codes; `codes` points at this
+// thread's unit, and slots g and g + 8 take rows off and off + 1 of its
+// window (off and off + 8 when two blocks share a unit). The one-hot
+// registers are double-buffered: a set is rebuilt only after the product
+// that reads it has completed.
+template <bool kSplit, int kQ>
+__device__ __forceinline__ void fused_tile(int (&acc)[kQ / 2], uint32_t tab,
+                                           const uint8_t* codes, int sh,
+                                           int off, uint32_t t32) {
+  constexpr int kTableStep = kQ * 32;  // table bytes of one k32 step
+  auto word = [&](int j) -> uint32_t {
+    const uint8_t* c = codes + j * (kFusedUnits * kFusedWin);
+    if (kSplit) return c[off] | ((uint32_t)c[off + 8] << 8);
+    return *reinterpret_cast<const uint16_t*>(c + off);
+  };
+  uint32_t a0[4], a1[4];
+#pragma unroll
+  for (int i = 0; i < kQ / 2; ++i) fence_operand(acc[i]);
+  onehot_a(a0, word(0), t32);
+  wgmma_fence();
+  for (int j = 0; j < sh; j += 2) {
+    wgmma_s8_rs(acc, a0, kmajor_desc(tab + j * kTableStep, 128, 256), j != 0);
+    wgmma_commit();
+    if (j + 1 < sh) {
+      const uint32_t w = word(j + 1);
+      wgmma_wait<1>();  // the product that read a1 has completed
+      onehot_a(a1, w, t32);
+      wgmma_fence();
+      wgmma_s8_rs(acc, a1, kmajor_desc(tab + (j + 1) * kTableStep, 128, 256),
+                  1);
+      wgmma_commit();
+    }
+    if (j + 2 < sh) {
+      const uint32_t w = word(j + 2);
+      wgmma_wait<1>();  // the product that read a0 has completed
+      onehot_a(a0, w, t32);
+      wgmma_fence();
+    }
   }
-  // ... and the tile's packed codes (zero columns past N)
-  if (n % 16 == 0) {
-    constexpr int kChunks = kFusedRows / 16;
-    for (int i = tid; i < sh * kChunks; i += kFusedThreads) {
-      const int j = i / kChunks;
-      const int ch = i - j * kChunks;
-      const long long col = row0 + ch * 16;
-      uint4 v = make_uint4(0u, 0u, 0u, 0u);
-      if (col < n) v = *reinterpret_cast<const uint4*>(codes + j * n + col);
-      *reinterpret_cast<uint4*>(code_s + j * kFusedRows + ch * 16) = v;
-    }
-  } else {
-    for (int i = tid; i < sh * kFusedRows; i += kFusedThreads) {
-      const int j = i / kFusedRows;
-      const int x = i - j * kFusedRows;
-      code_s[i] = row0 + x < n ? codes[j * n + row0 + x] : 0;
-    }
+  wgmma_wait<0>();
+#pragma unroll
+  for (int i = 0; i < kQ / 2; ++i) fence_operand(acc[i]);
+}
+
+// kQ queries per tile (the wgmma N: 128, or 64 where 128 queries' tables
+// do not fit beside the code stages); nst code stages per warpgroup (2, or
+// 1 for the widest codes)
+template <bool kSplit, int kQ>
+__global__ void __launch_bounds__(kFusedThreads, 1)
+lut16_fused_kernel(const __grid_constant__ CUtensorMap codes_map,  // see launch
+                   const uint8_t* __restrict__ tables,  // [q_tiles][sh][kQ*32]
+                   float* __restrict__ out,             // [n_blocks, B]
+                   int b, int sh, long long n_blocks, long long n_valid,
+                   int r, int unit, long long n_items, int cpq, int nst) {
+  constexpr int kBest = kQ / 4;  // queries of one thread
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 127) & ~uintptr_t(127));
+  const int table_bytes = sh * kQ * 32;
+  const int stage_bytes = sh * kFusedUnits * kFusedWin;
+  uint8_t* tab_s = smem;
+  uint8_t* stages = smem + table_bytes;
+  uint64_t* bars = reinterpret_cast<uint64_t*>(stages + 2 * nst * stage_bytes);
+
+  const int tid = threadIdx.x;
+  const int wg = tid >> 7;
+  const int warp = (tid >> 5) & 3;
+  const int lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  // a CTA keeps one query tile's tables and walks a range of items (32
+  // units each); its two warpgroups take the range's items in turn
+  const int qt = blockIdx.x / cpq;
+  const int part = blockIdx.x % cpq;
+  const long long lo = n_items * part / cpq;
+  const long long hi = n_items * (part + 1) / cpq;
+  const int spi = unit / kFusedWin;  // code stages per item
+  const long long my_items = hi - lo > wg ? (hi - lo - wg + 1) / 2 : 0;
+  const long long seq = my_items * spi;
+  const uint32_t full0 = smem_u32(bars + wg * nst);
+  const uint32_t tbar = smem_u32(bars + 2 * nst);
+  uint8_t* my_stages = stages + wg * nst * stage_bytes;
+  const bool leader = (tid & 127) == 0;
+
+  // stage i of this warpgroup: window i % spi of item i / spi
+  auto issue = [&](long long i) {
+    const long long item = lo + wg + 2 * (i / spi);
+    const int slot = (int)(i % nst);
+    const uint32_t bar = full0 + 8 * slot;
+    mbar_expect_tx(bar, stage_bytes);
+    tma_load_3d(smem_u32(my_stages + slot * stage_bytes), &codes_map, bar,
+                (int)(i % spi) * kFusedWin, (int)(item * kFusedUnits), 0);
+  };
+
+  if (tid == 0) {
+    for (int i = 0; i < 2 * nst + 1; ++i)
+      mbar_init(smem_u32(bars + i), 1);
+    mbar_init_fence();
+    mbar_expect_tx(tbar, table_bytes);
+    bulk_load(smem_u32(tab_s), tables + (long long)qt * table_bytes,
+              table_bytes, tbar);
   }
   __syncthreads();
+  if (leader)
+    for (long long i = 0; i < nst && i < seq; ++i) issue(i);
+  mbar_wait(tbar, 0);
 
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  const int g = lane >> 2;
-  const int t = lane & 3;
+  const int p = 8 * warp + g;  // this thread's unit within an item
   const uint32_t t32 = 32u * t;
-  const int rr = r < 32 ? r : 32;                 // rows of a block inside a chunk
-  const int levels = rr == 32 ? 2 : rr == 16 ? 1 : 0;  // shuffles to finish it
-  const int group = (1 << levels) - 1;
-  const int unit = r < 32 ? 32 : r;               // rows a warp walks at once
-  const int bias = 128 * s_pad;
-  const long long n_blocks = n / r;
-  // ldmatrix: lane i addresses row (i % 8) of matrix i / 8; matrices 1 and
-  // 3 are query rows 8..15, matrices 2 and 3 the high-nibble table row
-  const int lm_q = (lane & 7) + ((lane >> 3) & 1) * 8;
-  const int lm_hi = lane >> 4;
-
-  for (int u = warp; u * unit < kFusedRows; u += kFusedThreads / 32) {
-    if (row0 + (long long)u * unit >= n) break;
-    int best[kFusedM][2];
+  const uint32_t tab = smem_u32(tab_s);
+  const int bias = 256 * sh;  // 128 * S_pad
+  int acc[kQ / 2];
+  int best0[kBest], best1[kBest];
+  long long i = 0;
+  for (long long it = 0; it < my_items; ++it) {
+    const long long u = (lo + wg + 2 * it) * kFusedUnits + p;
+    const long long row0 = u * unit;
 #pragma unroll
-    for (int m = 0; m < kFusedM; ++m) best[m][0] = best[m][1] = INT_MAX;
-
-    for (int ch = 0; ch * 32 < unit; ++ch) {
-      const int crow = u * unit + ch * 32;  // chunk's first row in the tile
-      int acc[kFusedM][4][4];
+    for (int c = 0; c < kBest; ++c) best0[c] = best1[c] = INT_MAX;
+    for (int st = 0; st < spi; ++st, ++i) {
+      const int slot = (int)(i % nst);
+      mbar_wait(full0 + 8 * slot, (uint32_t)((i / nst) & 1));
+      const uint8_t* codes = my_stages + slot * stage_bytes + p * kFusedWin;
+      for (int kk = 0; kk < kFusedWin / 2; ++kk) {
+        // the unit's rows in slots g and g + 8, and their offsets in their
+        // blocks
+        const int r0 = kSplit ? kk : st * kFusedWin + 2 * kk;
+        const int r1 = kSplit ? 8 + kk : r0 + 1;
+        const int l0 = kSplit ? kk : r0;
+        const int l1 = kSplit ? kk : r1;
+        fused_tile<kSplit, kQ>(acc, tab, codes, sh, kSplit ? kk : 2 * kk,
+                               t32);
+        const bool v0 = row0 + r0 < n_valid;
+        const bool v1 = row0 + r1 < n_valid;
+        // acc[4 jj + e]: slot g, query 8 jj + 2t + e; acc[4 jj + 2 + e]:
+        // slot g + 8, the same query
 #pragma unroll
-      for (int m = 0; m < kFusedM; ++m)
-#pragma unroll
-        for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-          for (int i = 0; i < 4; ++i) acc[m][nt][i] = 0;
-
-      for (int j = 0; j < sh; ++j) {
-        // codes of rows crow + 4g .. crow + 4g + 3, byte nt for n-tile nt
-        const uint32_t cw =
-            *reinterpret_cast<const uint32_t*>(code_s + j * kFusedRows + crow + 4 * g);
-        uint32_t a[kFusedM][4];
-#pragma unroll
-        for (int m = 0; m < kFusedM; ++m)
-          ldsm_x4(a[m], lut_s + (m * 16 + lm_q) * lut_stride +
-                            (lm_hi ? sh + j : j) * 16);
-#pragma unroll
-        for (int nt = 0; nt < 4; ++nt) {
-          // 8 * the low and the high nibble of byte nt
-          const uint32_t lo8 = ((cw >> (8 * nt)) << 3) & 0x78u;
-          const uint32_t hi8 = (cw >> (8 * nt + 1)) & 0x78u;
-          const uint32_t b0 = onehot4(lo8, t32);
-          const uint32_t b1 = onehot4(hi8, t32);
-#pragma unroll
-          for (int m = 0; m < kFusedM; ++m) mma_s8(acc[m][nt], a[m], b0, b1);
-        }
-      }
-
-      // acc[m][nt][2h + e]: query 16m + g + 8h, chunk row 8t + 4e + nt
-      const long long chunk_row0 = row0 + crow;
-#pragma unroll
-      for (int m = 0; m < kFusedM; ++m) {
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          int v = INT_MAX;
-#pragma unroll
-          for (int nt = 0; nt < 4; ++nt) {
-#pragma unroll
-            for (int e = 0; e < 2; ++e) {
-              const int row = 8 * t + 4 * e + nt;
-              const int local = r >= 32 ? ch * 32 + row : (row & (r - 1));
-              int val = (acc[m][nt][2 * h + e] + bias) * r + local;
-              if (chunk_row0 + row >= n_valid) val = INT_MAX;
-              v = min(v, val);
-            }
-          }
-          for (int l = 0; l < levels; ++l)
-            v = min(v, __shfl_xor_sync(0xFFFFFFFFu, v, 1 << l));
-          if (r >= 32) {
-            best[m][h] = min(best[m][h], v);
-          } else if ((m & group) == (t & group)) {
-            const long long blk = chunk_row0 / r + (t >> levels);
-            const int q = q0 + 16 * m + g + 8 * h;
-            if (blk < n_blocks && q < b)
-              out[blk * b + q] = v == INT_MAX ? kInvalidCombined : (float)v;
+        for (int c = 0; c < kBest; ++c) {
+          const int x0 = (acc[4 * (c >> 1) + (c & 1)] + bias) * r + l0;
+          const int x1 = (acc[4 * (c >> 1) + 2 + (c & 1)] + bias) * r + l1;
+          if (v0) best0[c] = min(best0[c], x0);
+          if (kSplit) {
+            if (v1) best1[c] = min(best1[c], x1);
+          } else if (v1) {
+            best0[c] = min(best0[c], x1);
           }
         }
       }
+      warpgroup_sync(1 + wg);  // every thread has read the stage
+      if (leader && i + nst < seq) issue(i + nst);
     }
-
-    if (r >= 32) {
-      // all four lanes of a group hold the block's minimum; lane t writes
-      // m-tile t
-      const long long blk = (row0 + (long long)u * unit) / r;
+    // the minima of this unit's block (two blocks when they share it) for
+    // the thread's kBest queries
+    const long long blk = kSplit ? 2 * u : u;
 #pragma unroll
-      for (int m = 0; m < kFusedM; ++m) {
-        if (m != t) continue;
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const int q = q0 + 16 * m + g + 8 * h;
-          const int v = best[m][h];
-          if (blk < n_blocks && q < b)
-            out[blk * b + q] = v == INT_MAX ? kInvalidCombined : (float)v;
-        }
-      }
+    for (int c = 0; c < kBest; ++c) {
+      const int q = qt * kQ + 8 * (c >> 1) + 2 * t + (c & 1);
+      if (q >= b) continue;
+      if (blk < n_blocks)
+        out[blk * b + q] =
+            best0[c] == INT_MAX ? kInvalidCombined : (float)best0[c];
+      if (kSplit && blk + 1 < n_blocks)
+        out[(blk + 1) * b + q] =
+            best1[c] == INT_MAX ? kInvalidCombined : (float)best1[c];
     }
   }
 }
 
-int launch_fused(const void* luts, const void* codes, void* out, int b, int sh,
-                 long long n, long long n_valid, int r, cudaStream_t stream) {
-  const size_t smem = (size_t)kFusedQ * (2 * sh * 16 + 16) + (size_t)sh * kFusedRows;
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        lut16_fused_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-  }
-  const int q_tiles = (b + kFusedQ - 1) / kFusedQ;
-  const long long tiles = (n + kFusedRows - 1) / kFusedRows;
-  const long long grid = tiles * q_tiles;
+int launch_fused(const void* tables, const void* codes, void* out, int b,
+                 int sh, long long n, long long n_pitch, long long n_valid,
+                 int r, int q_tile, int nst, cudaStream_t stream) {
+  if (b <= 0 || n <= 0) return 0;
+  const bool split = r < kFusedWin;  // r = 8: two blocks share a unit
+  const int unit = split ? kFusedWin : r;
+  if (r < 8 || r > 1024 || (r & (r - 1)) || n % r || n_pitch % unit ||
+      n > n_pitch || sh < 1 || sh > 256 || (q_tile != 128 && q_tile != 64) ||
+      nst < 1 || nst > kMaxStages)
+    return (int)cudaErrorInvalidValue;
+  EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return (int)cudaErrorSharedObjectSymbolNotFound;
+  // the packed codes [sh, n_pitch] seen as {row in unit, unit, byte j}; a
+  // box is 16 rows of each of 32 units for every j, zero past the end
+  const long long units = n_pitch / unit;
+  CUtensorMap map;
+  const cuuint64_t dims[3] = {(cuuint64_t)unit, (cuuint64_t)units,
+                              (cuuint64_t)sh};
+  const cuuint64_t strides[2] = {(cuuint64_t)unit, (cuuint64_t)n_pitch};
+  const cuuint32_t box[3] = {kFusedWin, kFusedUnits, (cuuint32_t)sh};
+  const cuuint32_t estr[3] = {1, 1, 1};
+  if (encode(&map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 3, const_cast<void*>(codes),
+             dims, strides, box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE,
+             CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
+    return (int)cudaErrorInvalidValue;
+
+  const int smem = 128 + sh * q_tile * 32 +
+                   2 * nst * sh * kFusedUnits * kFusedWin + 8 * (2 * nst + 1);
+  auto kernel = q_tile == 128
+                    ? (split ? lut16_fused_kernel<true, 128>
+                             : lut16_fused_kernel<false, 128>)
+                    : (split ? lut16_fused_kernel<true, 64>
+                             : lut16_fused_kernel<false, 64>);
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  int dev = 0, sms = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return (int)err;
+  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                    dev)) != cudaSuccess)
+    return (int)err;
+  const long long n_items = (units + kFusedUnits - 1) / kFusedUnits;
+  const int q_tiles = (b + q_tile - 1) / q_tile;
+  // one CTA per SM, the SMs shared out among the query tiles
+  long long cpq = sms / q_tiles;
+  if (cpq < 1) cpq = 1;
+  if (cpq > n_items) cpq = n_items;
+  const long long grid = q_tiles * cpq;
   if (grid > INT_MAX) return (int)cudaErrorInvalidValue;
-  lut16_fused_kernel<<<(unsigned)grid, kFusedThreads, smem, stream>>>(
-      static_cast<const int8_t*>(luts), static_cast<const uint8_t*>(codes),
-      static_cast<float*>(out), b, sh, n, n_valid, r, q_tiles);
+  kernel<<<(unsigned)grid, kFusedThreads, smem, stream>>>(
+      map, static_cast<const uint8_t*>(tables), static_cast<float*>(out), b,
+      sh, n / r, n_valid, r, unit, n_items, (int)cpq, nst);
   return (int)cudaGetLastError();
 }
 
@@ -395,11 +513,17 @@ extern "C" int lut16_score(const void* luts, const void* codes, void* out,
   return launch_score<false>(luts, codes, out, b, s, c, n, st);
 }
 
-// luts: [B, 2*sh*16] int8 even-first; codes: [sh, N] u8 packed; out: [N/r, B]
-// float32. r is a power of two in [8, 1024] dividing N.
-extern "C" int lut16_fused_sweep(const void* luts, const void* codes, void* out,
-                                 int b, int sh, long long n, long long n_valid,
-                                 int r, void* stream) {
-  return launch_fused(luts, codes, out, b, sh, n, n_valid, r,
-                      static_cast<cudaStream_t>(stream));
+// tables: ceil(B/q_tile) query tiles of sh * q_tile * 32 bytes, the int8
+// even-first tables in the wgmma B layout
+// (ops/scoring_kernels.lut16_fused_table_image); codes: [sh, n_pitch] u8
+// packed, 16-byte aligned, n_pitch a multiple of 16 and of r; out: [N/r, B]
+// float32. r is a power of two in [8, 1024] dividing N; q_tile is 128 or 64
+// and nst (code stages per warpgroup) 2 or 1, as
+// ops/scoring_kernels.lut16_fused_plan chooses them.
+extern "C" int lut16_fused_sweep(const void* tables, const void* codes,
+                                 void* out, int b, int sh, long long n,
+                                 long long n_pitch, long long n_valid, int r,
+                                 int q_tile, int nst, void* stream) {
+  return launch_fused(tables, codes, out, b, sh, n, n_pitch, n_valid, r,
+                      q_tile, nst, static_cast<cudaStream_t>(stream));
 }

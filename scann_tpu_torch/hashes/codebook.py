@@ -106,6 +106,41 @@ class Codebook:
 
     def encode_dataset(self, data: torch.Tensor) -> torch.Tensor:
         """[N, D] -> [N, S] uint8 codes, on the input's device."""
+        self._check_trained()
+        return encode_kernel(data, self.centroids).to(torch.uint8)
+
+    def _check_trained(self) -> None:
         if self.centroids is None:
             raise ScannError.failed_precondition("codebook not trained")
-        return encode_kernel(data, self.centroids).to(torch.uint8)
+
+    def _as_rows(self, data) -> torch.Tensor:
+        """``data`` as float32 on the centroids' device (trained only)."""
+        self._check_trained()
+        return torch.as_tensor(data, dtype=torch.float32,
+                               device=self.centroids.device)
+
+    def encode(self, point) -> torch.Tensor:
+        """One point [D] -> its [S] uint8 codes."""
+        return self.encode_dataset(self._as_rows(point)[None, :])[0]
+
+    def decode(self, codes) -> torch.Tensor:
+        """[..., S] codes -> [..., D] float32 reconstruction (each
+        subspace's centroid, concatenated)."""
+        self._check_trained()
+        codes = torch.as_tensor(codes, device=self.centroids.device).long()
+        s, _, dsub = self.centroids.shape
+        parts = self.centroids[torch.arange(s, device=codes.device), codes]
+        return parts.reshape(*codes.shape[:-1], s * dsub)
+
+    def reconstruction_error(self, data) -> float:
+        """Mean over rows of the squared L2 error of decode(encode(row))."""
+        x = self._as_rows(data)
+        rec = self.decode(self.encode_dataset(x))
+        return float(((x - rec) ** 2).sum(-1).mean())
+
+    def lookup_tables(self, queries) -> torch.Tensor:
+        """[B, D] (or one [D]) queries -> [B, S, C] squared-L2 tables."""
+        q = self._as_rows(queries)
+        if q.dim() == 1:
+            q = q[None, :]
+        return lut_kernel(q, self.centroids)

@@ -94,7 +94,7 @@ class AsymmetricHasherConfig:
     # GENERAL_INNER_PRODUCT use -dot tables
     distance_measure: DistanceMeasure = DistanceMeasure.SQUARED_L2
     # score-aware (AVQ) training: not ported yet (ROADMAP.md queue 1,
-    # item 3); builds raise when it is set. An index trained with it
+    # item 8b); builds raise when it is set. An index trained with it
     # serves like any other.
     anisotropic_threshold: Optional[float] = None
     # dtype of the re-rank store: "float32", "bfloat16" or "int8" (the

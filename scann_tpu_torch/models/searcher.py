@@ -6,7 +6,7 @@ query validation, result padding and the per-query object API (``search``,
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Optional
+from typing import List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -23,11 +23,38 @@ class SearchParameters:
     pre_reordering_epsilon: Optional[float] = None
     post_reordering_epsilon: Optional[float] = None
     num_leaves_to_search: Optional[int] = None
+    # crowding is not ported yet: a search with it set raises rather than
+    # return uncrowded results (ROADMAP.md queue 1, item 8d)
+    crowding_enabled: Optional[bool] = None
+
+    def with_num_neighbors(self, k: int) -> "SearchParameters":
+        self.num_neighbors = k
+        return self
+
+    def with_pre_reordering_neighbors(self, k: int) -> "SearchParameters":
+        self.pre_reordering_num_neighbors = k
+        return self
+
+    def with_leaves_to_search(self, n: int) -> "SearchParameters":
+        self.num_leaves_to_search = n
+        return self
+
+    def with_epsilon(self, epsilon: float) -> "SearchParameters":
+        self.pre_reordering_epsilon = epsilon
+        return self
+
+    def check_ported(self) -> None:
+        """Raise for a setting the port cannot serve yet."""
+        if self.crowding_enabled:
+            raise NotImplementedError(
+                "crowding is not ported yet (ROADMAP.md queue 1, item 8d: "
+                "restricts and crowding)")
 
     def effective_epsilon(self) -> float:
         """Distance threshold of a single-stage search: with no separate
         re-ranking pass the search is both the "pre" and the "post" stage,
         so the tighter of the two thresholds applies (inf when unset)."""
+        self.check_ported()
         eps = float("inf")
         if self.pre_reordering_epsilon is not None:
             eps = min(eps, float(self.pre_reordering_epsilon))
@@ -40,6 +67,7 @@ def epsilons(params: Optional[SearchParameters]):
     """(pre, post) per-query distance thresholds, inf when unset."""
     pre = post = np.inf
     if params is not None:
+        params.check_ported()
         if params.pre_reordering_epsilon is not None:
             pre = float(params.pre_reordering_epsilon)
         if params.post_reordering_epsilon is not None:
@@ -153,6 +181,11 @@ class Searcher:
         idx, dist = self.search_batched_arrays(q, k, params)
         return self._to_results(idx, dist)[0]
 
+    def search_with_params(self, query,
+                           params: SearchParameters) -> SearchResult:
+        """One query, k from ``params.num_neighbors``."""
+        return self.search(query, params.num_neighbors, params)
+
     def search_batched(self, queries, k: Optional[int] = None,
                        params: Optional[SearchParameters] = None
                        ) -> List[SearchResult]:
@@ -162,6 +195,21 @@ class Searcher:
         q = self._validate_queries(np.asarray(queries))
         idx, dist = self.search_batched_arrays(q, k, params)
         return self._to_results(idx, dist)
+
+    def search_batched_with_params(
+            self, queries, params_list: Sequence[SearchParameters]
+    ) -> List[SearchResult]:
+        """One parameter set per query: one batch when all are equal, one
+        search per query otherwise."""
+        queries = np.asarray(queries, dtype=np.float32)
+        if len(params_list) != queries.shape[0]:
+            raise ScannError.invalid_argument(
+                "params_list length != batch size")
+        if all(p == params_list[0] for p in params_list):
+            return self.search_batched(queries, params_list[0].num_neighbors,
+                                       params_list[0])
+        return [self.search(q, p.num_neighbors, p)
+                for q, p in zip(queries, params_list)]
 
     def supports_allow_mask(self) -> bool:
         """Whether ``search_batched_arrays`` takes an ``allow_mask``."""

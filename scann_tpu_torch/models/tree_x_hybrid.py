@@ -131,6 +131,18 @@ class TreeXHybridConfig:
     # a card measurement says otherwise (PERF.md)
     rerank_layout: Optional[str] = None
 
+    def with_hash(self, cfg: AsymmetricHasherConfig) -> "TreeXHybridConfig":
+        self.hash_config = cfg
+        return self
+
+    def with_residuals(self, flag: bool) -> "TreeXHybridConfig":
+        self.use_residuals = flag
+        return self
+
+    def with_pre_reorder(self, multiplier: float) -> "TreeXHybridConfig":
+        self.pre_reorder_multiplier = multiplier
+        return self
+
 
 def _check_config(cfg: TreeXHybridConfig) -> None:
     check_flat_partitioning(TreePartitionerConfig(
@@ -583,6 +595,24 @@ class TreeXHybridSearcher(Searcher):
 
     def dimensionality(self) -> int:
         return 0 if self._dataset is None else self._dataset.dimensionality
+
+    def memory_usage(self) -> int:
+        """Bytes of the serving CSR code slab, its row table, the partition
+        centres and the codebook, counted as the JAX package counts them:
+        partitions 128-row aligned plus l_cap rows of slack, ceil(S/2)
+        bytes a row aligned to 8 for the packed slab (align_up(S, 32)
+        unpacked), 4 bytes a row for the row table."""
+        tk = self.partitioner.tokenization
+        sizes = tk.partition_sizes.long()
+        aligned_rows = int(((sizes + 127) // 128 * 128).sum())
+        l_tile = max(int(self.config.score_l_tile), 128)
+        aligned_rows += int(align_up(max(tk.max_partition_size, 8), l_tile))
+        s = self.codes.shape[1]
+        row_bytes = (int(align_up((s + 1) // 2, 8)) if self._pack_codes()
+                     else int(align_up(s, 32)))
+        return int(aligned_rows * row_bytes + aligned_rows * 4
+                   + self.partitioner.centers.nbytes
+                   + self.codebook.centroids.nbytes)
 
     def _pack_codes(self) -> bool:
         """Serve the packed int4 slab? (4-bit codes; config may force the

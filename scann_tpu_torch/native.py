@@ -3,7 +3,8 @@
 Each source compiles with ``nvcc`` into a shared library with a plain C
 interface, loaded through ``ctypes``. The build happens at first use, from
 the package's own sources, into ``_build/`` beside this file; the library
-name carries a hash of the source and flags, so an edited source rebuilds
+name carries a hash of the source, the shared headers (``csrc/*.cuh``) and
+the flags, so an edited source rebuilds
 and an unchanged one loads the library already built. Sources build
 independently: two threads loading two kernels run their ``nvcc`` processes
 at the same time. Nothing here runs at import time: the CPU tests import
@@ -58,8 +59,11 @@ def find_nvcc() -> str:
 
 def _build(name: str) -> pathlib.Path:
     src = CSRC_DIR / f"{name}.cu"
+    # the shared headers count too: an edited header rebuilds its users
+    headers = b"".join(h.read_bytes() for h in sorted(CSRC_DIR.glob("*.cuh")))
     digest = hashlib.sha256(
-        src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+        src.read_bytes() + headers + " ".join(NVCC_FLAGS).encode()
+    ).hexdigest()[:16]
     lib_path = BUILD_DIR / f"lib{name}-{digest}.so"
     if lib_path.exists():
         return lib_path

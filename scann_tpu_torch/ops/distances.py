@@ -42,6 +42,21 @@ class DistanceMeasure(enum.Enum):
     WEIGHTED_JACCARD = "WeightedJaccard"
     OVERLAP = "Overlap"
 
+    @property
+    def is_matmul_friendly(self) -> bool:
+        """True when the [B, N] distance matrix reduces to one matrix
+        product (dense Jaccard and Dice are squared L2)."""
+        return self in (
+            DistanceMeasure.SQUARED_L2,
+            DistanceMeasure.L2,
+            DistanceMeasure.COSINE,
+            DistanceMeasure.DOT_PRODUCT,
+            DistanceMeasure.GENERAL_INNER_PRODUCT,
+            DistanceMeasure.LIMITED_INNER_PRODUCT,
+            DistanceMeasure.JACCARD,
+            DistanceMeasure.DICE,
+        )
+
 
 # measures with no dense form: the sparse searcher's (ROADMAP.md queue 1,
 # item 8)

@@ -25,18 +25,23 @@ kernel launch adds one to its entry in :data:`LAUNCHES`. The LUT16 twins add
 in the kernels' order (ascending subspace, float32 or int32) and stream N in
 chunks, so they agree with the kernels bit for bit and never hold a
 [B, S, N] gather; the int8-dots twin is a float32 matrix product, within
-1e-5 of Σ_d |q_d · c_d| of the kernel's FMA chain.
+1e-5 of Σ_d |q_d · c_d| of the kernel's three bf16 tensor-core products.
+
+The two tensor-core kernels take their shared-memory operands laid out here,
+in plain PyTorch that the CPU tests reach: :func:`lut16_fused_table_image`
+(the int8 tables as wgmma's B operand) and :func:`int8_dots_query_image`
+(the queries' bf16 x 3 split, :func:`split_bf16x3`, likewise).
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Dict
+from typing import Dict, Optional, Tuple
 
 import torch
 
 from scann_tpu_torch.ops.lut16_scoring import sum_lut_entries
-from scann_tpu_torch.types import MAX_SHARED_MEMORY, on_card
+from scann_tpu_torch.types import MAX_SHARED_MEMORY, align_up, on_card
 
 # Sentinel for blocks with no valid row in the fused output. Every real
 # combined value is <= 255*S_pad*r + r - 1 < 2**24, far below it.
@@ -49,14 +54,21 @@ LAUNCHES: Dict[str, int] = {"lut16_score": 0, "lut16_fused_sweep": 0,
                              "int8_dots": 0}
 
 # the CUDA kernels' tiles (csrc/lut16_scoring.cu): score kernel words per
-# (subspace, code) row of 32 queries; fused kernel queries and rows per CTA
+# (subspace, code) row of 32 queries; fused kernel code bytes per packed
+# byte and stage (kFusedUnits x kFusedWin) and the largest block
 _SCORE_ROW_WORDS = 17
-_FUSED_Q, _FUSED_ROWS = 64, 1024
+_FUSED_STAGE_ROWS, _FUSED_MAX_R = 512, 1024
+# the fused kernel's (queries per tile, code stages per warpgroup), widest
+# first: the first whose shared memory fits serves a call
+_FUSED_PLANS = ((128, 2), (64, 2), (64, 1))
 # elements of the [B, T] accumulator one step of a twin holds
 _TWIN_ELEMS = 1 << 24
-# the int8-dots kernel's column tile (csrc/int8_dots.cu kBN); the transposed
+# the int8-dots kernel's row tile (csrc/int8_dots.cu kRows); the transposed
 # codes of the scalar-quantized dataset pad their columns to it
 INT8_DOTS_TILE_N = 128
+# the int8-dots kernel's query tile (kQ) and the dimensions one launch takes
+# (kMaxKs k16 steps)
+_INT8_Q, INT8_DOTS_MAX_D = 128, 128
 
 _fns = None
 _int8_fn = None
@@ -78,16 +90,11 @@ def _kernel_fns():
         score.argtypes = [vp, vp, vp, i32, i32, i32, i64, i32, vp]
         score.restype = ctypes.c_int
         fused = lib.lut16_fused_sweep
-        fused.argtypes = [vp, vp, vp, i32, i32, i64, i64, i32, vp]
+        fused.argtypes = [vp, vp, vp, i32, i32, i64, i64, i64, i32, i32, i32,
+                          vp]
         fused.restype = ctypes.c_int
         _fns = (score, fused)
     return _fns
-
-
-def _aligned16(t: torch.Tensor) -> torch.Tensor:
-    """Contiguous, starting 16-byte aligned (the kernels' vector loads)."""
-    t = t.contiguous()
-    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 def _launch(fn, name: str, *args) -> None:
@@ -233,6 +240,54 @@ def lut16_fused_sweep_reference(luts_i8: torch.Tensor,
     return out
 
 
+def lut16_fused_smem_bytes(sh: int, q_tile: int = 128,
+                           stages: int = 2) -> int:
+    """Shared memory of one CTA of the fused kernel at S_pad = 2*sh: its
+    query tile's tables (q_tile * 32 bytes per packed byte), the code stages
+    of its two warpgroups and their barriers, with 128 bytes of
+    alignment."""
+    return (128 + sh * q_tile * 32 + 2 * stages * sh * _FUSED_STAGE_ROWS
+            + 8 * (2 * stages + 1))
+
+
+def lut16_fused_plan(sh: int) -> Optional[Tuple[int, int]]:
+    """(queries per tile, code stages per warpgroup) of the fused kernel
+    at S_pad = 2*sh: 128 queries up to S_pad 74, 64 up to 150 (one stage
+    per warpgroup past 112); None past that."""
+    for q_tile, stages in _FUSED_PLANS:
+        if lut16_fused_smem_bytes(sh, q_tile, stages) <= MAX_SHARED_MEMORY:
+            return q_tile, stages
+    return None
+
+
+def lut16_fused_k32_tables(luts_i8: torch.Tensor, sh: int) -> torch.Tensor:
+    """[B, S_pad*C] even-first int8 tables -> [B, sh, 32]: for packed byte
+    j, the entries of table row j (the low nibble's subspace) then those of
+    row sh + j (the high nibble's), each padded to 16 with zeros: the 32 k
+    of the fused kernel's one-hot product step j."""
+    b, width = luts_i8.shape
+    c = width // (2 * sh)
+    t = luts_i8.reshape(b, 2, sh, c)
+    if c < 16:
+        t = torch.nn.functional.pad(t, (0, 16 - c))
+    return t.permute(0, 2, 1, 3).reshape(b, sh, 32)
+
+
+def lut16_fused_table_image(luts_i8: torch.Tensor, sh: int,
+                            q_tile: int = 128) -> torch.Tensor:
+    """The fused kernel's shared-memory image of the tables, flat uint8: per
+    tile of ``q_tile`` queries (zero past B), per packed byte j, wgmma's
+    K-major B operand in the canonical no-swizzle layout: q_tile / 8 groups
+    of 8 queries x 2 core matrices (k 0..15, k 16..31), each 8 queries x 16
+    bytes."""
+    k32 = lut16_fused_k32_tables(luts_i8, sh)
+    b = k32.shape[0]
+    full = k32.new_zeros(-(-b // q_tile) * q_tile, sh, 32)
+    full[:b] = k32
+    img = full.view(-1, q_tile // 8, 8, sh, 2, 16).permute(0, 3, 1, 4, 2, 5)
+    return img.contiguous().view(torch.uint8).reshape(-1)
+
+
 def lut16_fused_sweep(luts_i8: torch.Tensor, codes_packed_t: torch.Tensor,
                       n_valid: int, r: int = 32) -> torch.Tensor:
     """Fused LUT16 sweep + block minimum: [N/r, B] float32 combined values.
@@ -257,30 +312,33 @@ def lut16_fused_sweep(luts_i8: torch.Tensor, codes_packed_t: torch.Tensor,
     if codes_packed_t.device != luts_i8.device:
         raise ValueError(f"codes_packed_t is on {codes_packed_t.device}, "
                          f"luts_i8 on {luts_i8.device}")
-    if r < 8 or r > _FUSED_ROWS or r & (r - 1):
+    if r < 8 or r > _FUSED_MAX_R or r & (r - 1):
         raise ValueError(f"the CUDA kernel takes r a power of two in [8, "
-                         f"{_FUSED_ROWS}], got {r}")
-    smem = _FUSED_Q * (32 * sh + 16) + sh * _FUSED_ROWS
-    if smem > MAX_SHARED_MEMORY:
-        raise ValueError(f"S_pad={2 * sh} needs {smem} bytes of shared "
-                         f"memory, more than the {MAX_SHARED_MEMORY} a block "
-                         f"has")
+                         f"{_FUSED_MAX_R}], got {r}")
+    plan = lut16_fused_plan(sh)
+    if plan is None:
+        raise ValueError(
+            f"S_pad={2 * sh} needs {lut16_fused_smem_bytes(sh, 64, 1)} bytes "
+            f"of shared memory, more than the {MAX_SHARED_MEMORY} a block has")
+    q_tile, stages = plan
     out = torch.empty(n // r, b, dtype=torch.float32, device=luts_i8.device)
     if b == 0 or n == 0:
         return out
-    if c < 16:
-        # the kernel's k32 step is one packed byte: 16 entries per subspace
-        luts_i8 = torch.nn.functional.pad(
-            luts_i8.reshape(b, 2 * sh, c), (0, 16 - c)).reshape(b, -1)
-    luts = _aligned16(luts_i8)
-    codes = _aligned16(codes_packed_t)
+    tables = lut16_fused_table_image(luts_i8, sh, q_tile)
+    codes = codes_packed_t
+    pitch = align_up(n, 16)
+    if (codes.stride() != (pitch, 1) or pitch != n
+            or codes.data_ptr() % 16):
+        # TMA reads the rows at a 16-byte pitch from a 16-byte aligned start
+        codes = codes_packed_t.new_zeros(sh, pitch)
+        codes[:, :n] = codes_packed_t
     _, fused = _kernel_fns()
-    with torch.cuda.device(luts.device):
-        stream = torch.cuda.current_stream(luts.device).cuda_stream
-        _launch(fused, "lut16_fused_sweep", luts.data_ptr(), codes.data_ptr(),
-                out.data_ptr(), b, sh, n, int(n_valid), r, stream)
+    with torch.cuda.device(luts_i8.device):
+        stream = torch.cuda.current_stream(luts_i8.device).cuda_stream
+        _launch(fused, "lut16_fused_sweep", tables.data_ptr(),
+                codes.data_ptr(), out.data_ptr(), b, sh, n, pitch,
+                int(n_valid), r, q_tile, stages, stream)
     return out
-
 
 
 # ---------------------------------------------------------------------------
@@ -308,6 +366,48 @@ def int8_dots_reference(queries: torch.Tensor,
     return queries @ codes_t.float()
 
 
+def split_bf16x3(queries: torch.Tensor) -> torch.Tensor:
+    """[B, D] float32 -> [3, B, D] bf16 parts, each the rounding to nearest
+    of what the previous parts leave: ``q0 = bf16(q)``, ``q1 = bf16(q -
+    q0)``, ``q2 = bf16(q - q0 - q1)``. Each difference is exact in float32
+    and the three parts sum to q exactly (24 significant bits in three
+    8-bit parts), so the three products of the parts with codes 0..255
+    (exact in bf16, each product exact in float32) give the float32 dots
+    with float32 accumulation: the int8-dots kernel's tensor-core form."""
+    q0 = queries.to(torch.bfloat16)
+    r1 = queries - q0.float()
+    q1 = r1.to(torch.bfloat16)
+    q2 = (r1 - q1.float()).to(torch.bfloat16)
+    return torch.stack([q0, q1, q2])
+
+
+def int8_dots_query_image(queries: torch.Tensor) -> torch.Tensor:
+    """The kernel's shared-memory image of the queries, flat uint8: per tile
+    of 128 queries, per bf16 part, per k16 step, the K-major core matrices
+    of wgmma's B operand (16 groups of 8 queries x 2 halves of 8 d, each
+    8 x 16 bytes), zero past B and D."""
+    b, d = queries.shape
+    nks = -(-d // 16)
+    qt = -(-b // _INT8_Q)
+    parts = torch.zeros(3, qt * _INT8_Q, nks * 16, dtype=torch.bfloat16,
+                        device=queries.device)
+    parts[:, :b, :d] = split_bf16x3(queries)
+    img = parts.view(3, qt, _INT8_Q // 8, 8, nks, 2, 8).permute(
+        1, 0, 4, 2, 5, 3, 6)
+    return img.contiguous().view(torch.uint8).reshape(-1)
+
+
+def int8_dots_smem_bytes(d: int) -> int:
+    """Shared memory of one CTA of the int8-dots kernel for one launch's
+    min(d, INT8_DOTS_MAX_D) dimensions (csrc/int8_dots.cu smem_bytes): three
+    code stages of 128 rows, two [128 queries x 64 rows] float32 output
+    tiles, the query tile's three bf16 parts, the barriers, 1 KB of
+    alignment."""
+    rows = 16 * -(-min(d, INT8_DOTS_MAX_D) // 16)
+    return (1024 + 3 * rows * INT8_DOTS_TILE_N + 2 * _INT8_Q * 64 * 4
+            + 3 * rows * _INT8_Q * 2 + 8 * 4)
+
+
 def _int8_dots_fn():
     global _int8_fn
     if _int8_fn is None:
@@ -315,10 +415,33 @@ def _int8_dots_fn():
 
         fn = native.load("int8_dots").int8_dots
         vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        fn.argtypes = [vp, vp, vp, i32, i32, i64, vp]
+        fn.argtypes = [vp, vp, vp, i32, i32, i64, i64, i64, vp]
         fn.restype = ctypes.c_int
         _int8_fn = fn
     return _int8_fn
+
+
+def _int8_dots_launch(queries: torch.Tensor,
+                      codes_t: torch.Tensor) -> torch.Tensor:
+    """One kernel launch over d <= INT8_DOTS_MAX_D: [B, N] float32."""
+    b, d = queries.shape
+    n = codes_t.shape[1]
+    codes = codes_t
+    if (codes.stride(1) != 1 or codes.stride(0) % 16
+            or codes.data_ptr() % 16):
+        # TMA reads rows at a 16-byte pitch from a 16-byte aligned start
+        codes = torch.zeros(d, align_up(n, 16), dtype=torch.uint8,
+                            device=codes_t.device)
+        codes[:, :n] = codes_t
+    pitch = align_up(n, 4)  # the TMA stores' 16-byte row pitch
+    out = torch.empty(b, pitch, dtype=torch.float32, device=queries.device)
+    img = int8_dots_query_image(queries)
+    fn = _int8_dots_fn()
+    with torch.cuda.device(queries.device):
+        stream = torch.cuda.current_stream(queries.device).cuda_stream
+        _launch(fn, "int8_dots", img.data_ptr(), codes.data_ptr(),
+                out.data_ptr(), b, d, n, codes.stride(0), pitch, stream)
+    return out if pitch == n else out[:, :n].contiguous()
 
 
 def int8_dots(queries: torch.Tensor, codes_t: torch.Tensor) -> torch.Tensor:
@@ -327,7 +450,9 @@ def int8_dots(queries: torch.Tensor, codes_t: torch.Tensor) -> torch.Tensor:
     caller folds in the codec's scale and offset (``ops/asymmetric.py``).
 
     CPU tensors go to :func:`int8_dots_reference`; CUDA tensors to the CUDA
-    kernel, built from ``csrc/int8_dots.cu`` at first use, or raise."""
+    kernel, built from ``csrc/int8_dots.cu`` at first use, or raise. The
+    kernel takes D <= INT8_DOTS_MAX_D per launch; a wider D is summed over
+    slices of that many dimensions, one launch each."""
     if not on_card(queries, "int8_dots"):
         return int8_dots_reference(queries, codes_t)
     _check_int8_args(queries, codes_t)
@@ -336,16 +461,12 @@ def int8_dots(queries: torch.Tensor, codes_t: torch.Tensor) -> torch.Tensor:
                          f"{queries.device}")
     b, d = queries.shape
     n = codes_t.shape[1]
-    out = torch.empty(b, n, dtype=torch.float32, device=queries.device)
-    if b == 0 or n == 0:
-        return out
-    if d == 0:
-        return out.zero_()
+    if b == 0 or n == 0 or d == 0:
+        return torch.zeros(b, n, dtype=torch.float32, device=queries.device)
     q = queries.contiguous()
-    codes = codes_t.contiguous()
-    fn = _int8_dots_fn()
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        _launch(fn, "int8_dots", q.data_ptr(), codes.data_ptr(),
-                out.data_ptr(), b, d, n, stream)
+    out = None
+    for lo in range(0, d, INT8_DOTS_MAX_D):
+        part = _int8_dots_launch(q[:, lo:lo + INT8_DOTS_MAX_D].contiguous(),
+                                 codes_t[lo:lo + INT8_DOTS_MAX_D])
+        out = part if out is None else out.add_(part)
     return out

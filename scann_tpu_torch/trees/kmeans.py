@@ -182,6 +182,13 @@ class KMeans:
         self.config = config or KMeansConfig()
         self.device = torch.device(device)
 
+    @classmethod
+    def with_clusters(cls, k: int,
+                      device: Union[str, torch.device] = DEFAULT_DEVICE
+                      ) -> "KMeans":
+        """k clusters, every other setting at its default."""
+        return cls(KMeansConfig(num_clusters=k), device=device)
+
     def fit(self, data, init_centers=None) -> KMeansResult:
         x = torch.as_tensor(data, dtype=torch.float32,
                             device=require_device(self.device))

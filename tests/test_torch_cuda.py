@@ -383,10 +383,24 @@ def _fused_inputs(rng, *, b, s, n, c=16):
     (12, 64, 70, 3072, 2999),         # r > 32: a running minimum per warp
     (4, 1024, 5, 4096, 3500),         # r = one CTA tile
     (2, 32, 3, 96, 50),               # N % 16 != 0: byte-wise code staging
+    (50, 32, 129, 1056, 1040),        # B one past the 128-query tile; N one
+                                      # block past a 32-unit item
+    (50, 32, 226, 4096, 4000),        # B = 226
+    (9, 16, 257, 2048, 1999),         # sh odd, B past two query tiles
+    (7, 8, 40, 1048, 1031),           # r = 8, N = 8 (mod 16): codes re-laid
+                                      # at a 16-byte pitch
+    (16, 1024, 130, 8192, 5000),      # r = 1024, n_valid inside a block
+    (74, 32, 100, 2048, 2048),        # the widest S_pad of 128-query tiles
+    (75, 32, 129, 2048, 2000),        # 64-query tiles, two stages each
+    (100, 8, 70, 1048, 1041),         # the same at r = 8
+    (112, 64, 257, 4096, 4000),       # the widest S_pad with two stages
+    (150, 16, 65, 2048, 1999),        # 64-query tiles, one stage each
 ])
 def test_lut16_fused_sweep_kernel_matches_twin(s, r, b, n, n_valid):
     """Combined block minima equal, bit for bit: integer sums, the lowest
-    row first among equal sums, INVALID_COMBINED blocks."""
+    row first among equal sums, INVALID_COMBINED blocks. The cases cross
+    the 128- and 64-query tiles, the 32-unit item and the 16-row code
+    window, and take each tile plan of lut16_fused_plan."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     from scann_tpu_torch.ops import scoring_kernels as sk
@@ -512,26 +526,33 @@ def test_asymmetric_hasher_on_card():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("b", [1, 7, 256])
-@pytest.mark.parametrize("d,n", [(13, 1000), (64, 777), (100, 2049),
-                                 (128, 130)])
-def test_int8_dots_kernel_matches_twin(b, d, n):
-    """|kernel - twin| <= 1e-5 * sum_d |q_d * c_d| per entry: one FMA chain
-    in ascending d against a float32 matrix product's order. N is never a
-    multiple of the 128-column tile; N % 4 != 0 takes the scalar stores."""
+@pytest.mark.parametrize("b", [1, 7, 129, 226, 256, 257])
+@pytest.mark.parametrize("d,n,scale", [
+    (13, 1000, 1.0), (64, 777, 1.0), (100, 2049, 1.0), (128, 130, 1.0),
+    (8, 129, 1.0),          # D = 8; N one past the 128-row tile
+    (100, 136, 1.0),        # N = 8 (mod 16): codes re-laid at a 16-byte pitch
+    (100, 1000, 1e-30),     # the bf16 x 3 split's exactness at both ends of
+    (37, 500, 1e30),        # the float32 range
+    (200, 300, 1.0)])       # D past one launch: two slices summed
+def test_int8_dots_kernel_matches_twin(b, d, n, scale):
+    """|kernel - twin| <= 1e-5 * sum_d |q_d * c_d| per entry: three bf16
+    products of the split queries on the tensor cores against a float32
+    matrix product. B crosses the 128-query tile (129, 257) and takes the
+    searcher's chunk (226); N is never a multiple of the 128-row tile."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     from scann_tpu_torch.ops import scoring_kernels as sk
 
     torch.backends.cuda.matmul.allow_tf32 = False
     rng = np.random.default_rng(b * 1000 + d)
-    q = torch.from_numpy(rng.normal(size=(b, d)).astype(np.float32)).cuda()
+    q = torch.from_numpy((rng.normal(size=(b, d)) * scale).astype(
+        np.float32)).cuda()
     codes = torch.from_numpy(
         rng.integers(0, 256, size=(d, n)).astype(np.uint8)).cuda()
     before = sk.LAUNCHES["int8_dots"]
     got = sk.int8_dots(q, codes)
     torch.cuda.synchronize()
-    assert sk.LAUNCHES["int8_dots"] == before + 1
+    assert sk.LAUNCHES["int8_dots"] == before + -(-d // sk.INT8_DOTS_MAX_D)
     want = sk.int8_dots_reference(q, codes)
     bound = 1e-5 * (q.abs() @ codes.float())
     assert got.shape == (b, n) and got.dtype == torch.float32
