@@ -67,6 +67,7 @@ device JSON.
 from __future__ import annotations
 
 import json
+import re
 import subprocess
 import sys
 import time
@@ -129,6 +130,49 @@ def leaf_bound(parts, part_sizes, *, s, c, entry_bytes, row_bytes,
     return (*bound(adds, peak, nbytes), nbytes, adds)
 
 
+def leaf_ptxas(build_log: str):
+    """'C=<width>: N registers, S bytes spill stores, L bytes spill loads'
+    for each instance of #10's kernel in an ``nvcc -Xptxas -v`` log (C=0:
+    any other table width)."""
+    out, width, spill = [], None, ""
+    for ln in build_log.splitlines():
+        if "Function properties for" in ln:
+            m = re.search(r"tree_ah_leaf_kernelILi(\d+)E", ln)
+            width = m.group(1) if m else None
+        elif "spill stores" in ln:
+            spill = ", ".join(x.strip() for x in ln.split(",") if "spill" in x)
+        elif "Used" in ln and "registers" in ln and width is not None:
+            regs = ln.split("Used")[1].split("registers")[0].strip()
+            out.append(f"C={width}: {regs} registers, {spill}")
+            width = None
+    return out
+
+
+def leaf_schedule(p_off, p_size, *, q, s_pad, l_cap):
+    """What #10's partition-order schedule does on a batch: (code bytes it
+    reads = each chunk's distinct partitions x their sizes x S_pad, table
+    lookups = each run's pairs x its longest size x S_pad, runs, chunks).
+    Chunks are Q consecutive pairs of the stable offset order; a run is a
+    chunk's pairs of one offset."""
+    import torch
+
+    from scann_tpu_torch.ops import tree_ah_leaf as tal
+
+    order = tal.pair_order(p_off).long()
+    off = p_off.reshape(-1).long()[order]
+    size = p_size.reshape(-1).long()[order].clamp(0, l_cap)
+    chunk = torch.arange(off.numel(), device=off.device) // q
+    new = torch.ones_like(off, dtype=torch.bool)
+    new[1:] = (off[1:] != off[:-1]) | (chunk[1:] != chunk[:-1])
+    run = torch.cumsum(new.long(), 0) - 1
+    runs = int(run[-1]) + 1
+    run_len = torch.zeros(runs, dtype=torch.long, device=off.device)
+    run_len.scatter_reduce_(0, run, size, "amax")
+    run_nq = torch.bincount(run, minlength=runs)
+    return (int(run_len.sum()) * s_pad, int((run_len * run_nq).sum()) * s_pad,
+            runs, int(chunk[-1]) + 1)
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -181,6 +225,8 @@ def main() -> int:
                 f"from this source")
     log(f"[2 kernel build] {build_kernel_s:.2f}s for {len(KERNEL_SOURCES)} "
         f"sources")
+    log("[2 kernel build] tree_ah_leaf (#10), ptxas: " + "; ".join(
+        leaf_ptxas(native.saved_logs.get("tree_ah_leaf", ""))))
 
     # -- 3. data -----------------------------------------------------------------
     t0 = time.perf_counter()
@@ -1519,6 +1565,24 @@ def soar_phases(ds, queries, db_dev, gt_np, cold_ms, turns, smi, base):
         f"ms, plain twin {p10:.4f} ms, bound {b10:.4f} ms, bound by {by10} "
         f"({bytes10} bytes, {ops10} float32 adds) -> {b10 / k10:.3f} of the "
         f"bound ({smi})")
+    q10 = tal.pairs_per_block(s_pad, cb.shape[1])
+    read10, lookups10, runs10, chunks10 = leaf_schedule(
+        p_off, p_size, q=q10, s_pad=s_pad, l_cap=l_cap)
+    per_pair = int(p_size.long().clamp(0, l_cap).sum()) * s_pad
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.split()[0])
+    floor10 = lookups10 / (32 * sms * mhz * 1e6) * 1e3
+    log(f"[23 schedule] tree_ah_leaf (#10): Q {q10} pairs a block, "
+        f"{chunks10} chunks, {runs10} runs ({runs10 / chunks10:.3f} "
+        f"partitions a chunk); code bytes read {read10} (one read per pair "
+        f"would be {per_pair}; the bound counts the probed partitions once "
+        f"at S=50); {lookups10} shared-memory table lookups -> lookup floor "
+        f"{floor10:.4f} ms at 32 a clock on {sms} SMs at {mhz:.0f} MHz "
+        f"(clocks.max.sm), {floor10 / k10:.3f} of the kernel's time; bytes "
+        f"bound {b10:.4f} ms ({smi})")
 
     def staged(qb, leaf):
         ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]

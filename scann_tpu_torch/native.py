@@ -35,6 +35,9 @@ _libs: Dict[str, ctypes.CDLL] = {}
 # nvcc's output (ptxas register / shared-memory report) of each build made
 # by this process, by kernel name
 build_logs: Dict[str, str] = {}
+# the same for every library loaded, also one an earlier process built (its
+# log is saved beside it)
+saved_logs: Dict[str, str] = {}
 
 
 def find_nvcc() -> str:
@@ -65,7 +68,10 @@ def _build(name: str) -> pathlib.Path:
         src.read_bytes() + headers + " ".join(NVCC_FLAGS).encode()
     ).hexdigest()[:16]
     lib_path = BUILD_DIR / f"lib{name}-{digest}.so"
+    log_path = lib_path.with_suffix(".log")
     if lib_path.exists():
+        if log_path.exists():
+            saved_logs[name] = log_path.read_text()
         return lib_path
     nvcc = find_nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -78,7 +84,8 @@ def _build(name: str) -> pathlib.Path:
         raise RuntimeError(
             f"nvcc failed to build {src} (exit {proc.returncode}):\n"
             f"{proc.stdout}{proc.stderr}")
-    build_logs[name] = proc.stdout + proc.stderr
+    build_logs[name] = saved_logs[name] = proc.stdout + proc.stderr
+    log_path.write_text(build_logs[name])
     os.replace(tmp, lib_path)
     return lib_path
 

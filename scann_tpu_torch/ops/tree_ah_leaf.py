@@ -11,8 +11,10 @@ Two forms compute the same thing:
 
   - ``csrc/tree_ah_leaf.cu``, a CUDA kernel written for Hopper, which
     replaces the TPU kernel ``scann_tpu/ops/tree_ah_pallas.py::_kernel``.
-    Its source note gives what bounds it on the H100 and how the design
-    meets that;
+    It scores the pairs in partition order (:func:`pair_order`), Q a block
+    (:func:`pairs_per_block`), so that each partition's codes are read once
+    for all the pairs of a block that probe it. Its source note gives what
+    bounds it on the H100 and how the design meets that;
   - :func:`tree_ah_leaf_scores_reference`, its plain PyTorch twin.
 
 :func:`tree_ah_leaf_scores` takes the twin for CPU tensors only; for CUDA
@@ -25,10 +27,19 @@ import ctypes
 
 import torch
 
-from scann_tpu_torch.types import MASKED_DISTANCE, MAX_SHARED_MEMORY, on_card
+from scann_tpu_torch.types import (MASKED_DISTANCE, MAX_SHARED_MEMORY,
+                                   align_up, on_card)
 
-# candidate columns per thread block of the CUDA kernel
-L_TILE = 256
+# The CUDA kernel scores Q pairs a thread block, in partition order, with
+# their Q tables resident in shared memory; at most MAX_PAIRS_PER_BLOCK.
+MAX_PAIRS_PER_BLOCK = 8
+# Shared memory of one block besides its tables: the code ring of
+# csrc/tree_ah_leaf.cu (2 stages of 16 rows of 528 bytes; the two must
+# agree) and 1 KB for its static chunk record (260 bytes).
+FIXED_SHARED_BYTES = 2 * 16 * 528 + 1024
+# Tables are budgeted so that this many blocks share an SM and one block's
+# copies overlap another's lookups.
+BLOCKS_PER_SM = 4
 
 # Kernel launches since the last reset: one per launch of the CUDA kernel,
 # never for the plain twin.
@@ -80,6 +91,28 @@ def tree_ah_leaf_scores_reference(luts: torch.Tensor, codes_csr: torch.Tensor,
                                                 device=device))
 
 
+def pairs_per_block(s_pad: int, c: int) -> int:
+    """Q, the pairs one thread block of the CUDA kernel scores: as many
+    [S_pad, C] float32 tables as fit a quarter of the shared memory beside
+    the code ring, at least 1 and at most ``MAX_PAIRS_PER_BLOCK`` (8 for the
+    4 KB tables of S_pad 64, C=16). Raises where one table does not fit."""
+    table = 4 * s_pad * c
+    if align_up(table, 16) + FIXED_SHARED_BYTES > MAX_SHARED_MEMORY:
+        raise ValueError(f"one pair's table needs {table} bytes of shared "
+                         f"memory; beside the kernel's other "
+                         f"{FIXED_SHARED_BYTES} bytes that is more than the "
+                         f"{MAX_SHARED_MEMORY} a block has")
+    budget = MAX_SHARED_MEMORY // BLOCKS_PER_SM - FIXED_SHARED_BYTES
+    return max(1, min(MAX_PAIRS_PER_BLOCK, budget // table))
+
+
+def pair_order(offsets: torch.Tensor) -> torch.Tensor:
+    """[B*p] int32 pair indices sorted by their partition's CSR offset,
+    stably: pairs of one partition become neighbours, in pair order. One
+    device sort, no host synchronisation."""
+    return torch.argsort(offsets.reshape(-1), stable=True).to(torch.int32)
+
+
 def _kernel_fn():
     global _fn
     if _fn is None:
@@ -87,8 +120,8 @@ def _kernel_fn():
 
         fn = native.load("tree_ah_leaf").tree_ah_leaf_scores
         vp, i32 = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [vp, vp, vp, vp, vp, i32, i32, i32, ctypes.c_longlong,
-                       i32, i32, vp]
+        fn.argtypes = [vp, vp, vp, vp, vp, vp, i32, i32, i32,
+                       ctypes.c_longlong, i32, i32, vp]
         fn.restype = ctypes.c_int
         _fn = fn
     return _fn
@@ -131,18 +164,17 @@ def tree_ah_leaf_scores(luts: torch.Tensor, codes_csr: torch.Tensor,
     s_pad, n_csr = codes_csr.shape
     luts = _pad_luts(luts, s_pad).contiguous()
     b, p, _, c = luts.shape
-    smem = 4 * s_pad * c
-    if smem > MAX_SHARED_MEMORY:
-        raise ValueError(f"one pair's table needs {smem} bytes of shared "
-                         f"memory, more than the {MAX_SHARED_MEMORY} a block "
-                         f"has")
+    q = pairs_per_block(s_pad, c)
     out = torch.empty(b, p, l_cap, dtype=torch.float32, device=device)
+    if b * p == 0:
+        return out
     fn = _kernel_fn()
     with torch.cuda.device(device):
+        order = pair_order(offsets)
         stream = torch.cuda.current_stream(device).cuda_stream
         err = fn(luts.data_ptr(), codes_csr.data_ptr(), offsets.data_ptr(),
-                 sizes.data_ptr(), out.data_ptr(), b * p, s_pad, c, n_csr,
-                 l_cap, L_TILE, stream)
+                 sizes.data_ptr(), order.data_ptr(), out.data_ptr(), b * p,
+                 s_pad, c, n_csr, l_cap, q, stream)
     if err != 0:
         raise RuntimeError(f"tree_ah_leaf kernel launch failed: CUDA error "
                            f"{err}")

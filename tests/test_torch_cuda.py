@@ -144,6 +144,74 @@ def test_tree_ah_leaf_kernel_matches_twin(b, p, s, s_pad, c, l_cap, aligned):
     assert torch.equal(masked, torch.arange(l_cap, device="cuda") >= sizes)
 
 
+def _schedule_case(name):
+    """Inputs that steer #10's partition-order schedule: (luts, codes,
+    offsets, sizes) as numpy arrays, l_cap, and the pairs per block Q the
+    wrapper must pick."""
+    rng = np.random.default_rng(len(name))
+    if name == "one partition":      # every pair probes partition 0
+        b, p, l_cap, s, s_pad, c = 24, 4, 700, 8, 32, 16
+        sizes_t = np.array([650, 700, 12])
+        parts = np.zeros((b, p), int)
+    elif name == "run straddles a chunk":   # sorted runs 3, 11, 3, 4, 1, 1, 1
+        b, p, l_cap, s, s_pad, c = 6, 4, 700, 8, 32, 16
+        sizes_t = rng.integers(300, 701, size=10)
+        parts = np.array([[0, 0, 0, 1], [1, 1, 1, 1], [1, 1, 1, 1],
+                          [1, 1, 2, 2], [3, 3, 3, 3], [2, 4, 5, 6]])
+    elif name == "distinct partitions":     # density below 1
+        b, p, l_cap, s, s_pad, c = 12, 4, 200, 10, 16, 16
+        sizes_t = rng.integers(1, 201, size=200)
+        parts = rng.permutation(200)[:b * p].reshape(b, p)
+    elif name == "sizes 0 and l_cap":       # empty partitions share offsets
+        b, p, l_cap, s, s_pad, c = 9, 5, 300, 9, 50, 16
+        sizes_t = np.array([0, 300, 0, 0, 300, 17, 0, 299, 1, 300])
+        parts = rng.integers(0, len(sizes_t), size=(b, p))
+    elif name == "C=256":                   # Q < 8
+        b, p, l_cap, s, s_pad, c = 12, 3, 600, 13, 13, 256
+        sizes_t = rng.integers(100, 601, size=4)
+        parts = rng.integers(0, 4, size=(b, p))
+    else:                                   # "C=9": 4-byte table copies
+        b, p, l_cap, s, s_pad, c = 10, 3, 130, 6, 7, 9
+        sizes_t = rng.integers(0, 131, size=5)
+        parts = rng.integers(0, 5, size=(b, p))
+    starts = np.zeros(len(sizes_t) + 1, np.int64)
+    starts[1:] = np.cumsum(sizes_t + rng.integers(0, 3, size=len(sizes_t)))
+    n_csr = int(starts[-1]) + l_cap
+    codes = rng.integers(0, c, size=(s_pad, n_csr)).astype(np.uint8)
+    codes[s:] = 0
+    luts = (rng.normal(size=(b, p, s, c)) * 3).astype(np.float32)
+    arrays = (luts, codes, starts[:-1][parts].astype(np.int32),
+              sizes_t[parts].astype(np.int32))
+    return arrays, l_cap, 3 if c == 256 else 8
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", [
+    "one partition", "run straddles a chunk", "distinct partitions",
+    "sizes 0 and l_cap", "C=256", "C=9"])
+def test_tree_ah_leaf_schedule_matches_twin(name):
+    """#10's partition-order schedule at its edges: one partition for every
+    pair, a run of equal offsets across a chunk boundary, a different
+    partition for every pair, sizes 0 and l_cap, C=256 tables that leave
+    room for Q=3 a block, and C=9 tables (neither width the kernel
+    specialises, copied 4 bytes at a time). Bit for bit against the twin,
+    one launch."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from scann_tpu_torch.ops import tree_ah_leaf as tal
+
+    arrays, l_cap, q = _schedule_case(name)
+    args = [torch.from_numpy(a).cuda() for a in arrays]
+    assert tal.pairs_per_block(arrays[1].shape[0], arrays[0].shape[3]) == q
+    before = tal.LAUNCHES
+    got = tal.tree_ah_leaf_scores(*args, l_cap=l_cap)
+    torch.cuda.synchronize()
+    assert tal.LAUNCHES == before + 1
+    want = tal.tree_ah_leaf_scores_reference(*args, l_cap=l_cap)
+    assert got.dtype == torch.float32 and got.shape == want.shape
+    assert torch.equal(got, want)
+
+
 @pytest.mark.cuda
 def test_tree_ah_leaf_kernel_rejects_bad_arguments():
     if not torch.cuda.is_available():

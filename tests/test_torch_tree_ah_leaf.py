@@ -95,3 +95,44 @@ def test_cpu_tensors_never_launch_the_kernel():
         torch.zeros(1, 1, dtype=torch.int32),
         torch.full((1, 1), 100, dtype=torch.int32), l_cap=128)
     assert tal.LAUNCHES == before
+
+
+@pytest.mark.parametrize("s_pad,c", [(64, 16), (32, 16), (13, 256), (64, 256),
+                                     (200, 256), (8, 16)])
+def test_pairs_per_block_follows_the_shared_memory_budget(s_pad, c):
+    """Q: as many float32 tables as fit a quarter of the shared memory
+    beside the kernel's fixed bytes, between 1 and 8; 8 for the 4 KB tables
+    of S_pad 64, C=16, fewer for C=256."""
+    table = 4 * s_pad * c
+    want = max(1, min(8, (232_448 // 4 - tal.FIXED_SHARED_BYTES) // table))
+    assert tal.pairs_per_block(s_pad, c) == want
+    if (s_pad, c) == (64, 16):
+        assert want == 8
+    if c == 256:
+        assert want < 8
+
+
+def test_pairs_per_block_raises_past_one_table():
+    """A table that does not fit a block beside the code ring raises."""
+    with pytest.raises(ValueError, match="shared memory"):
+        tal.pairs_per_block(256, 256)          # 256 KB
+    with pytest.raises(ValueError, match="shared memory"):
+        tal.pairs_per_block(220, 256)          # 220 KB + the ring
+    assert tal.pairs_per_block(190, 256) == 1
+
+
+@pytest.mark.parametrize("seed,parts_count", [(0, 1), (1, 3), (2, 50),
+                                              (3, 1000)])
+def test_pair_order_is_a_stable_sort_of_offsets(seed, parts_count):
+    """The kernel's pair order: a stable argsort of the flat offsets (as
+    numpy's), int32; pairs of one partition become neighbours in pair
+    order."""
+    rng = np.random.default_rng(seed)
+    starts = np.sort(rng.choice(1 << 20, size=parts_count, replace=False))
+    offsets = starts[rng.integers(0, parts_count, size=(64, 30))]
+    order = tal.pair_order(torch.from_numpy(offsets.astype(np.int32)))
+    assert order.dtype == torch.int32 and order.shape == (64 * 30,)
+    np.testing.assert_array_equal(
+        order.numpy(), np.argsort(offsets.reshape(-1), kind="stable"))
+    flat = offsets.reshape(-1)[order.numpy()]
+    assert (np.diff(flat) >= 0).all()
