@@ -6,8 +6,8 @@ Drives the port's five serving paths once at GloVe-100 shape, over
 queries:
 
 - tree-x-AH: builds the index on the card, checks the CUDA grouped
-  leaf-scoring kernel against its plain PyTorch twin on the first batch's
-  real inputs, serves the batches through
+  leaf-scoring kernel against its plain PyTorch twin bit for bit on the
+  first batch's real inputs, serves the batches through
   ``TreeXHybridSearcher.search_batched_tensors`` and holds recall@10 against
   exact ground truth;
 - block sweep: builds the bf16 augmented copy and the re-rank state on the
@@ -53,7 +53,10 @@ queries:
 
 then times every kernel against its twin (L2 flushed) and the search stages
 with CUDA events (the grouped and per-pair SOAR paths also at twice the
-batch, past the pair density where groups widen).
+batch, past the pair density where groups widen). The grouped scorer's
+times (#1 on both indexes, #1b) stand beside its output contract's
+traffic floor and its shared-memory lookup floors; [2] reports registers
+and spills of every instance of #1/#1b and #10.
 
     python3 chip_smoke.py
 
@@ -130,22 +133,76 @@ def leaf_bound(parts, part_sizes, *, s, c, entry_bytes, row_bytes,
     return (*bound(adds, peak, nbytes), nbytes, adds)
 
 
-def leaf_ptxas(build_log: str):
-    """'C=<width>: N registers, S bytes spill stores, L bytes spill loads'
-    for each instance of #10's kernel in an ``nvcc -Xptxas -v`` log (C=0:
-    any other table width)."""
-    out, width, spill = [], None, ""
+def kernel_ptxas(build_log: str, kernel: str, label):
+    """'<label>: N registers, S bytes spill stores, L bytes spill loads' for
+    each instance of ``kernel`` in an ``nvcc -Xptxas -v`` log; ``label``
+    names an instance from its integer and bool template arguments."""
+    out, args, spill = [], None, ""
     for ln in build_log.splitlines():
         if "Function properties for" in ln:
-            m = re.search(r"tree_ah_leaf_kernelILi(\d+)E", ln)
-            width = m.group(1) if m else None
+            m = re.search(kernel + r"I((?:L[ib]\d+E)+)E", ln)
+            args = ([int(v) for v in re.findall(r"L[ib](\d+)E", m.group(1))]
+                    if m else None)
         elif "spill stores" in ln:
             spill = ", ".join(x.strip() for x in ln.split(",") if "spill" in x)
-        elif "Used" in ln and "registers" in ln and width is not None:
+        elif "Used" in ln and "registers" in ln and args is not None:
             regs = ln.split("Used")[1].split("registers")[0].strip()
-            out.append(f"C={width}: {regs} registers, {spill}")
-            width = None
+            out.append(f"{label(*args)}: {regs} registers, {spill}")
+            args = None
     return out
+
+
+def grouped_floor_line(tag_, name, kernel_ms, grp_size, *, smi, **kw):
+    """[tag] line of the grouped scorer's traffic and lookup floors."""
+    nbytes, t_ms, entries, f32_ms, fq_ms, ranges = grouped_floors(grp_size,
+                                                                  **kw)
+    return (f"[{tag_}] tree_ah_grouped {name}: contract traffic {nbytes} "
+            f"bytes (every output slot, codes once a group, tables once a "
+            f"live column range: {ranges} ranges) -> floor {t_ms:.4f} ms at "
+            f"3.35 TB/s; {entries} table entries -> lookup floor "
+            f"{f32_ms:.4f} ms at one entry a load (32 a clock), {fq_ms:.4f} "
+            f"ms at q_cap {kw['q_cap']} entries a load (128 B a clock), "
+            f"{kw['sms']} SMs at {kw['mhz']:.0f} MHz; kernel {kernel_ms:.4f} "
+            f"ms = {t_ms / kernel_ms:.3f} of the traffic floor ({smi})")
+
+
+def card_clock(dev):
+    """(SMs, MHz at clocks.max.sm) of the card."""
+    import torch
+
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.split()[0])
+    return sms, mhz
+
+
+def grouped_floors(grp_size, *, q_cap, s_pad, c, l_cap, int8, packed, sms,
+                   mhz):
+    """What the grouped scorer's contract and lookups cost on one call:
+    (traffic bytes, traffic-floor ms, table entries looked up, lookup floor
+    ms at one entry a shared load (32 a clock per SM), lookup floor ms at
+    the kernel's q_cap entries a load (128 shared bytes a clock), live
+    column ranges). The traffic is every output slot written once, each
+    group's code columns read once and its tables once per live column
+    range of ``ops/tree_ah_grouped.kernel_plan``, 8 index bytes a group."""
+    from scann_tpu_torch.ops import tree_ah_grouped as tag
+
+    plan = tag.kernel_plan(q_cap, s_pad, c, int8=int8, packed=packed,
+                           l_cap=l_cap)
+    size = grp_size.long().clamp(0, l_cap)
+    ng, entry = size.numel(), 1 if int8 else 2
+    ranges = int(((size + plan.range_cols - 1) // plan.range_cols).sum())
+    rows = s_pad // 2 if packed else s_pad
+    nbytes = (ng * q_cap * l_cap * 2 + int(size.sum()) * rows
+              + ranges * q_cap * s_pad * c * entry + ng * 8)
+    entries = int(size.sum()) * q_cap * s_pad
+    clocks = sms * mhz * 1e6
+    per_clock = min(32 * min(q_cap, 16 // entry), 128 // entry)
+    return (nbytes, nbytes / PEAK_HBM * 1e3, entries,
+            entries / (32 * clocks) * 1e3, entries / (per_clock * clocks)
+            * 1e3, ranges)
 
 
 def leaf_schedule(p_off, p_size, *, q, s_pad, l_cap):
@@ -226,7 +283,14 @@ def main() -> int:
     log(f"[2 kernel build] {build_kernel_s:.2f}s for {len(KERNEL_SOURCES)} "
         f"sources")
     log("[2 kernel build] tree_ah_leaf (#10), ptxas: " + "; ".join(
-        leaf_ptxas(native.saved_logs.get("tree_ah_leaf", ""))))
+        kernel_ptxas(native.saved_logs.get("tree_ah_leaf", ""),
+                     "tree_ah_leaf_kernel", lambda c: f"C={c}")))
+    log("[2 kernel build] tree_ah_grouped (#1, #1b), ptxas: " + "; ".join(
+        kernel_ptxas(native.saved_logs.get("tree_ah_grouped", ""),
+                     "tree_ah_grouped_kernel",
+                     lambda q, p, i, c: f"q_cap {q} "
+                     f"{'packed' if p else 'unpacked'} "
+                     f"{'int8' if i else 'bf16'}{' C=16' if c else ''}")))
 
     # -- 3. data -----------------------------------------------------------------
     t0 = time.perf_counter()
@@ -294,12 +358,15 @@ def main() -> int:
     max_ulp = int(ulps[~masked_w].max()) if (~masked_w).any() else 0
     max_abs_err = float((got.float() - want.float())[~masked_w].abs().max())
     n_groups = luts_g.shape[0] // q_cap
+    same = torch.equal(got, want)
     log(f"[5 kernel check] NG {n_groups}, q_cap {q_cap}, l_tile {l_tile}, "
         f"out {list(got.shape)} bf16: masked slots equal "
         f"({int(masked_w.sum())}), unmasked max {max_ulp} bf16 ulp, max abs "
-        f"err {max_abs_err:.6g} (tolerance: 1 ulp)")
-    if max_ulp > 1:
-        raise AssertionError(f"kernel differs from its twin by {max_ulp} ulp")
+        f"err {max_abs_err:.6g}, bit-identical {same} (tolerance: bit for "
+        f"bit, float32 sums in the twin's order)")
+    if not same:
+        raise AssertionError(f"kernel differs from its twin by up to "
+                             f"{max_ulp} ulp")
 
     # -- 6. search: the main path, counted ------------------------------------------
     params = SearchParameters(num_leaves_to_search=P,
@@ -373,6 +440,11 @@ def main() -> int:
         f"{tree_bound:.4f} ms, bound by {tree_by} ({tree_bytes} bytes, "
         f"{tree_ops} float32 adds) -> {tree_bound / kernel_ms:.3f} of the "
         f"bound ({smi})")
+    sms, mhz = card_clock(dev)
+    log(grouped_floor_line("7 kernel floors", "#1", kernel_ms, grp_size,
+                           q_cap=q_cap, s_pad=s_pad, c=cb.shape[1],
+                           l_cap=l_cap, int8=False, packed=packed, sms=sms,
+                           mhz=mhz, smi=smi))
 
     def staged(qb, score_fn):
         ev = [torch.cuda.Event(enable_timing=True) for _ in range(6)]
@@ -1553,6 +1625,36 @@ def soar_phases(ds, queries, db_dev, gt_np, cold_ms, turns, smi, base):
         f"{k8:.4f} ms, plain twin {p8:.4f} ms, bound {b8:.4f} ms, bound by "
         f"{by8} ({bytes8} bytes, {ops8} int32 adds at {PEAK_I32_ADD:.4g}/s) "
         f"-> {b8 / k8:.3f} of the bound ({smi})")
+    sms, mhz = card_clock(dev)
+    log(grouped_floor_line("23 kernel floors", "int8 (#1b)", k8, gs,
+                           q_cap=q_cap, s_pad=s_pad, c=cb.shape[1],
+                           l_cap=l_cap, int8=True, packed=True, sms=sms,
+                           mhz=mhz, smi=smi))
+    # #1 alone at the SOAR shape: the searcher's bf16 tables, same groups
+    lg1 = tx._group_luts(luts_flat, parts, off, sizes, s_pad=s_pad,
+                         q_cap=q_cap, packed=True)[0]
+    args1 = (lg1, codes_p, go, gs)
+    same1 = torch.equal(tag.tree_ah_grouped_scores(*args1, **kw8),
+                        tag.tree_ah_grouped_scores_reference(*args1, **kw8))
+    if not same1:
+        raise AssertionError("bf16 grouped kernel differs from its twin at "
+                             "the SOAR shape")
+    k1, p1 = turns(lambda: tag.tree_ah_grouped_scores(*args1, **kw8),
+                   lambda: tag.tree_ah_grouped_scores_reference(*args1, **kw8),
+                   20, 2)
+    b1, by1, bytes1, _ = leaf_bound(
+        parts, sizes, s=n_sub, c=cb.shape[1], entry_bytes=2,
+        row_bytes=(n_sub + 1) // 2, out_bytes=2, l_cap=l_cap,
+        index_bytes=n_groups * 8, peak=PEAK_F32)
+    log(f"[23 kernel time] tree_ah_grouped bf16 (#1) at the SOAR shape, L2 "
+        f"flushed: bit-identical {same1}, kernel {k1:.4f} ms, plain twin "
+        f"{p1:.4f} ms, bound {b1:.4f} ms, bound by {by1} ({bytes1} bytes) -> "
+        f"{b1 / k1:.3f} of the bound ({smi})")
+    log(grouped_floor_line("23 kernel floors", "bf16 (#1) at the SOAR shape",
+                           k1, gs, q_cap=q_cap, s_pad=s_pad, c=cb.shape[1],
+                           l_cap=l_cap, int8=False, packed=True, sms=sms,
+                           mhz=mhz, smi=smi))
+    del lg1, args1
     k10, p10 = turns(lambda: tal.tree_ah_leaf_scores(*args10, l_cap=l_cap),
                      lambda: tal.tree_ah_leaf_scores_reference(*args10,
                                                                l_cap=l_cap),
@@ -1569,11 +1671,6 @@ def soar_phases(ds, queries, db_dev, gt_np, cold_ms, turns, smi, base):
     read10, lookups10, runs10, chunks10 = leaf_schedule(
         p_off, p_size, q=q10, s_pad=s_pad, l_cap=l_cap)
     per_pair = int(p_size.long().clamp(0, l_cap).sum()) * s_pad
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    mhz = float(subprocess.run(
-        ["nvidia-smi", "--query-gpu=clocks.max.sm",
-         "--format=csv,noheader,nounits"], capture_output=True, text=True,
-        timeout=60, check=True).stdout.split()[0])
     floor10 = lookups10 / (32 * sms * mhz * 1e6) * 1e3
     log(f"[23 schedule] tree_ah_leaf (#10): Q {q10} pairs a block, "
         f"{chunks10} chunks, {runs10} runs ({runs10 / chunks10:.3f} "

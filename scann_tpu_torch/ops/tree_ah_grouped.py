@@ -11,8 +11,11 @@ Two forms of the scorer compute the same thing:
   - ``csrc/tree_ah_grouped.cu``, a CUDA kernel written for Hopper, which
     replaces the TPU kernel ``scann_tpu/ops/tree_ah_grouped.py::_kernel``,
     both of its branches: bf16 tables give bf16 scores, int8 tables (the
-    int8-LUT variant) give exact int16 sums. Its source note gives what
-    bounds it on the H100 and how the design meets that;
+    int8-LUT variant) give exact int16 sums. :func:`kernel_plan` lays out
+    a call: columns a thread, the code ring beside the tables in shared
+    memory, and the column ranges (one block each) a group splits into.
+    Its source note gives what bounds it on the H100 and how the design
+    meets that;
   - :func:`tree_ah_grouped_scores_reference`, its plain PyTorch twin.
 
 :func:`tree_ah_grouped_scores` takes the twin for CPU tensors only; for CUDA
@@ -29,6 +32,7 @@ Layout contract (the JAX package's):
 from __future__ import annotations
 
 import ctypes
+from dataclasses import dataclass
 from typing import Tuple
 
 import torch
@@ -36,6 +40,7 @@ import torch
 from scann_tpu_torch.types import (
     MASKED_DISTANCE,
     MAX_SHARED_MEMORY,
+    align_up,
     on_card,
 )
 
@@ -46,6 +51,15 @@ I16_MASK = 32767
 
 # q_cap values the CUDA kernel is instantiated for
 KERNEL_Q_CAPS = (1, 2, 4, 8, 16, 32)
+# threads a block of the CUDA kernel (csrc/tree_ah_grouped.cu's kThreads)
+THREADS = 128
+# a group's columns split into at most this many ranges, one block each
+MAX_RANGES = 4
+# code rows a stage of the kernel's two-stage code ring: the first that
+# fits beside the tables wins; with none, the kernel reads codes from
+# global memory
+RING_STAGES = 2
+STAGE_ROWS = (16, 8, 4, 2, 1)
 
 # Kernel launches since the last reset: one per launch of the CUDA kernel,
 # never for the plain twin. A run reads it to show that the main path went
@@ -166,6 +180,45 @@ def tree_ah_grouped_scores_reference(
     return out.reshape(ng * q_cap, l_cap)
 
 
+@dataclass(frozen=True)
+class KernelPlan:
+    """How ``csrc/tree_ah_grouped.cu`` lays out one call."""
+    cols: int          # neighbouring columns a thread (q_cap * cols <= 32)
+    tile_cols: int     # columns a tile: THREADS * cols
+    stage_rows: int    # code rows a ring stage
+    stages: int        # RING_STAGES, 0 where codes are read from global
+    table_bytes: int   # one group's staged tables, 16-aligned
+    smem_bytes: int    # tables + ring (+ 16 bytes of read slack)
+    range_cols: int    # columns a block, a multiple of tile_cols
+    ranges: int        # blocks a group: ceil(l_cap / range_cols)
+
+
+def kernel_plan(q_cap: int, s_pad: int, c: int, *, int8: bool, packed: bool,
+                l_cap: int) -> KernelPlan:
+    """The CUDA kernel's plan for one call. Raises where one group's tables
+    do not fit a block's shared memory (the only shape it refuses)."""
+    cols = 4 if q_cap <= 8 else 32 // q_cap
+    tile = THREADS * cols
+    raw = (1 if int8 else 2) * q_cap * s_pad * c
+    if raw > MAX_SHARED_MEMORY:
+        raise ValueError(f"LUT rows of one group need {raw} bytes of shared "
+                         f"memory, more than the {MAX_SHARED_MEMORY} a block "
+                         f"has")
+    table = align_up(raw, 16)
+    s_rows = s_pad // 2 if packed else s_pad
+    stage_rows, stages, ring = s_rows, 0, 0
+    for rows in STAGE_ROWS:
+        rows = min(rows, s_rows)
+        need = RING_STAGES * rows * (tile + 16) + 16
+        if table + need <= MAX_SHARED_MEMORY:
+            stage_rows, stages, ring = rows, RING_STAGES, need
+            break
+    tiles = -(-l_cap // tile)
+    range_cols = max(2, -(-tiles // MAX_RANGES)) * tile
+    return KernelPlan(cols, tile, stage_rows, stages, table, table + ring,
+                      range_cols, -(-l_cap // range_cols))
+
+
 def _kernel_fn():
     global _fn
     if _fn is None:
@@ -174,7 +227,8 @@ def _kernel_fn():
         fn = native.load("tree_ah_grouped").tree_ah_grouped_scores
         vp, i32 = ctypes.c_void_p, ctypes.c_int
         fn.argtypes = [vp, vp, vp, vp, vp, i32, i32, i32, i32,
-                       ctypes.c_longlong, i32, i32, i32, i32, vp]
+                       ctypes.c_longlong, i32, i32, i32, i32, i32, i32, i32,
+                       vp]
         fn.restype = ctypes.c_int
         _fn = fn
     return _fn
@@ -213,11 +267,8 @@ def tree_ah_grouped_scores(
     if q_cap not in KERNEL_Q_CAPS:
         raise ValueError(f"q_cap={q_cap} not in {KERNEL_Q_CAPS}")
     int8 = luts_grouped.dtype == torch.int8
-    smem = (1 if int8 else 2) * q_cap * s_pad * c
-    if smem > MAX_SHARED_MEMORY:
-        raise ValueError(f"LUT rows of one group need {smem} bytes of shared "
-                         f"memory, more than the {MAX_SHARED_MEMORY} a block "
-                         f"has")
+    plan = kernel_plan(q_cap, s_pad, c, int8=int8, packed=packed,
+                       l_cap=l_cap)
     luts = (luts_grouped if int8 else luts_grouped.to(torch.bfloat16)
             ).contiguous()
     out = torch.empty(ng * q_cap, l_cap, dtype=torch.int16 if int8
@@ -227,8 +278,9 @@ def tree_ah_grouped_scores(
         stream = torch.cuda.current_stream(device).cuda_stream
         err = fn(luts.data_ptr(), codes_csr.data_ptr(), grp_offsets.data_ptr(),
                  grp_sizes.data_ptr(), out.data_ptr(), ng, q_cap,
-                 codes_csr.shape[0], c, codes_csr.shape[1], l_cap, l_tile,
-                 int(packed), int(int8), stream)
+                 codes_csr.shape[0], c, codes_csr.shape[1], l_cap,
+                 plan.range_cols, plan.stage_rows, int(plan.stages > 0),
+                 plan.table_bytes, int(packed), int(int8), stream)
     if err != 0:
         raise RuntimeError(f"tree_ah_grouped kernel launch failed: CUDA "
                            f"error {err}")

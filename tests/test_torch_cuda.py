@@ -94,6 +94,104 @@ def test_tree_ah_grouped_int8_kernel_matches_twin(packed, q_cap, l_tile,
     assert bool((want == tag.I16_MASK).any())
 
 
+# Group layouts past the search path's; "full" is l_cap, a pair is the
+# (bf16, int8) value. Offsets and N_csr that are not multiples of 16 reach
+# the ring's shifted copies; "C=256" takes the largest q_cap whose tables
+# fit; "small ring" leaves room for two 2-row (bf16) or 8-row stages;
+# "odd table width" (S_pad * C = 91) stages the tables one entry at a
+# time; at "tables at the limit" (bf16 2*1*512*227 = 232,448 bytes, int8
+# 8*113*256 = 231,424) no ring fits and codes come from global memory.
+GROUPED_LAYOUTS = {
+    "one group fills l_cap": dict(
+        q_cap=8, s_pad=64, c=16, packed=True, l_cap=6144, l_tile=512,
+        sizes=["full", 0, 0, 0, 0], offsets=[0] * 5, n_csr=6656),
+    "offsets, N_csr not x16": dict(
+        q_cap=8, s_pad=64, c=16, packed=True, l_cap=1024, l_tile=256,
+        sizes=[1000, 17, 1024, 0, 333], offsets=[3, 1021, 7, 5, 1500],
+        n_csr=2061),
+    "unpacked, offsets not x16": dict(
+        q_cap=4, s_pad=32, c=16, packed=False, l_cap=768, l_tile=256,
+        sizes=[700, 1, 768], offsets=[9, 715, 1201], n_csr=1979),
+    "q_cap 16, ranges": dict(
+        q_cap=16, s_pad=64, c=16, packed=True, l_cap=2560, l_tile=512,
+        sizes=["full", 1029, 0, 2000], offsets=[5, 2571, 11, 3611],
+        n_csr=5613),
+    "q_cap 32, ranges": dict(
+        q_cap=32, s_pad=64, c=16, packed=True, l_cap=1536, l_tile=128,
+        sizes=[1535, "full", 3], offsets=[1, 1549, 3090], n_csr=3101),
+    "sizes 1 and full": dict(
+        q_cap=8, s_pad=64, c=16, packed=True, l_cap=2048, l_tile=512,
+        sizes=[1, "full", 1, "full", 0, 1],
+        offsets=[0, 7, 2061, 2070, 0, 4118], n_csr=4119),
+    "l_cap not x4": dict(
+        q_cap=8, s_pad=16, c=16, packed=True, l_cap=150, l_tile=75,
+        sizes=[150, 149, 2, 0], offsets=[0, 151, 303, 0], n_csr=313),
+    "packed, C=8": dict(  # not the instance with C fixed at 16
+        q_cap=8, s_pad=32, c=8, packed=True, l_cap=512, l_tile=256,
+        sizes=[300, 512, 7], offsets=[0, 301, 820], n_csr=900),
+    "C=256 unpacked, largest q_cap": dict(
+        q_cap=(8, 16), s_pad=32, c=256, packed=False, l_cap=512,
+        l_tile=128, sizes=[512, 300, 0, 1], offsets=[0, 520, 7, 1000],
+        n_csr=1100),
+    "small ring": dict(
+        q_cap=(8, 32), s_pad=(56, 28), c=256, packed=False, l_cap=640,
+        l_tile=128, sizes=[640, 77], offsets=[1, 645], n_csr=723),
+    "odd table width": dict(
+        q_cap=(8, 16), s_pad=13, c=7, packed=False, l_cap=256, l_tile=128,
+        sizes=[200, 256, 0], offsets=[0, 201, 5], n_csr=460),
+    "tables at the limit": dict(
+        q_cap=(1, 8), s_pad=(512, 113), c=(227, 256), packed=False,
+        l_cap=256, l_tile=128, sizes=[256, 5, 0], offsets=[3, 261, 0],
+        n_csr=270),
+}
+
+
+def _grouped_case(name, int8):
+    """(tables, codes, offsets, sizes) and the scorer's keywords of one
+    GROUPED_LAYOUTS case: random codes (columns outside every group too),
+    normal bf16 or uniform int8 tables."""
+    kw = {k: v[int8] if isinstance(v, tuple) else v
+          for k, v in GROUPED_LAYOUTS[name].items()}
+    q_cap, s_pad, c, packed, l_cap = (kw[k] for k in (
+        "q_cap", "s_pad", "c", "packed", "l_cap"))
+    rng = np.random.default_rng(len(name) + int8)
+    sizes = np.array([l_cap if v == "full" else v for v in kw["sizes"]],
+                     np.int32)
+    offsets = np.array(kw["offsets"], np.int32)
+    assert (offsets + sizes <= kw["n_csr"]).all()
+    rows = s_pad // 2 if packed else s_pad
+    codes = rng.integers(0, 256 if packed else c, size=(rows, kw["n_csr"]),
+                         dtype=np.uint8)
+    if packed and c < 16:
+        codes &= (c - 1) * 0x11
+    shape = (len(sizes) * q_cap, s_pad * c)
+    if int8:
+        luts = rng.integers(-128, 128, size=shape).astype(np.int8)
+    else:
+        luts = (rng.normal(size=shape) * 4).astype(np.float32)
+    return (luts, codes, offsets, sizes), dict(
+        l_cap=l_cap, l_tile=kw["l_tile"], q_cap=q_cap, packed=packed)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("name", list(GROUPED_LAYOUTS))
+def test_tree_ah_grouped_kernel_layouts(name, int8):
+    """#1 and #1b on group layouts the search path rarely makes: bit for bit
+    with the twin (torch.equal), one launch counted."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    arrays, kw = _grouped_case(name, int8)
+    args = [torch.from_numpy(a).cuda() for a in arrays]
+    before = tag.LAUNCHES
+    got = tag.tree_ah_grouped_scores(*args, **kw)
+    torch.cuda.synchronize()
+    assert tag.LAUNCHES == before + 1
+    want = tag.tree_ah_grouped_scores_reference(*args, **kw)
+    assert got.dtype == (torch.int16 if int8 else torch.bfloat16)
+    assert torch.equal(got, want)
+
+
 def _leaf_inputs(rng, *, b, p, s, s_pad, c, l_cap, t=30, aligned=False):
     """CSR codes [S_pad, N_csr] (pad subspaces code 0), per-pair float32
     tables [B, p, S, C], offsets (128-aligned or not) and sizes <= l_cap of

@@ -13,7 +13,7 @@ from scann_tpu.ops.tree_ah_grouped import (
     tree_ah_grouped_scores_pallas,
 )
 from scann_tpu_torch.ops import tree_ah_grouped as tag
-from scann_tpu_torch.types import MASKED_DISTANCE
+from scann_tpu_torch.types import MASKED_DISTANCE, MAX_SHARED_MEMORY
 
 
 @pytest.mark.parametrize("b,p,t,q_cap", [
@@ -156,3 +156,96 @@ def test_cpu_tensors_never_launch_the_kernel():
     tag.tree_ah_grouped_scores(luts, codes, 0 * one, 100 * one, l_cap=256,
                                l_tile=128, q_cap=4, packed=True)
     assert tag.LAUNCHES == before
+
+
+@pytest.mark.parametrize("q_cap,s_pad,c,int8,packed,l_cap", [
+    (8, 64, 16, False, True, 6144),     # the main cell
+    (8, 64, 16, True, True, 2048),      # the SOAR int8 cell
+    (1, 64, 16, False, True, 512),
+    (16, 64, 16, False, True, 2560),
+    (32, 64, 16, True, True, 1536),
+    (8, 32, 256, False, False, 512),    # C=256 unpacked
+    (8, 56, 256, False, False, 640),    # room for two 2-row stages only
+    (1, 512, 227, False, False, 256),   # tables fill the shared memory
+    (8, 113, 256, True, False, 256),
+    (4, 13, 7, False, False, 150),
+])
+def test_kernel_plan_matches_count(q_cap, s_pad, c, int8, packed, l_cap):
+    """The CUDA kernel's plan against a count made here: columns a thread,
+    the ring that fits beside the tables, shared bytes and column ranges."""
+    plan = tag.kernel_plan(q_cap, s_pad, c, int8=int8, packed=packed,
+                           l_cap=l_cap)
+    assert plan.cols == min(4, 32 // q_cap) and q_cap * plan.cols <= 32
+    assert plan.tile_cols == tag.THREADS * plan.cols
+    table = -(-(q_cap * s_pad * c * (1 if int8 else 2)) // 16) * 16
+    assert plan.table_bytes == table
+    s_rows = s_pad // 2 if packed else s_pad
+    rows = np.minimum(tag.STAGE_ROWS, s_rows)
+    ring = tag.RING_STAGES * rows * (plan.tile_cols + 16) + 16
+    fits = np.flatnonzero(table + ring <= MAX_SHARED_MEMORY)
+    if fits.size:
+        i = fits[0]
+        assert (plan.stage_rows, plan.stages) == (rows[i], tag.RING_STAGES)
+        assert plan.smem_bytes == table + ring[i]
+    else:
+        assert (plan.stage_rows, plan.stages) == (s_rows, 0)
+        assert plan.smem_bytes == table
+    assert plan.smem_bytes <= MAX_SHARED_MEMORY
+    tiles = -(-l_cap // plan.tile_cols)
+    assert plan.range_cols % plan.tile_cols == 0
+    assert plan.range_cols >= min(2, tiles) * plan.tile_cols
+    assert plan.ranges == -(-l_cap // plan.range_cols) <= tag.MAX_RANGES
+    # a group of size n stages its tables once per live range
+    sizes = np.array([0, 1, plan.range_cols, plan.range_cols + 1, l_cap])
+    live = -(-np.minimum(sizes, l_cap) // plan.range_cols)
+    assert live.tolist() == [0, 1, 1, min(2, plan.ranges), plan.ranges]
+
+
+def test_kernel_plan_refuses_tables_past_shared_memory():
+    with pytest.raises(ValueError, match="shared memory"):
+        tag.kernel_plan(32, 64, 256, int8=False, packed=False, l_cap=512)
+
+
+def _biased_lane_sums(entries: np.ndarray) -> np.ndarray:
+    """The int8 branch's sums as csrc/tree_ah_grouped.cu forms them:
+    entries [q_cap, S_pad] int8 staged as u8 v+128, four queries a 32-bit
+    word (bytes b0..b3). Accumulator 2k adds word k whole, 2k+1 adds its
+    b1 and b3 as u16 lanes, both in u32 arithmetic (mod 2**32); b0's and
+    b2's lanes are the whole-word sum less the odd sums shifted by 8. Each
+    lane less 128*S_pad is the sum."""
+    q_cap, s_pad = entries.shape
+    words = max(1, q_cap // 4)
+    staged = np.zeros((s_pad, 4 * words), np.uint64)
+    staged[:, :q_cap] = entries.T.astype(np.int64) + 128
+    packed = (staged.reshape(s_pad, words, 4)
+              << np.array([0, 8, 16, 24], np.uint64)).sum(-1)
+    mod = np.uint64(1 << 32)
+    whole = np.zeros(words, np.uint64)
+    odd = np.zeros(words, np.uint64)
+    for s in range(s_pad):
+        whole = (whole + packed[s]) % mod
+        odd = (odd + ((packed[s] >> np.uint64(8)) & np.uint64(0xff))
+               + (((packed[s] >> np.uint64(24)) & np.uint64(0xff))
+                  << np.uint64(16))) % mod
+    even = (whole - ((odd << np.uint64(8)) % mod)) % mod
+    out = []
+    for q in range(q_cap):
+        a = (odd if q & 1 else even)[q // 4]
+        lane = (a >> np.uint64(16)) if q & 2 else a
+        out.append(int(lane & np.uint64(0xffff)) - 128 * s_pad)
+    return np.array(out)
+
+
+@pytest.mark.parametrize("q_cap", [1, 2, 4, 8, 16, 32])
+@pytest.mark.parametrize("fill", ["-128", "127", "random"])
+def test_biased_u16_lane_sums_are_exact(q_cap, fill):
+    """At S_pad 64 (and 128, the int8 branch's largest) no lane carries
+    into its neighbour: the biased sums equal the int32 sums."""
+    for s_pad in (64, 128):
+        if fill == "random":
+            entries = np.random.default_rng(q_cap + s_pad).integers(
+                -128, 128, size=(q_cap, s_pad)).astype(np.int8)
+        else:
+            entries = np.full((q_cap, s_pad), int(fill), np.int8)
+        want = entries.astype(np.int32).sum(1)
+        np.testing.assert_array_equal(_biased_lane_sums(entries), want)
