@@ -12,12 +12,16 @@ queries:
   exact ground truth;
 - block sweep: builds the bf16 augmented copy and the re-rank state on the
   card (``BlockSweepConfig(block_r=64, pre_reorder_k=64)``, bench.py's
-  configuration), checks the four forms of the CUDA block-min kernel against
-  their twins on the first batch's real augmented queries and the full
-  augmented copy (with an allowlist penalty and int8 rows as well), serves
-  the batches through ``BlockSweepSearcher.search_batched_tensors`` (recall@10
-  >= 0.99), and drives the other three forms through the searcher: top2,
-  block_r=128 and block_r=512 at B=128;
+  configuration), checks the four forms of the CUDA block-min kernels
+  against their twins on the first batch's real augmented queries and the
+  full augmented copy (with an allowlist penalty and int8 rows as well): the
+  main compact call through the wgmma kernel of ``block_min_compact.cu``,
+  the int8 + penalty compact call through ``block_min_sweep.cu``, as
+  ``ops/sweep.compact_plan`` routes them; serves the batches through
+  ``BlockSweepSearcher.search_batched_tensors`` (recall@10 >= 0.99, every
+  compact launch on the new kernel), drives the other three forms through
+  the searcher (top2, block_r=128 and block_r=512 at B=128), and times the
+  new compact kernel beside the old one's compact instance in turns;
 - asymmetric hashing: builds the PQ index on the card (S=50, C=16, the JAX
   package's bench.py configuration), checks the fused int8 LUT16 sweep
   kernel (bit for bit) and the LUT16 score kernel against their twins on the
@@ -56,7 +60,7 @@ with CUDA events (the grouped and per-pair SOAR paths also at twice the
 batch, past the pair density where groups widen). The grouped scorer's
 times (#1 on both indexes, #1b) stand beside its output contract's
 traffic floor and its shared-memory lookup floors; [2] reports registers
-and spills of every instance of #1/#1b and #10.
+and spills of every instance of #1/#1b, #5 and #10.
 
     python3 chip_smoke.py
 
@@ -90,8 +94,8 @@ BF_RECALL_FLOOR, SQ_RECALL_FLOOR = 0.999, 0.9
 HEAD_N, HEAD_D, HEAD_B, HEAD_B_SAT = 10_000, 64, 100, 6400
 SOAR_P, SOAR_PRE_K, SOAR_FLOOR, SOAR_INT8_FLOOR = 30, 300, 0.95, 0.9
 SIDE_N = 100_000
-KERNEL_SOURCES = ("tree_ah_grouped", "block_min_sweep", "lut16_scoring",
-                  "int8_dots", "fused_bf", "tree_ah_leaf")
+KERNEL_SOURCES = ("tree_ah_grouped", "block_min_sweep", "block_min_compact",
+                  "lut16_scoring", "int8_dots", "fused_bf", "tree_ah_leaf")
 # published H100 SXM peaks (dense): bf16 tensor cores, int8 tensor cores,
 # float32 outside the tensor cores, HBM3
 PEAK_BF16, PEAK_INT8, PEAK_F32, PEAK_HBM = 989e12, 1979e12, 67e12, 3.35e12
@@ -285,6 +289,11 @@ def main() -> int:
     log("[2 kernel build] tree_ah_leaf (#10), ptxas: " + "; ".join(
         kernel_ptxas(native.saved_logs.get("tree_ah_leaf", ""),
                      "tree_ah_leaf_kernel", lambda c: f"C={c}")))
+    log("[2 kernel build] block_min_compact (#5), ptxas: " + "; ".join(
+        kernel_ptxas(native.saved_logs.get("block_min_compact", ""),
+                     "block_min_compact_kernel",
+                     lambda ks, rt, p: f"KS={ks} r={rt}"
+                     f"{'+' if rt == 128 else ''}{' penalty' if p else ''}")))
     log("[2 kernel build] tree_ah_grouped (#1, #1b), ptxas: " + "; ".join(
         kernel_ptxas(native.saved_logs.get("tree_ah_grouped", ""),
                      "tree_ah_grouped_kernel",
@@ -597,6 +606,12 @@ def block_sweep_phases(ds, queries, db_dev, gt_np, cold_ms, turns, smi):
         torch.cuda.synchronize()
         rep = sw.check_against_twin(form, got, q, aug, r=r, penalty=pen)
         errs[name] = max(errs.get(name, 0.0), rep["max_abs_err"])
+        served = None
+        if form == "compact":
+            # the kernel that served the call, counted from zero
+            served = [k for k, v in sw.COMPACT_LAUNCHES.items() if v]
+            sw.reset_launches()
+            label += f" ({'+'.join(served)}.cu)"
         log(f"[9 kernel check] {name}{label}: B={q.shape[0]}, r={r}, "
             f"{aug.dtype} rows {list(aug.shape)}: max abs err "
             f"{rep['max_abs_err']:.6g} (tolerance 1e-5 * sum|terms| + 1e-5; "
@@ -604,14 +619,26 @@ def block_sweep_phases(ds, queries, db_dev, gt_np, cold_ms, turns, smi):
             f"values past 1 ulp near 0 within tolerance), offsets "
             f"bit-identical {rep['loc_equal']:.6f} of {rep['checked']}, the "
             f"rest reach the twin's minimum within tolerance")
+        return served
 
     aug128 = r128_s.device_state()[0]
     aug512 = r512_s.device_state()[0]
     q_top2 = q_aug[:BATCH // 2]
     q_512 = q_aug[:128]
-    check("block_min_qmajor_compact", "compact",
-          sw.block_min_sweep_qmajor(q_aug, aug64, r=SWEEP_R, compact=True),
-          q_aug, aug64, SWEEP_R)
+    plan = sw.compact_plan(n_pad, BATCH, d1, SWEEP_R, False,
+                           torch.cuda.get_device_properties(
+                               dev).multi_processor_count)
+    log(f"[9 compact plan] B={BATCH}, r={SWEEP_R}, {n_pad} x {d1} bf16 rows: "
+        f"{plan}")
+    if plan is None:
+        raise AssertionError("the main compact call is not planned for "
+                             "block_min_compact.cu")
+    sw.reset_launches()
+    if check("block_min_qmajor_compact", "compact",
+             sw.block_min_sweep_qmajor(q_aug, aug64, r=SWEEP_R, compact=True),
+             q_aug, aug64, SWEEP_R) != ["block_min_compact"]:
+        raise AssertionError("the main compact call did not launch "
+                             "block_min_compact.cu alone")
     check("block_min", "rowmajor", sw.block_min_sweep(q_aug, aug128, r=128),
           q_aug, aug128, 128)
     check("block_min_qmajor", "qmajor",
@@ -636,10 +663,14 @@ def block_sweep_phases(ds, queries, db_dev, gt_np, cold_ms, turns, smi):
     pen8 = sw.build_allow_penalty(
         allow, n_pad, SWEEP_R, inv_perm=main_s._inv_host,
         mask_value=4.0 * sw.INT8_NORM_DIGIT_MAX * sn).to(dev)
-    check("block_min_qmajor_compact", "compact",
-          sw.block_min_sweep_qmajor(q_aug8, aug8, r=SWEEP_R, compact=True,
-                                    penalty=pen8),
-          q_aug8, aug8, SWEEP_R, pen8, " + int8 rows + penalty")
+    sw.reset_launches()
+    if check("block_min_qmajor_compact", "compact",
+             sw.block_min_sweep_qmajor(q_aug8, aug8, r=SWEEP_R, compact=True,
+                                       penalty=pen8),
+             q_aug8, aug8, SWEEP_R, pen8,
+             " + int8 rows + penalty") != ["block_min_sweep"]:
+        raise AssertionError("the int8 compact call did not launch "
+                             "block_min_sweep.cu alone")
 
     # -- 10. search: each path counted from zero ------------------------------------
     launches = {}
@@ -671,6 +702,13 @@ def block_sweep_phases(ds, queries, db_dev, gt_np, cold_ms, turns, smi):
 
     recall = run(main_s, queries, BATCH, "block_min_qmajor_compact",
                  "main r=64", SWEEP_RECALL_FLOOR)
+    if sw.COMPACT_LAUNCHES != {"block_min_compact": BATCHES,
+                               "block_min_sweep": 0}:
+        raise AssertionError(f"main r=64: compact launches by kernel "
+                             f"{sw.COMPACT_LAUNCHES}, not {BATCHES} of "
+                             f"block_min_compact.cu")
+    log(f"[10 sweep search/main r=64] compact launches by kernel "
+        f"{dict(sw.COMPACT_LAUNCHES)}")
     run(top2_s, queries[:BATCH], BATCH, "block_min2", "top2 r=64")
     run(r128_s, queries[:BATCH], BATCH, "block_min", "r=128")
     run(r512_s, queries[:128], 128, "block_min_qmajor", "r=512 B=128")
@@ -704,15 +742,31 @@ def block_sweep_phases(ds, queries, db_dev, gt_np, cold_ms, turns, smi):
         nbytes = (aug.numel() * aug.element_size() + b * width * 2
                   + (n_rows // r) * b * out_b)
         b_ms, b_by = bound(ops, PEAK_BF16, nbytes)
-        log(f"[11 kernel time] {name}: B={b}, r={r}, rows {n_rows}, L2 "
+        compact = name == "block_min_qmajor_compact"
+        log(f"[11 kernel time] {name}"
+            f"{' (block_min_compact.cu)' if compact else ''}: B={b}, r={r}, "
+            f"rows {n_rows}, L2 "
             f"flushed: kernel {k_ms:.4f} ms, plain twin {p_ms:.4f} ms, bound "
             f"{b_ms:.4f} ms, bound by {b_by} ({ops} bf16 FLOP, {nbytes} "
             f"bytes) -> "
             f"{ops / k_ms / 1e9:.1f} TFLOP/s, {b_ms / k_ms:.3f} of the bound "
             f"({smi})")
+        if compact:
+            # the same call on the mma.sync kernel it replaces, same run
+            old_ms, new_ms = turns(
+                lambda: sw._launch(name, q_aug, aug64, SWEEP_R, None,
+                                   qmajor=True, compact=True, top2=False,
+                                   mma_sync=True),
+                kernel, 20, 20)
+            log(f"[11 kernel time] {name} yardstick, L2 flushed, in turns: "
+                f"block_min_sweep.cu compact instance {old_ms:.4f} ms "
+                f"({b_ms / old_ms:.3f} of the bound), block_min_compact.cu "
+                f"{new_ms:.4f} ms ({b_ms / new_ms:.3f} of the bound), "
+                f"{old_ms / new_ms:.2f}x; plan {plan} ({smi})")
         records.append({
             "name": name, "route": "cuda",
-            "source": "scann_tpu_torch/csrc/block_min_sweep.cu",
+            "source": ("scann_tpu_torch/csrc/block_min_compact.cu" if compact
+                       else "scann_tpu_torch/csrc/block_min_sweep.cu"),
             "replaces": f"scann_tpu/ops/sweep_pallas.py:{line}",
             "launches": launches[name], "max_abs_err": errs[name],
             "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms,

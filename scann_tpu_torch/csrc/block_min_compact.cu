@@ -1,0 +1,655 @@
+// Compact q-major block-min sweep on Hopper (sm_90a): the block-sweep
+// searcher's main kernel.
+//
+// Replaces the TPU kernel scann_tpu/ops/sweep_pallas.py::
+// _block_min_qmajor_compact_kernel (:300; pallas_call :378) for bf16 rows,
+// blocks of 8 <= r <= 256 rows and row widths D1 <= 256. The compact calls it
+// does not take (int8 rows, r < 8, wider rows) stay with the mma.sync kernel
+// of csrc/block_min_sweep.cu; ops/sweep.compact_plan decides from the
+// arguments alone, before any launch.
+//
+// What it computes, for rows x_n (bf16 [N, D1]) and augmented queries q_b
+// (bf16 [B, D1]):
+//   s[n, b] = sum_k x_n[k] * q_b[k]   (bf16 products, float32 sums)
+//           + pen[n]                   (optional [N/r, r] bf16 penalty)
+// then, per query and per block of r consecutive rows, the minimum rounded
+// once to bf16 (nearest even) and the u8 offset of the lowest row reaching
+// the float32 minimum (jnp.argmin's rule), written q-major: [B, N/r].
+//
+// What bounds it on the H100, at the main shapes (N = 1,187,840 rows,
+// D1 = 104, B = 1024, r = 64): 2 * 1024 * 104 * 1,187,840 = 2.53e11 bf16
+// FLOP, 0.2558 ms at 989 TFLOP/s, against 247 MB of rows + 57 MB of minima,
+// 0.091 ms at 3.35 TB/s: the operations bound it. The kernel multiplies
+// D1 rounded up to 128 (whole boxes), 0.315 ms of tensor time.
+//
+// What held the mma.sync form back (block_min_sweep.cu, 1.63 ms at these
+// shapes on an H100 at 700 W): warp-level m16n8k16 products fed by ldmatrix,
+// the resident query tile re-read at every k-step; the block minimum in
+// series with the products on the same warps; a 2-stage cp.async ring that
+// every thread issues, with a __syncthreads a tile; a grid of 4,640 CTAs,
+// each reloading its query tile and filling and draining its pipeline.
+//
+// The design (each choice measured on an H100 80GB HBM3 at 700 W with
+// throwaway variants of this file; chip_smoke.py [11] times the result):
+//  - Queries on M as the A operand, in registers. A CTA holds a tile of 128
+//    queries: two consumer warpgroups of 64 each, which load their A
+//    fragments once a work unit from a query image the wrapper lays out
+//    (ops/sweep.block_min_compact_query_image; 4 registers a k16 step),
+//    and issue wgmma.m64n128k16.f32.bf16.bf16 with A from registers.
+//  - Rows on N as the B operand, by TMA: 2-D boxes of 128 rows x 64
+//    columns (128 bytes) in the 128-byte swizzle, read through a swizzled
+//    K-major descriptor (1024 bytes between 8-row atoms, a k16 step 32
+//    bytes into the row). TMA fills zeros past D1 and past N, so a tile
+//    takes 4 k-steps a box with no branch between its wgmmas (a branch made
+//    ptxas fence each one). A first form with 16-byte-wide boxes of a 3-D
+//    view and no swizzle was bound by the boxes' loads.
+//  - Clusters of two CTAs, on two query tiles, share each row tile: each
+//    CTA loads half the rows of every box and multicasts them into both,
+//    so a row tile leaves L2 once for 256 queries. A stage is free once
+//    every consumer warp of both CTAs has arrived on both CTAs' empty
+//    barrier (with a cluster-scope release on that arrive the kernel ran
+//    far slower; clusters of four fit 120 SMs and ran slower). One
+//    producer warp keeps a ring of up to eight stages full.
+//  - The block minimum in registers. In the m64n128 accumulator a thread
+//    holds queries g and g + 8 of its warp's 16 and rows 8j + 2t + {0, 1},
+//    j = 0..15: a block of r >= 8 rows is r / 4 values a query in the
+//    thread's own registers, reduced as a tree of minima, whose lowest
+//    index is then found from the root down (lowest_argmin), then two
+//    shuffle levels across t that exchange halves, so each shuffle carries
+//    a (value, row) pair of two blocks or queries and each lane ends with
+//    one finished result. A block of 256 rows spans two tiles: the first
+//    tile's result waits in registers for the second's.
+//  - A persistent grid of clusters walks work units of two query tiles x
+//    one run of consecutive row tiles, ordered by run, so the clusters
+//    that read a run read it at about the same time. Each unit stages its
+//    run's bf16 minima and u8 offsets in shared memory (64 blocks a query
+//    where the run allows) and writes them in 16-byte pieces along each
+//    query's output row.
+//  - Not kept: a second accumulator a warpgroup (its next tile's product
+//    in flight while it reduces the last), with 384 threads and
+//    setmaxnreg or with 64-row tiles; ptxas serialized the wgmmas (C7514,
+//    C7518) and both ran slower. Four consumer warpgroups of 64-row tiles
+//    (256 queries a CTA) and ping-pong turns between the two warpgroups
+//    ran no faster. The product and the block minimum still run mostly in
+//    series: each alone takes about half the kernel's time.
+//
+// Launch plan (stages, run length, cluster) from ops/sweep.compact_plan;
+// shared memory layout as compact_layout below computes it, on host and
+// device.
+
+#include <cuda_bf16.h>
+
+#include "sm90.cuh"
+
+namespace {
+
+using namespace sm90;
+
+constexpr int kConsumers = 256;            // two warpgroups
+constexpr int kThreads = kConsumers + 32;  // and one producer warp
+constexpr int kRows = 128;                 // rows per tile (the wgmma N)
+constexpr int kQ = 128;                    // queries per tile, 64 a warpgroup
+constexpr int kBoxCols = 64;               // bf16 columns of a TMA box
+constexpr int kBox = kRows * 128;          // one box: 128 rows x 128 bytes
+constexpr int kMaxStages = 8;
+constexpr int kMaxBoxes = 4;               // D1 <= 256
+constexpr int kMaxCluster = 2;             // CTAs sharing each row tile
+constexpr int kConsumerBar = 1;            // named barrier of the consumers
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+
+// arrive on the barrier at the same offset in CTA `rank` of the cluster
+__device__ __forceinline__ void mbar_arrive_cluster(uint32_t bar, int rank) {
+  asm volatile(
+      "{\n"
+      ".reg .b32 remote;\n"
+      "mapa.shared::cluster.u32 remote, %0, %1;\n"
+      "mbarrier.arrive.shared::cluster.b64 _, [remote];\n"
+      "}\n" ::"r"(bar),
+      "r"(rank) : "memory");
+}
+
+__device__ __forceinline__ int cluster_rank() {
+  int r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+// every thread of every CTA of the cluster
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile(
+      "barrier.cluster.arrive.release.aligned;\n"
+      "barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// a TMA box written into the same offset of every CTA in `mask`, each
+// CTA's barrier at `bar`'s offset counting its bytes
+__device__ __forceinline__ void tma_load_2d_multicast(
+    uint32_t dst, const CUtensorMap* map, uint32_t bar, int c0, int c1,
+    uint16_t mask) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::"
+      "bytes.multicast::cluster [%0], [%1, {%3, %4}], [%2], %5;\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
+      "h"(mask) : "memory");
+}
+
+__device__ __forceinline__ void consumer_sync() {
+  asm volatile("bar.sync %0, %1;\n" ::"n"(kConsumerBar), "n"(kConsumers)
+               : "memory");
+}
+
+// Shared-memory descriptor of a K-major operand in the 128-byte swizzle
+// that TMA writes (SWIZZLE_128B): atoms of 8 rows x 128 bytes, the 16-byte
+// chunk index of row n XORed with n % 8, 1024 bytes between atoms (sbo);
+// the leading offset is unused. A k16 step inside a 128-byte row starts 32
+// bytes further; the atoms sit on 1024-byte boundaries.
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) |
+         ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
+}
+
+// D[64 x 128] (+)= A[64 x 16] (registers) * B[16 x 128] (shared memory)
+__device__ __forceinline__ void wgmma_bf16_rs(float (&d)[64],
+                                              const uint32_t (&a)[4],
+                                              uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "
+      "%29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, "
+      "%43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, "
+      "%57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),
+        "r"(scale_d));
+}
+
+// Shared memory of one CTA, from its 1024-byte aligned base: the ring's
+// stages of ceil(d1 / 64) boxes, then the run's staged minima
+// ([kQ][stride_v] bf16) and offsets ([kQ][stride_l] u8), then the full and
+// empty barriers. `total` adds the alignment slack.
+// ops/sweep.compact_smem_bytes computes the same.
+struct Layout {
+  int boxes, stage_bytes, blocks, stride_v, stride_l, staging_v, staging_l,
+      bars, total;
+};
+
+__host__ __device__ inline Layout compact_layout(int d1, int r, int stages,
+                                                 int run_tiles) {
+  Layout l;
+  l.boxes = (d1 + kBoxCols - 1) / kBoxCols;
+  l.stage_bytes = l.boxes * kBox;
+  l.blocks = run_tiles * kRows / r;
+  l.stride_v = ((2 * l.blocks + 15) & ~15) + 16;
+  l.stride_l = ((l.blocks + 15) & ~15) + 16;
+  l.staging_v = stages * l.stage_bytes;
+  l.staging_l = l.staging_v + kQ * l.stride_v;
+  l.bars = l.staging_l + kQ * l.stride_l;
+  l.total = 1024 + l.bars + 16 * stages;
+  return l;
+}
+
+// (value, row) of `o` replaces `m` if it is lower, or equal at a lower row
+__device__ __forceinline__ void lex_min(float& v, int& i, float ov, int oi) {
+  if (ov < v || (ov == v && oi < i)) {
+    v = ov;
+    i = oi;
+  }
+}
+
+// The minimum of M values t[M..2M-1] (M a power of two) and the lowest
+// index that reaches it. The values are reduced as a heap-ordered tree of
+// minima (t[i] = min(t[2i], t[2i + 1]), one instruction a node); the index
+// is then found from the root down, taking the left child wherever it
+// reaches the minimum: 2 log2 M compares and a few selects in place of the
+// two selects a node that carrying the index through the tree costs.
+template <int M>
+__device__ __forceinline__ int lowest_argmin(float (&t)[2 * M], float& m) {
+  constexpr int kLog = M >= 32 ? 5 : M >= 16 ? 4 : M >= 8 ? 3 : M >= 4 ? 2 : 1;
+#pragma unroll
+  for (int i = M - 1; i >= 1; --i) t[i] = fminf(t[2 * i], t[2 * i + 1]);
+  m = t[1];
+  int idx = 0;  // the path from the root, one bit a level, top first
+#pragma unroll
+  for (int d = 0; d < kLog; ++d) {
+    // the left children of the 2^d nodes at depth d, narrowed to the
+    // path's node by the path's bits, deepest first
+    float c[M / 2];
+#pragma unroll
+    for (int k = 0; k < M / 2; ++k)
+      if (k < (1 << d)) c[k] = t[2 * ((1 << d) + k)];
+#pragma unroll
+    for (int e = kLog - 1; e >= 0; --e)
+      if (e < d) {
+        const bool bit = (idx >> (d - 1 - e)) & 1;
+#pragma unroll
+        for (int k = 0; k < M / 4 + 1; ++k)
+          if (k < (1 << e)) c[k] = bit ? c[2 * k + 1] : c[2 * k];
+      }
+    idx = 2 * idx + (c[0] != m);
+  }
+  return idx;
+}
+
+// One level of the exchange across the 4 lanes of a quad (lane bit `bit`,
+// xor mask `mask`): of the items (2p, 2p + 1) a lane keeps 2p + bit and
+// sends the other, so n items become n / 2, each reduced over both lanes.
+template <int N>
+__device__ __forceinline__ void exchange(float (&v)[4], int (&ix)[4], int bit,
+                                         int mask) {
+#pragma unroll
+  for (int p = 0; p < N / 2; ++p) {
+    const float sv = bit ? v[2 * p] : v[2 * p + 1];
+    const int si = bit ? ix[2 * p] : ix[2 * p + 1];
+    float kv = bit ? v[2 * p + 1] : v[2 * p];
+    int ki = bit ? ix[2 * p + 1] : ix[2 * p];
+    lex_min(kv, ki, __shfl_xor_sync(0xffffffffu, sv, mask),
+            __shfl_xor_sync(0xffffffffu, si, mask));
+    v[p] = kv;
+    ix[p] = ki;
+  }
+}
+
+// KS: k16 steps of a tile, 4 a box (the query image is zero past d1, the
+// boxes zero past d1, so the product needs no branch between its steps);
+// RT: rows of a block within one tile (min(r, 128); r = 256 carries across
+// two tiles); PEN: the penalty. `cluster` CTAs (1 or 2) share each row
+// tile: each loads 128 / cluster of its rows into all of them.
+template <int KS, int RT, bool PEN>
+__global__ void __launch_bounds__(kThreads, 1)
+block_min_compact_kernel(const __grid_constant__ CUtensorMap rows_map,
+                         const uint4* __restrict__ q_img,
+                         const __nv_bfloat16* __restrict__ pen,
+                         __nv_bfloat16* __restrict__ out_v,
+                         uint8_t* __restrict__ out_l, int n, int b, int d1,
+                         int r, int stages, int run_tiles, int cluster) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  const Layout lay = compact_layout(d1, r, stages, run_tiles);
+  const uint32_t full0 = smem_u32(smem + lay.bars);
+  const uint32_t empty0 = full0 + 8 * stages;
+
+  const int tid = threadIdx.x;
+  const int rank = cluster > 1 ? cluster_rank() : 0;
+  const int n_tiles = (n + kRows - 1) / kRows;
+  const int q_tiles = (b + kQ - 1) / kQ;
+  const int q_groups = (q_tiles + cluster - 1) / cluster;
+  const int runs = (n_tiles + run_tiles - 1) / run_tiles;
+  // work units of the cluster: a run x a group of `cluster` query tiles
+  const long long units = (long long)runs * q_groups;
+  const int first = blockIdx.x / cluster, step = gridDim.x / cluster;
+
+  if (tid == 0) {
+    for (int s = 0; s < stages; ++s) {
+      mbar_init(full0 + 8 * s, 1);
+      // every consumer warp of the cluster frees a stage of every CTA
+      mbar_init(empty0 + 8 * s, cluster * kConsumers / 32);
+    }
+    mbar_init_fence();
+  }
+  if (cluster > 1) {
+    cluster_sync();  // the peers' barriers exist before anyone signals them
+  } else {
+    __syncthreads();
+  }
+
+  if (tid >= kConsumers) {
+    // the producer warp: one thread keeps the ring full, loading its part
+    // of each box (128 / cluster rows) into every CTA of the cluster
+    if (tid == kConsumers) {
+      const int part = kRows / cluster;
+      const uint16_t mask = (uint16_t)((1 << cluster) - 1);
+      int s = 0, ph = 0, filled = 0;  // ring slot, its phase, slots used
+      for (long long u = first; u < units; u += step) {
+        const int t0 = (int)(u / q_groups) * run_tiles;
+        const int t1 = min(t0 + run_tiles, n_tiles);
+        for (int t = t0; t < t1; ++t) {
+          if (filled < stages)
+            ++filled;
+          else
+            mbar_wait(empty0 + 8 * s, ph ^ 1);  // its last use is done
+          mbar_expect_tx(full0 + 8 * s, lay.stage_bytes);
+          for (int bx = 0; bx < lay.boxes; ++bx) {
+            const uint32_t dst = smem_u32(smem + s * lay.stage_bytes +
+                                          bx * kBox + rank * part * 128);
+            if (cluster > 1)
+              tma_load_2d_multicast(dst, &rows_map, full0 + 8 * s,
+                                    bx * kBoxCols, t * kRows + rank * part,
+                                    mask);
+            else
+              tma_load_2d(dst, &rows_map, full0 + 8 * s, bx * kBoxCols,
+                          t * kRows);
+          }
+          if (++s == stages) s = 0, ph ^= 1;
+        }
+      }
+    }
+  } else {
+    const int wg = tid >> 7;
+    const int lane = tid & 31;
+    const int g = lane >> 2, t = lane & 3;
+    // query rows of this thread in the CTA tile: slot g (h = 0) and g + 8
+    const int qrow = 64 * wg + 16 * ((tid >> 5) & 3) + g;
+    __nv_bfloat16* st_v =
+        reinterpret_cast<__nv_bfloat16*>(smem + lay.staging_v);
+    uint8_t* st_l = smem + lay.staging_l;
+    const int sv_q = lay.stride_v / 2;  // bf16 elements a staged query row
+    const long long nb = n / r;
+    constexpr int NBT = kRows / RT;     // blocks of a tile (1 where r >= 128)
+    constexpr int JB = RT / 8;          // accumulator columns j of a block
+
+    uint32_t a[KS][4];
+    float acc[64];
+    int s = 0, ph = 0;  // ring slot and its phase
+    for (long long u = first; u < units; u += step) {
+      const int qt = (int)(u % q_groups) * cluster + rank;
+      const int t0 = (int)(u / q_groups) * run_tiles;
+      const int t1 = min(t0 + run_tiles, n_tiles);
+      {
+        // a CTA past the last query tile multiplies zeros, stores nothing
+        const uint4* src =
+            q_img + ((long long)(qt * 2 + wg) * KS) * 128 + (tid & 127);
+#pragma unroll
+        for (int ks = 0; ks < KS; ++ks) {
+          const uint4 w =
+              qt < q_tiles ? src[ks * 128] : make_uint4(0, 0, 0, 0);
+          a[ks][0] = w.x;
+          a[ks][1] = w.y;
+          a[ks][2] = w.z;
+          a[ks][3] = w.w;
+        }
+      }
+      float carry_v = 0.0f;  // r = 256: the first tile's half of the block
+      int carry_i = 0;
+
+      for (int tile = t0; tile < t1; ++tile) {
+        mbar_wait(full0 + 8 * s, ph);
+#pragma unroll
+        for (int i = 0; i < 64; ++i) fence_operand(acc[i]);
+        wgmma_fence();
+        const uint32_t base = smem_u32(smem + s * lay.stage_bytes);
+#pragma unroll
+        for (int ks = 0; ks < KS; ++ks)
+          wgmma_bf16_rs(acc, a[ks],
+                        sw128_desc(base + (ks >> 2) * kBox + (ks & 3) * 32),
+                        ks != 0);
+        wgmma_commit();
+        wgmma_wait<0>();
+#pragma unroll
+        for (int i = 0; i < 64; ++i) fence_operand(acc[i]);
+        // this warp has read stage s: lane c tells CTA c of the cluster
+        if (cluster > 1) {
+          if (lane < cluster) mbar_arrive_cluster(empty0 + 8 * s, lane);
+        } else if (lane == 0) {
+          mbar_arrive(empty0 + 8 * s);
+        }
+        if (++s == stages) s = 0, ph ^= 1;
+
+        // epilogue: acc[4j + 2h + e] is query slot g + 8h, row 8j + 2t + e
+        const int row0 = tile * kRows;
+        uint32_t pw[16];  // the penalty of rows 8j + 2t and 8j + 2t + 1
+#pragma unroll
+        for (int j = 0; j < 16; ++j)
+          pw[j] = PEN && row0 + 8 * j < n
+                      ? *reinterpret_cast<const uint32_t*>(pen + row0 +
+                                                           8 * j + 2 * t)
+                      : 0u;
+        // groups of two blocks (one where a block fills the tile): items
+        // k = 2 * (block in group) + h, reduced within the thread, then
+        // across the quad
+        constexpr int GB = NBT >= 2 ? 2 : 1;  // blocks a group
+        constexpr int NI = 2 * GB;            // items a group
+#pragma unroll
+        for (int gb = 0; gb < NBT / GB; ++gb) {
+          float v[4];
+          int ix[4];
+#pragma unroll
+          for (int k = 0; k < NI; ++k) {
+            // the item's 2 JB values m = 2 jj + e, rows 8 jj + 2t + e of
+            // the block, in row order
+            const int bl = gb * GB + (k >> 1), h = k & 1;
+            float tv[4 * JB];
+#pragma unroll
+            for (int m = 0; m < 2 * JB; ++m) {
+              const int j = bl * JB + (m >> 1), e = m & 1;
+              tv[2 * JB + m] = acc[4 * j + 2 * h + e];
+              if (PEN)
+                tv[2 * JB + m] +=
+                    __uint_as_float(e ? pw[j] & 0xFFFF0000u : pw[j] << 16);
+            }
+            const int mi = lowest_argmin<2 * JB>(tv, v[k]);
+            ix[k] = 8 * (mi >> 1) + (mi & 1) + 2 * t;
+          }
+          int item;  // the item this lane holds at the end
+          if (NI == 4) {
+            exchange<4>(v, ix, t & 1, 1);
+            exchange<2>(v, ix, (t >> 1) & 1, 2);
+            item = t;
+          } else {
+            exchange<2>(v, ix, t & 1, 1);
+            lex_min(v[0], ix[0], __shfl_xor_sync(0xffffffffu, v[0], 2),
+                    __shfl_xor_sync(0xffffffffu, ix[0], 2));
+            item = t & 1;
+          }
+          if (NI == 4 || t < 2) {
+            const int bl = gb * GB + (item >> 1);
+            const int q = qrow + 8 * (item & 1);
+            int blk = (tile - t0) * NBT + bl;  // block within the run
+            float val = v[0];
+            int off = ix[0];
+            bool write = true;
+            if (RT == kRows && r > kRows) {  // r = 256: two tiles a block
+              blk = (tile - t0) >> 1;
+              if (((tile - t0) & 1) == 0) {
+                carry_v = val;
+                carry_i = off;
+                write = false;
+              } else if (val < carry_v) {
+                off += kRows;
+              } else {
+                val = carry_v;
+                off = carry_i;
+              }
+            }
+            if (write) {
+              st_v[q * sv_q + blk] = __float2bfloat16_rn(val);
+              st_l[q * lay.stride_l + blk] = (uint8_t)off;
+            }
+          }
+        }
+      }
+
+      // the run's minima, consecutive along each query's output row: in
+      // 16-byte pieces where the run is whole and the rows 16-byte
+      // aligned, else element by element
+      consumer_sync();
+      const long long blk0 = (long long)t0 * kRows / r;
+      const int blocks = lay.blocks;  // a power of two
+      const int lb = __ffs(blocks) - 1;
+      const long long left = nb - blk0;
+      const int here = left < blocks ? (int)left : blocks;
+      if (here == blocks && blocks % 16 == 0 && nb % 16 == 0) {
+        // minima: blocks / 8 pieces a query, offsets: blocks / 16
+        for (int i = tid; i < kQ * blocks / 8; i += kConsumers) {
+          const int ql = i >> (lb - 3), c = i & (blocks / 8 - 1);
+          const int q = qt * kQ + ql;
+          if (q < b)
+            *reinterpret_cast<uint4*>(out_v + (long long)q * nb + blk0 +
+                                      8 * c) =
+                *reinterpret_cast<const uint4*>(st_v + ql * sv_q + 8 * c);
+        }
+        for (int i = tid; i < kQ * blocks / 16; i += kConsumers) {
+          const int ql = i >> (lb - 4), c = i & (blocks / 16 - 1);
+          const int q = qt * kQ + ql;
+          if (q < b)
+            *reinterpret_cast<uint4*>(out_l + (long long)q * nb + blk0 +
+                                      16 * c) =
+                *reinterpret_cast<const uint4*>(st_l + ql * lay.stride_l +
+                                                16 * c);
+        }
+      } else {
+        for (int i = tid; i < kQ * blocks; i += kConsumers) {
+          const int ql = i >> lb, bl = i & (blocks - 1);
+          const int q = qt * kQ + ql;
+          if (q < b && bl < here) {
+            const long long o = (long long)q * nb + blk0 + bl;
+            out_v[o] = st_v[ql * sv_q + bl];
+            out_l[o] = st_l[ql * lay.stride_l + bl];
+          }
+        }
+      }
+      consumer_sync();  // the staging is reused by the next unit
+    }
+  }
+  // no CTA leaves while a peer may still signal its barriers
+  if (cluster > 1) cluster_sync();
+}
+
+template <int KS, int RT, bool PEN>
+int launch(const CUtensorMap& map, const void* q_img, const void* pen,
+           void* out_v, void* out_l, int n, int b, int d1, int r, int stages,
+           int run_tiles, int cluster, int smem, cudaStream_t stream) {
+  auto kernel = block_min_compact_kernel<KS, RT, PEN>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  cudaLaunchConfig_t cfg = {};
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  // one CTA per SM, as many clusters as the card holds at once
+  int clusters = 0;
+  cfg.gridDim = dim3(cluster * 256);
+  if ((err = cudaOccupancyMaxActiveClusters(&clusters, kernel, &cfg)) !=
+      cudaSuccess)
+    return (int)err;
+  if (clusters < 1) return (int)cudaErrorInvalidConfiguration;
+  const long long n_tiles = (n + kRows - 1) / kRows;
+  const long long units = (n_tiles + run_tiles - 1) / run_tiles *
+                          ((b + kQ * cluster - 1) / (kQ * cluster));
+  cfg.gridDim =
+      dim3((unsigned)(cluster * (units < clusters ? units : clusters)));
+  err = cudaLaunchKernelEx(
+      &cfg, kernel, map, static_cast<const uint4*>(q_img),
+      static_cast<const __nv_bfloat16*>(pen),
+      static_cast<__nv_bfloat16*>(out_v), static_cast<uint8_t*>(out_l), n, b,
+      d1, r, stages, run_tiles, cluster);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
+template <int KS, int RT>
+int launch_pen(bool has_pen, const CUtensorMap& map, const void* q_img,
+               const void* pen, void* out_v, void* out_l, int n, int b, int d1,
+               int r, int stages, int run_tiles, int cluster, int smem,
+               cudaStream_t s) {
+  return has_pen ? launch<KS, RT, true>(map, q_img, pen, out_v, out_l, n, b,
+                                        d1, r, stages, run_tiles, cluster,
+                                        smem, s)
+                 : launch<KS, RT, false>(map, q_img, pen, out_v, out_l, n, b,
+                                         d1, r, stages, run_tiles, cluster,
+                                         smem, s);
+}
+
+template <int KS>
+int launch_r(bool has_pen, const CUtensorMap& map, const void* q_img,
+             const void* pen, void* out_v, void* out_l, int n, int b, int d1,
+             int r, int stages, int run_tiles, int cluster, int smem,
+             cudaStream_t s) {
+#define COMPACT_CASE(RT)                                                     \
+  if (r == RT || (RT == kRows && r > kRows))                                 \
+    return launch_pen<KS, RT>(has_pen, map, q_img, pen, out_v, out_l, n, b, \
+                              d1, r, stages, run_tiles, cluster, smem, s);
+  COMPACT_CASE(8)
+  COMPACT_CASE(16)
+  COMPACT_CASE(32)
+  COMPACT_CASE(64)
+  COMPACT_CASE(128)
+#undef COMPACT_CASE
+  return (int)cudaErrorInvalidValue;
+}
+
+}  // namespace
+
+// Plain C entry point, loaded through ctypes. rows [n, d1] bf16, 16-byte
+// aligned; q_img the query image of ops/sweep.block_min_compact_query_image
+// (ceil(b / 128) tiles of 4 * ceil(d1 / 64) k-steps of 4096 bytes); pen [n]
+// bf16 or null; out_v [b, n / r] bf16 and out_l [b, n / r] u8 as allocated
+// by the caller. r a power of two in [8, 256], n % r == 0, d1 % 8 == 0 and
+// d1 <= 256; stages, run_tiles (even where r = 256) and cluster (1 or 2)
+// from ops/sweep.compact_plan. Launches on `stream`, does not
+// synchronise, allocates nothing; returns a CUDA error code (0 on
+// success).
+extern "C" int block_min_compact(const void* rows, const void* q_img,
+                                 const void* pen, void* out_v, void* out_l,
+                                 long long n, int b, int d1, int r, int stages,
+                                 int run_tiles, int cluster, void* stream) {
+  if (n <= 0 || b <= 0) return 0;
+  if (n >= (1LL << 31) || d1 <= 0 || d1 % 8 || d1 > kMaxBoxes * kBoxCols ||
+      r < 8 || r > 2 * kRows || (r & (r - 1)) || n % r || stages < 1 ||
+      stages > kMaxStages || run_tiles < 1 || (r > kRows && run_tiles % 2) ||
+      (cluster != 1 && cluster != kMaxCluster) ||
+      reinterpret_cast<uintptr_t>(rows) % 16)
+    return (int)cudaErrorInvalidValue;
+  const Layout lay = compact_layout(d1, r, stages, run_tiles);
+  if (lay.blocks < 1 || lay.total > 232448) return (int)cudaErrorInvalidValue;
+  EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return (int)cudaErrorSharedObjectSymbolNotFound;
+
+  // boxes of 128 / cluster rows x 64 columns, 128-byte swizzled, zero past
+  // d1 and n
+  CUtensorMap map;
+  const cuuint64_t dims[2] = {(cuuint64_t)d1, (cuuint64_t)n};
+  const cuuint64_t strides[1] = {(cuuint64_t)d1 * 2};
+  const cuuint32_t box[2] = {kBoxCols, (cuuint32_t)(kRows / cluster)};
+  const cuuint32_t estr[2] = {1, 1};
+  if (encode(&map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
+             const_cast<void*>(rows), dims, strides, box, estr,
+             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
+    return (int)cudaErrorInvalidValue;
+
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int ni = (int)n;
+#define COMPACT_KS(BOXES)                                                  \
+  if (lay.boxes == BOXES)                                                  \
+    return launch_r<4 * BOXES>(pen != nullptr, map, q_img, pen, out_v,    \
+                               out_l, ni, b, d1, r, stages, run_tiles,    \
+                               cluster, lay.total, s);
+  COMPACT_KS(1)
+  COMPACT_KS(2)
+  COMPACT_KS(3)
+  COMPACT_KS(4)
+#undef COMPACT_KS
+  return (int)cudaErrorInvalidValue;
+}

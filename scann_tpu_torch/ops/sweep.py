@@ -27,8 +27,16 @@ instantiated for each, each with a plain PyTorch twin beside it:
   - :func:`block_min2_sweep`: the two smallest per block by the JAX
     package's tournament, row-major (``_block_min2_kernel``).
 
-CPU tensors take the twins; CUDA tensors launch the kernel or raise. Each
-kernel launch adds one to its entry in :data:`LAUNCHES`.
+The compact q-major form has a second kernel of its own
+(``csrc/block_min_compact.cu``: wgmma with the queries in registers, the
+rows by TMA, a persistent grid). :func:`compact_plan` decides from the
+arguments alone which kernel takes a compact call: the new one for bf16
+rows, 8 <= r <= 256 and D1 <= 256, ``block_min_sweep.cu`` for the rest.
+
+CPU tensors take the twins; CUDA tensors launch a kernel or raise. Each
+kernel launch adds one to its entry in :data:`LAUNCHES`; a compact launch
+also adds one to the entry of the kernel that served it in
+:data:`COMPACT_LAUNCHES`.
 
 :func:`block_minima` keeps the JAX package's dispatch rule
 (``sweep_block_candidates``): the tournament for top2; the row-major form
@@ -42,7 +50,7 @@ from __future__ import annotations
 
 import ctypes
 import math
-from typing import Dict, Optional, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -78,6 +86,11 @@ INT8_NORM_REAL_MAX = 400_000
 LAUNCHES: Dict[str, int] = {"block_min": 0, "block_min_qmajor": 0,
                             "block_min_qmajor_compact": 0, "block_min2": 0}
 
+# Compact q-major launches by the kernel that served them: the wgmma kernel
+# of csrc/block_min_compact.cu or the mma.sync kernel of block_min_sweep.cu.
+COMPACT_LAUNCHES: Dict[str, int] = {"block_min_compact": 0,
+                                    "block_min_sweep": 0}
+
 # the JAX package pads a search batch to this many queries (its bf16
 # sublane count) before the dispatch reads the batch size
 _BATCH_ALIGN = 16
@@ -91,8 +104,9 @@ _fn = None
 
 
 def reset_launches() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    for counts in (LAUNCHES, COMPACT_LAUNCHES):
+        for name in counts:
+            counts[name] = 0
 
 
 # ---------------------------------------------------------------------------
@@ -538,10 +552,134 @@ def kernel_smem_bytes(d1: int, int8_rows: bool, top2: bool) -> int:
             + 2 * _TILE_Q * 16 + _TILE_ROWS // 8 * _TILE_Q * (12 if top2 else 8))
 
 
+# -- the compact q-major kernel (csrc/block_min_compact.cu) --------------------
+
+# rows and queries of a tile (the wgmma N and two warpgroups' M); bf16
+# columns of one 128-byte swizzled TMA box of rows; boxes a row tile may
+# span (D1 <= 256); ring stages; blocks a query of a run stages
+COMPACT_TILE_ROWS, COMPACT_TILE_Q, COMPACT_BOX_COLS = 128, 128, 64
+_COMPACT_MAX_BOXES, _COMPACT_MAX_STAGES, _COMPACT_RUN_BLOCKS = 4, 8, 64
+# streaming multiprocessors of an H100 SXM: compact_plan's default grid width
+H100_SMS = 132
+
+_compact_fn = None
+
+
+class CompactPlan(NamedTuple):
+    """Launch plan of the compact kernel: ``nks`` k16 steps a tile (4 a
+    TMA box of 64 columns), ``stages`` in the TMA ring, ``cluster`` CTAs
+    sharing each row tile (each loads 128 / cluster of its rows into all),
+    ``run_tiles`` row tiles a work unit, ``units`` = ``runs`` x
+    ceil(``q_tiles`` / cluster) work units of a cluster, ``smem_bytes`` a
+    CTA."""
+    nks: int
+    stages: int
+    cluster: int
+    run_tiles: int
+    runs: int
+    q_tiles: int
+    units: int
+    smem_bytes: int
+
+
+def compact_smem_bytes(d1: int, r: int, stages: int, run_tiles: int) -> int:
+    """Shared memory of one CTA (csrc/block_min_compact.cu compact_layout):
+    the ring's stages of ceil(D1 / 64) TMA boxes of 128 rows x 128 bytes,
+    the run's staged bf16 minima and u8 offsets (rows padded to 16 bytes,
+    plus 16), the barriers, 1 KB of alignment."""
+    blocks = run_tiles * COMPACT_TILE_ROWS // r
+    stage = -(-d1 // COMPACT_BOX_COLS) * COMPACT_TILE_ROWS * 128
+    staging = COMPACT_TILE_Q * (align_up(2 * blocks, 16) + 16
+                                + align_up(blocks, 16) + 16)
+    return 1024 + stages * stage + staging + 16 * stages
+
+
+def compact_plan(n: int, b: int, d1: int, r: int, int8_rows: bool,
+                 sms: int = H100_SMS) -> Optional[CompactPlan]:
+    """The compact kernel's plan for a call, or None where the call stays
+    with ``block_min_sweep.cu``: int8 rows, r outside [8, 256], D1 past 256
+    or not a multiple of 8, 2**31 rows or more.
+
+    Clusters of 2 CTAs where there are 2 query tiles or more, so each row
+    tile leaves L2 once for 2 query tiles (clusters of 4 fit 120 of the
+    H100's 132 SMs and ran slower). A run is r / 2 tiles (64 blocks a
+    query), halved while the units would not fill ``sms`` CTAs, and even
+    where r = 256 (a block spans two tiles). The ring takes up to eight
+    stages that fit in shared memory beside the staging, at least two."""
+    if (int8_rows or r < 8 or r > 256 or r & (r - 1)
+            or d1 <= 0 or d1 % 8 or n <= 0 or b <= 0 or n % r
+            or n >= 1 << 31):
+        return None
+    boxes = -(-d1 // COMPACT_BOX_COLS)
+    if boxes > _COMPACT_MAX_BOXES:
+        return None
+    n_tiles = -(-n // COMPACT_TILE_ROWS)
+    q_tiles = -(-b // COMPACT_TILE_Q)
+    cluster = 2 if q_tiles >= 2 else 1
+    q_groups = -(-q_tiles // cluster)
+    least = max(1, r // COMPACT_TILE_ROWS)
+    run_tiles = _COMPACT_RUN_BLOCKS * r // COMPACT_TILE_ROWS
+    while (run_tiles > least
+           and -(-n_tiles // run_tiles) * q_groups * cluster < sms):
+        run_tiles //= 2
+    for stages in range(_COMPACT_MAX_STAGES, 1, -1):
+        smem = compact_smem_bytes(d1, r, stages, run_tiles)
+        if smem <= MAX_SHARED_MEMORY:
+            runs = -(-n_tiles // run_tiles)
+            return CompactPlan(4 * boxes, stages, cluster, run_tiles, runs,
+                               q_tiles, runs * q_groups, smem)
+    return None
+
+
+def compact_unit(plan: CompactPlan, u: int) -> Tuple[int, int]:
+    """(run, first query tile) of work unit ``u``: by run, the group of
+    ``plan.cluster`` query tiles fastest, so the clusters of the persistent
+    grid (cluster c takes units c, c + clusters, ...) read a run at about
+    the same time; CTA k of the cluster takes query tile first + k."""
+    q_groups = -(-plan.q_tiles // plan.cluster)
+    return u // q_groups, u % q_groups * plan.cluster
+
+
+def block_min_compact_query_image(q_aug: torch.Tensor) -> torch.Tensor:
+    """The compact kernel's A fragments, flat uint8: per tile of 128
+    queries, per warpgroup (64 queries), per k16 step (4 a 64-column box),
+    16 bytes for each of the warpgroup's 128 threads. Thread (warp w, lane
+    4g + t) holds in register i the bf16 pair of query 16w + g + 8 * (i & 1)
+    at dimensions 16 ks + 2t + 8 * (i >> 1) + {0, 1}, the low half first.
+    Zero past B and D1."""
+    b, d1 = q_aug.shape
+    nks = 4 * -(-d1 // COMPACT_BOX_COLS)
+    qt = -(-b // COMPACT_TILE_Q)
+    q = torch.zeros(qt * COMPACT_TILE_Q, nks * 16, dtype=torch.bfloat16,
+                    device=q_aug.device)
+    q[:b, :d1] = q_aug
+    # [qt, wg, w, h, g, ks, kh, t, e] -> [qt, wg, ks, w, g, t, kh, h, e]
+    img = q.view(qt, COMPACT_TILE_Q // 64, 4, 2, 8, nks, 2, 4, 2).permute(
+        0, 1, 5, 2, 4, 7, 6, 3, 8)
+    return img.contiguous().view(torch.uint8).reshape(-1)
+
+
+def _compact_kernel_fn():
+    global _compact_fn
+    if _compact_fn is None:
+        from scann_tpu_torch import native
+
+        fn = native.load("block_min_compact").block_min_compact
+        vp, i32 = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [vp, vp, vp, vp, vp, ctypes.c_longlong, i32, i32, i32,
+                       i32, i32, i32, vp]
+        fn.restype = ctypes.c_int
+        _compact_fn = fn
+    return _compact_fn
+
+
 def _launch(name: str, q_aug, db_aug, r: int, penalty, *, qmajor: bool,
-            compact: bool, top2: bool):
+            compact: bool, top2: bool, mma_sync: bool = False):
     """Checks the arguments, allocates the outputs and launches the
-    kernel on the current stream of the tensors' device."""
+    kernel on the current stream of the tensors' device: a compact call
+    that :func:`compact_plan` accepts goes to ``block_min_compact.cu``
+    unless ``mma_sync`` (the old kernel, kept as a same-run yardstick),
+    every other call to ``block_min_sweep.cu``."""
     device = q_aug.device
     for label, t in (("db_aug", db_aug), ("penalty", penalty)):
         if t is not None and t.device != device:
@@ -596,17 +734,31 @@ def _launch(name: str, q_aug, db_aug, r: int, penalty, *, qmajor: bool,
     def ptr(t):
         return None if t is None else t.data_ptr()
 
-    fn = _kernel_fn()
+    plan = (compact_plan(n, b, d1, r, db_aug.dtype == torch.int8,
+                         torch.cuda.get_device_properties(
+                             device).multi_processor_count)
+            if compact and not mma_sync else None)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        err = fn(db_aug.data_ptr(), q_aug.data_ptr(), ptr(penalty),
-                 v1.data_ptr(), l1.data_ptr(), ptr(v2), ptr(l2), n, b, d1, r,
-                 int(db_aug.dtype == torch.int8), int(top2), int(qmajor),
-                 int(compact), stream)
+        if plan is not None:
+            kernel = "block_min_compact"
+            q_img = block_min_compact_query_image(q_aug)
+            err = _compact_kernel_fn()(
+                db_aug.data_ptr(), q_img.data_ptr(), ptr(penalty),
+                v1.data_ptr(), l1.data_ptr(), n, b, d1, r, plan.stages,
+                plan.run_tiles, plan.cluster, stream)
+        else:
+            kernel = "block_min_sweep"
+            err = _kernel_fn()(
+                db_aug.data_ptr(), q_aug.data_ptr(), ptr(penalty),
+                v1.data_ptr(), l1.data_ptr(), ptr(v2), ptr(l2), n, b, d1, r,
+                int(db_aug.dtype == torch.int8), int(top2), int(qmajor),
+                int(compact), stream)
     if err != 0:
-        raise RuntimeError(f"block_min_sweep kernel launch failed: CUDA "
-                           f"error {err}")
+        raise RuntimeError(f"{kernel} kernel launch failed: CUDA error {err}")
     LAUNCHES[name] += 1
+    if compact:
+        COMPACT_LAUNCHES[kernel] += 1
     return (v1, l1, v2, l2) if top2 else (v1, l1)
 
 

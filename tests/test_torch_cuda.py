@@ -478,6 +478,60 @@ def test_block_min_sweep_kernel_matches_twin(form, r, b, int8_rows, penalty):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("n,d,b,r,penalty,int8_rows,kernel", [
+    # the wgmma kernel (csrc/block_min_compact.cu): r, B, a ragged last
+    # tile, D1 = 8 / 104 / 136, the penalty, r = 256 across two tiles
+    (4096, 100, 64, 8, False, False, "block_min_compact"),
+    (4096, 100, 64, 16, True, False, "block_min_compact"),
+    (4096, 100, 64, 32, False, False, "block_min_compact"),
+    (4096, 100, 64, 128, True, False, "block_min_compact"),
+    (8192, 100, 200, 256, True, False, "block_min_compact"),
+    (4096, 100, 1, 64, False, False, "block_min_compact"),
+    (4096, 100, 64, 64, True, False, "block_min_compact"),
+    (8192, 100, 1000, 64, False, False, "block_min_compact"),
+    (4096 + 64, 100, 150, 64, True, False, "block_min_compact"),
+    (4096 + 8, 7, 70, 8, False, False, "block_min_compact"),
+    (4096, 130, 130, 32, True, False, "block_min_compact"),
+    # runs stored in 16-byte pieces; the second's last run is one tile
+    (131072 + 1024, 100, 256, 64, False, False, "block_min_compact"),
+    (131072 + 128, 100, 300, 8, True, False, "block_min_compact"),
+    # the mma.sync kernel (csrc/block_min_sweep.cu): int8 rows, r < 8,
+    # rows wider than 256
+    (4096, 100, 64, 64, True, True, "block_min_sweep"),
+    (4096, 100, 64, 4, False, False, "block_min_sweep"),
+    (4096, 260, 64, 64, True, False, "block_min_sweep"),
+])
+def test_block_min_compact_kernel_matches_twin(n, d, b, r, penalty, int8_rows,
+                                               kernel):
+    """Each compact call against its twin through check_against_twin
+    ("compact"): values within 1 bf16 ulp (or the float32 tolerance near 0),
+    offsets reaching the twin's minimum; one launch of the kernel that
+    compact_plan names, one block_min_qmajor_compact launch either way."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from scann_tpu_torch.ops import sweep as sw
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.default_rng(n + d + b + r)
+    q_aug, aug, pen = _sweep_inputs(rng, n=n, d=d, b=b, r=r,
+                                    int8_rows=int8_rows, penalty=penalty)
+    plan = sw.compact_plan(n, b, aug.shape[1], r, int8_rows)
+    assert (plan is not None) == (kernel == "block_min_compact")
+    sw.reset_launches()
+    got = sw.block_min_sweep_qmajor(q_aug, aug, r=r, penalty=pen,
+                                    compact=True)
+    torch.cuda.synchronize()
+    assert sw.LAUNCHES["block_min_qmajor_compact"] == 1
+    assert sw.COMPACT_LAUNCHES[kernel] == 1
+    assert sum(sw.COMPACT_LAUNCHES.values()) == 1
+    assert got[0].shape == (b, n // r) and got[1].dtype == torch.uint8
+    report = sw.check_against_twin("compact", got, q_aug, aug, r=r,
+                                   penalty=pen)
+    assert report["checked"] == (n // r) * b
+    assert report["loc_equal"] > 0.9
+
+
+@pytest.mark.cuda
 def test_block_min_sweep_kernel_rejects_bad_arguments():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
