@@ -15,13 +15,15 @@ queries:
   configuration), checks the four forms of the CUDA block-min kernels
   against their twins on the first batch's real augmented queries and the
   full augmented copy (with an allowlist penalty and int8 rows as well): the
-  main compact call through the wgmma kernel of ``block_min_compact.cu``,
-  the int8 + penalty compact call through ``block_min_sweep.cu``, as
-  ``ops/sweep.compact_plan`` routes them; serves the batches through
-  ``BlockSweepSearcher.search_batched_tensors`` (recall@10 >= 0.99, every
-  compact launch on the new kernel), drives the other three forms through
-  the searcher (top2, block_r=128 and block_r=512 at B=128), and times the
-  new compact kernel beside the old one's compact instance in turns;
+  main compact, row-major (r=128) and top-2 (r=64, B=512) calls through the
+  wgmma kernel of ``block_min_compact.cu``, their int8 + penalty calls
+  through ``block_min_sweep.cu``, as ``ops/sweep.sweep_plan`` routes them;
+  serves the batches through ``BlockSweepSearcher.search_batched_tensors``
+  (recall@10 >= 0.99, every compact launch on the new kernel), drives the
+  other three forms through the searcher (top2 and block_r=128, each on the
+  new kernel alone with recall@10 >= 0.99 and its batch median, and
+  block_r=512 at B=128), and times #3, #5 and #6 beside the old kernel's
+  instances of the same calls in turns;
 - asymmetric hashing: builds the PQ index on the card (S=50, C=16, the JAX
   package's bench.py configuration), checks the fused int8 LUT16 sweep
   kernel (bit for bit) and the LUT16 score kernel against their twins on the
@@ -60,7 +62,8 @@ with CUDA events (the grouped and per-pair SOAR paths also at twice the
 batch, past the pair density where groups widen). The grouped scorer's
 times (#1 on both indexes, #1b) stand beside its output contract's
 traffic floor and its shared-memory lookup floors; [2] reports registers
-and spills of every instance of #1/#1b, #5 and #10.
+and spills of every instance of #1/#1b, #10 and the three forms of
+``block_min_compact.cu`` (#3, #5, #6).
 
     python3 chip_smoke.py
 
@@ -73,6 +76,7 @@ device JSON.
 
 from __future__ import annotations
 
+import functools
 import json
 import re
 import subprocess
@@ -148,7 +152,8 @@ def kernel_ptxas(build_log: str, kernel: str, label):
             args = ([int(v) for v in re.findall(r"L[ib](\d+)E", m.group(1))]
                     if m else None)
         elif "spill stores" in ln:
-            spill = ", ".join(x.strip() for x in ln.split(",") if "spill" in x)
+            spill = ", ".join(x.strip() for x in ln.split(",")
+                              if "spill" in x or "stack" in x)
         elif "Used" in ln and "registers" in ln and args is not None:
             regs = ln.split("Used")[1].split("registers")[0].strip()
             out.append(f"{label(*args)}: {regs} registers, {spill}")
@@ -289,11 +294,21 @@ def main() -> int:
     log("[2 kernel build] tree_ah_leaf (#10), ptxas: " + "; ".join(
         kernel_ptxas(native.saved_logs.get("tree_ah_leaf", ""),
                      "tree_ah_leaf_kernel", lambda c: f"C={c}")))
-    log("[2 kernel build] block_min_compact (#5), ptxas: " + "; ".join(
-        kernel_ptxas(native.saved_logs.get("block_min_compact", ""),
-                     "block_min_compact_kernel",
-                     lambda ks, rt, p: f"KS={ks} r={rt}"
-                     f"{'+' if rt == 128 else ''}{' penalty' if p else ''}")))
+    forms = ("compact #5", "rowmajor #3", "top2 #6")
+    compact_ptxas = kernel_ptxas(
+        native.saved_logs.get("block_min_compact", ""),
+        "block_min_compact_kernel",
+        lambda ks, rt, p, f: f"{forms[f]} KS={ks} r={rt}"
+        f"{'+' if rt == 128 else ''}{' penalty' if p else ''}")
+    log("[2 kernel build] block_min_compact (#3, #5, #6), ptxas: "
+        + "; ".join(compact_ptxas))
+    log("[2 kernel build] block_min_compact main instances (D1 104, KS=8), "
+        "ptxas: " + "; ".join(
+            ln for ln in compact_ptxas for want in (
+                "compact #5 KS=8 r=64:", "rowmajor #3 KS=8 r=128+:",
+                "top2 #6 KS=8 r=64:", "compact #5 KS=8 r=64 penalty:",
+                "rowmajor #3 KS=8 r=128+ penalty:",
+                "top2 #6 KS=8 r=64 penalty:") if ln.startswith(want)))
     log("[2 kernel build] tree_ah_grouped (#1, #1b), ptxas: " + "; ".join(
         kernel_ptxas(native.saved_logs.get("tree_ah_grouped", ""),
                      "tree_ah_grouped_kernel",
@@ -606,12 +621,10 @@ def block_sweep_phases(ds, queries, db_dev, gt_np, cold_ms, turns, smi):
         torch.cuda.synchronize()
         rep = sw.check_against_twin(form, got, q, aug, r=r, penalty=pen)
         errs[name] = max(errs.get(name, 0.0), rep["max_abs_err"])
-        served = None
-        if form == "compact":
-            # the kernel that served the call, counted from zero
-            served = [k for k, v in sw.COMPACT_LAUNCHES.items() if v]
-            sw.reset_launches()
-            label += f" ({'+'.join(served)}.cu)"
+        # the kernel that served the call, counted from zero
+        served = [k for k, v in sw.LAUNCHES_BY_KERNEL[name].items() if v]
+        sw.reset_launches()
+        label += f" ({'+'.join(served)}.cu)"
         log(f"[9 kernel check] {name}{label}: B={q.shape[0]}, r={r}, "
             f"{aug.dtype} rows {list(aug.shape)}: max abs err "
             f"{rep['max_abs_err']:.6g} (tolerance 1e-5 * sum|terms| + 1e-5; "
@@ -625,52 +638,73 @@ def block_sweep_phases(ds, queries, db_dev, gt_np, cold_ms, turns, smi):
     aug512 = r512_s.device_state()[0]
     q_top2 = q_aug[:BATCH // 2]
     q_512 = q_aug[:128]
-    plan = sw.compact_plan(n_pad, BATCH, d1, SWEEP_R, False,
-                           torch.cuda.get_device_properties(
-                               dev).multi_processor_count)
-    log(f"[9 compact plan] B={BATCH}, r={SWEEP_R}, {n_pad} x {d1} bf16 rows: "
-        f"{plan}")
-    if plan is None:
-        raise AssertionError("the main compact call is not planned for "
-                             "block_min_compact.cu")
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    plans = {  # the main calls of the forms block_min_compact.cu serves
+        "block_min_qmajor_compact": sw.sweep_plan(
+            "compact", n_pad, BATCH, d1, SWEEP_R, False, sms),
+        "block_min": sw.sweep_plan("rowmajor", aug128.shape[0], BATCH, d1,
+                                   128, False, sms),
+        "block_min2": sw.sweep_plan("top2", n_pad, BATCH // 2, d1, SWEEP_R,
+                                    False, sms)}
+    for name, plan in plans.items():
+        log(f"[9 sweep plan] {name}: {plan}")
+        if plan is None:
+            raise AssertionError(f"the main {name} call is not planned for "
+                                 f"block_min_compact.cu")
+
+    def check_served(want, name, *args):
+        served = check(name, *args)
+        if served != [want]:
+            raise AssertionError(f"{name}{args[-1]}: served by {served}, not "
+                                 f"{want}.cu alone")
+
     sw.reset_launches()
-    if check("block_min_qmajor_compact", "compact",
-             sw.block_min_sweep_qmajor(q_aug, aug64, r=SWEEP_R, compact=True),
-             q_aug, aug64, SWEEP_R) != ["block_min_compact"]:
-        raise AssertionError("the main compact call did not launch "
-                             "block_min_compact.cu alone")
-    check("block_min", "rowmajor", sw.block_min_sweep(q_aug, aug128, r=128),
-          q_aug, aug128, 128)
+    check_served("block_min_compact", "block_min_qmajor_compact", "compact",
+                 sw.block_min_sweep_qmajor(q_aug, aug64, r=SWEEP_R,
+                                           compact=True),
+                 q_aug, aug64, SWEEP_R, None, "")
+    check_served("block_min_compact", "block_min", "rowmajor",
+                 sw.block_min_sweep(q_aug, aug128, r=128), q_aug, aug128, 128,
+                 None, "")
     check("block_min_qmajor", "qmajor",
           sw.block_min_sweep_qmajor(q_512, aug512, r=512), q_512, aug512, 512)
-    check("block_min2", "top2", sw.block_min2_sweep(q_top2, aug64, r=SWEEP_R),
-          q_top2, aug64, SWEEP_R)
+    check_served("block_min_compact", "block_min2", "top2",
+                 sw.block_min2_sweep(q_top2, aug64, r=SWEEP_R), q_top2, aug64,
+                 SWEEP_R, None, "")
     # the allowlist penalty (half the ids allowed) and the int8 layout
     allow = np.random.default_rng(SEED + 1).random(ds.size) < 0.5
     pen64 = main_s._allow_penalty(allow, n_pad).to(dev)
     pen128 = r128_s._allow_penalty(allow, aug128.shape[0]).to(dev)
-    check("block_min", "rowmajor",
-          sw.block_min_sweep(q_aug, aug128, r=128, penalty=pen128), q_aug,
-          aug128, 128, pen128, " + penalty")
-    check("block_min2", "top2",
-          sw.block_min2_sweep(q_top2, aug64, r=SWEEP_R, penalty=pen64),
-          q_top2, aug64, SWEEP_R, pen64, " + penalty")
+    check_served("block_min_compact", "block_min", "rowmajor",
+                 sw.block_min_sweep(q_aug, aug128, r=128, penalty=pen128),
+                 q_aug, aug128, 128, pen128, " + penalty")
+    check_served("block_min_compact", "block_min2", "top2",
+                 sw.block_min2_sweep(q_top2, aug64, r=SWEEP_R, penalty=pen64),
+                 q_top2, aug64, SWEEP_R, pen64, " + penalty")
     codes, scales, sn = sw.build_int8_augmented_db(
         ds.numpy(), ds.size, measure, tile_n=n_pad,
         shuffle_stride=sw.shuffle_stride_for(ds.size))
     aug8 = codes.to(dev)
     q_aug8, _ = sw.augment_for_sweep(q0, aug8, measure, scales.to(dev), sn)
-    pen8 = sw.build_allow_penalty(
-        allow, n_pad, SWEEP_R, inv_perm=main_s._inv_host,
-        mask_value=4.0 * sw.INT8_NORM_DIGIT_MAX * sn).to(dev)
-    sw.reset_launches()
-    if check("block_min_qmajor_compact", "compact",
-             sw.block_min_sweep_qmajor(q_aug8, aug8, r=SWEEP_R, compact=True,
-                                       penalty=pen8),
-             q_aug8, aug8, SWEEP_R, pen8,
-             " + int8 rows + penalty") != ["block_min_sweep"]:
-        raise AssertionError("the int8 compact call did not launch "
-                             "block_min_sweep.cu alone")
+
+    def pen_int8(r):
+        return sw.build_allow_penalty(
+            allow, n_pad, r, inv_perm=main_s._inv_host,
+            mask_value=4.0 * sw.INT8_NORM_DIGIT_MAX * sn).to(dev)
+
+    pen8, pen8_128 = pen_int8(SWEEP_R), pen_int8(128)
+    label8 = " + int8 rows + penalty"
+    check_served("block_min_sweep", "block_min_qmajor_compact", "compact",
+                 sw.block_min_sweep_qmajor(q_aug8, aug8, r=SWEEP_R,
+                                           compact=True, penalty=pen8),
+                 q_aug8, aug8, SWEEP_R, pen8, label8)
+    check_served("block_min_sweep", "block_min", "rowmajor",
+                 sw.block_min_sweep(q_aug8, aug8, r=128, penalty=pen8_128),
+                 q_aug8, aug8, 128, pen8_128, label8)
+    check_served("block_min_sweep", "block_min2", "top2",
+                 sw.block_min2_sweep(q_aug8[:BATCH // 2], aug8, r=SWEEP_R,
+                                     penalty=pen8),
+                 q_aug8[:BATCH // 2], aug8, SWEEP_R, pen8, label8)
 
     # -- 10. search: each path counted from zero ------------------------------------
     launches = {}
@@ -709,8 +743,38 @@ def block_sweep_phases(ds, queries, db_dev, gt_np, cold_ms, turns, smi):
                              f"block_min_compact.cu")
     log(f"[10 sweep search/main r=64] compact launches by kernel "
         f"{dict(sw.COMPACT_LAUNCHES)}")
-    run(top2_s, queries[:BATCH], BATCH, "block_min2", "top2 r=64")
-    run(r128_s, queries[:BATCH], BATCH, "block_min", "r=128")
+    launcher = sw._launch
+    side_medians = {}
+    for s, name, label, want in ((top2_s, "block_min2", "top2 r=64", 2),
+                                 (r128_s, "block_min", "r=128", 1)):
+        side_recall = run(s, queries[:BATCH], BATCH, name, label,
+                          SWEEP_RECALL_FLOOR)
+        by_kernel = dict(sw.LAUNCHES_BY_KERNEL[name])
+        if by_kernel != {"block_min_compact": want, "block_min_sweep": 0}:
+            raise AssertionError(f"{label}: launches by kernel {by_kernel}, "
+                                 f"not {want} of block_min_compact.cu")
+        # the same searcher with its sweep on the old kernel (the wrapper's
+        # launcher called with mma_sync=True), in turns new, old, old, new
+        meds = []
+        for old_kernel in (False, True, True, False):
+            if old_kernel:
+                sw._launch = functools.partial(launcher, mma_sync=True)
+            try:
+                meds.append(event_ms(
+                    lambda qb: s.search_batched_tensors(qb, K), queries,
+                    BATCH, BATCHES))
+            finally:
+                sw._launch = launcher
+        med = float(np.median([meds[0][0], meds[3][0]]))
+        side_medians[name] = med
+        log(f"[10 sweep search/{label}] launches by kernel {by_kernel}; "
+            f"search_batched_tensors, B={BATCH}, n={3 * BATCHES} batches a "
+            f"turn, median (max) ms on block_min_compact.cu "
+            f"{meds[0][0]:.4f} ({meds[0][1]:.4f}), {meds[3][0]:.4f} "
+            f"({meds[3][1]:.4f}), on the old kernel {meds[1][0]:.4f} "
+            f"({meds[1][1]:.4f}), {meds[2][0]:.4f} ({meds[2][1]:.4f}) -> "
+            f"{BATCH / med * 1e3:.0f} queries/s at recall@10 "
+            f"{side_recall:.4f} ({smi})")
     run(r512_s, queries[:128], 128, "block_min_qmajor", "r=512 B=128")
 
     # -- 11. timings -----------------------------------------------------------------
@@ -742,31 +806,33 @@ def block_sweep_phases(ds, queries, db_dev, gt_np, cold_ms, turns, smi):
         nbytes = (aug.numel() * aug.element_size() + b * width * 2
                   + (n_rows // r) * b * out_b)
         b_ms, b_by = bound(ops, PEAK_BF16, nbytes)
-        compact = name == "block_min_qmajor_compact"
-        log(f"[11 kernel time] {name}"
-            f"{' (block_min_compact.cu)' if compact else ''}: B={b}, r={r}, "
+        # [9] and [10] asserted the kernel that serves each form
+        source = "block_min_compact" if name in plans else "block_min_sweep"
+        log(f"[11 kernel time] {name} ({source}.cu): B={b}, r={r}, "
             f"rows {n_rows}, L2 "
             f"flushed: kernel {k_ms:.4f} ms, plain twin {p_ms:.4f} ms, bound "
             f"{b_ms:.4f} ms, bound by {b_by} ({ops} bf16 FLOP, {nbytes} "
             f"bytes) -> "
             f"{ops / k_ms / 1e9:.1f} TFLOP/s, {b_ms / k_ms:.3f} of the bound "
             f"({smi})")
-        if compact:
+        if name in plans:
             # the same call on the mma.sync kernel it replaces, same run
+            q, top2 = {"block_min": (q_aug, False),
+                       "block_min2": (q_top2, True)}.get(name, (q_aug, False))
+            compact = name == "block_min_qmajor_compact"
             old_ms, new_ms = turns(
-                lambda: sw._launch(name, q_aug, aug64, SWEEP_R, None,
-                                   qmajor=True, compact=True, top2=False,
+                lambda: sw._launch(name, q, aug, r, None, qmajor=compact,
+                                   compact=compact, top2=top2,
                                    mma_sync=True),
                 kernel, 20, 20)
             log(f"[11 kernel time] {name} yardstick, L2 flushed, in turns: "
-                f"block_min_sweep.cu compact instance {old_ms:.4f} ms "
+                f"block_min_sweep.cu instance {old_ms:.4f} ms "
                 f"({b_ms / old_ms:.3f} of the bound), block_min_compact.cu "
                 f"{new_ms:.4f} ms ({b_ms / new_ms:.3f} of the bound), "
-                f"{old_ms / new_ms:.2f}x; plan {plan} ({smi})")
+                f"{old_ms / new_ms:.2f}x; plan {plans[name]} ({smi})")
         records.append({
             "name": name, "route": "cuda",
-            "source": ("scann_tpu_torch/csrc/block_min_compact.cu" if compact
-                       else "scann_tpu_torch/csrc/block_min_sweep.cu"),
+            "source": f"scann_tpu_torch/csrc/{source}.cu",
             "replaces": f"scann_tpu/ops/sweep_pallas.py:{line}",
             "launches": launches[name], "max_abs_err": errs[name],
             "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms,
@@ -810,6 +876,10 @@ def block_sweep_phases(ds, queries, db_dev, gt_np, cold_ms, turns, smi):
         f"pre_k={SWEEP_PRE_K}, B={BATCH}, n={3 * BATCHES} batches: median "
         f"{med:.4f} ms, max {top:.4f} ms -> {BATCH / med * 1e3:.0f} "
         f"queries/s at recall@10 {recall:.4f} ({smi})")
+    log("[11 sweep search time] side paths on block_min_compact.cu, median "
+        "per batch of 1024: " + ", ".join(
+            f"{n} {v:.4f} ms" for n, v in side_medians.items())
+        + f" ({smi})")
     return records
 
 

@@ -33,7 +33,11 @@ from scann_tpu_torch.models.scalar_quantized import (
     ScalarQuantizedBruteForceSearcher,
     ScalarQuantizedConfig,
 )
-from scann_tpu_torch.models.searcher import SearchParameters
+from scann_tpu_torch.models.searcher import (
+    NNResult,
+    SearchParameters,
+    SearchResult,
+)
 from scann_tpu_torch.models.tree_x_hybrid import (
     TreeXHybridConfig,
     TreeXHybridSearcher,
@@ -54,6 +58,7 @@ __all__ = [
     "DenseDataset",
     "DistanceMeasure",
     "ErrorCode",
+    "NNResult",
     "QuantizedDataset",
     "ScalarQuantizedBruteForceSearcher",
     "ScalarQuantizedConfig",
@@ -61,6 +66,7 @@ __all__ = [
     "ScalarQuantizerConfig",
     "ScannError",
     "SearchParameters",
+    "SearchResult",
     "TreeXHybridConfig",
     "TreeXHybridSearcher",
     "from_numpy_state",

@@ -104,6 +104,11 @@ class Codebook:
     def num_subspaces(self) -> int:
         return 0 if self.centroids is None else self.centroids.shape[0]
 
+    def centroids_device(self) -> torch.Tensor:
+        """The [S, C, d_sub] centroids, already on the codebook's device."""
+        self._check_trained()
+        return self.centroids
+
     def encode_dataset(self, data: torch.Tensor) -> torch.Tensor:
         """[N, D] -> [N, S] uint8 codes, on the input's device."""
         self._check_trained()

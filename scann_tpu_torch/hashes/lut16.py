@@ -54,6 +54,14 @@ def pack_codes_4bit_device(codes: torch.Tensor) -> torch.Tensor:
     return (codes[:, 0::2] & 0x0F) | ((codes[:, 1::2] & 0x0F) << 4)
 
 
+def unpack_codes_4bit_device(packed: torch.Tensor,
+                             num_subspaces: int) -> torch.Tensor:
+    """:func:`unpack_codes_4bit` on a [N, ceil(S/2)] uint8 tensor, on the
+    tensor's device."""
+    out = torch.stack([packed & 0x0F, (packed >> 4) & 0x0F], dim=-1)
+    return out.reshape(packed.shape[0], -1)[:, :num_subspaces]
+
+
 class PackedCodes4Bit:
     """Packed 4-bit code matrix (host numpy)."""
 

@@ -88,7 +88,9 @@ RERANK_DTYPES = ("float32", "bfloat16", "int8", "int16")
 
 @dataclasses.dataclass
 class TreeXHybridConfig:
-    """The JAX package's ``TreeXHybridConfig`` fields the port reads."""
+    """The JAX package's ``TreeXHybridConfig`` fields the port reads, and
+    ``approx_selection_min_partitions``, which it accepts and ignores: the
+    port selects partitions exactly, whatever the centroid count."""
 
     num_partitions: int = 100
     partitions_to_search: int = 10
@@ -116,6 +118,11 @@ class TreeXHybridConfig:
     # density, as in the JAX package) and the L-tile the slab is padded to
     group_q_cap: Optional[int] = None
     score_l_tile: int = 512
+    # the JAX package's centroid count from which a TPU run selects the
+    # top-p partitions approximately (lax.approx_min_k). Accepted and not
+    # read: the port selects exactly at every count (_select_partitions),
+    # as the JAX package does on the CPU
+    approx_selection_min_partitions: int = 1024
     # packed int4 slab (None = pack when num_codes <= 16)
     pack_codes: Optional[bool] = None
     # spilling: keep each id's best approximate slot before the re-rank

@@ -16,27 +16,28 @@ pre_k survivors restores full-precision distances. Invalid and padded rows
 carry a huge value in the norm slot, so masking costs nothing in the
 product.
 
-Four forms of the reduction, one CUDA kernel (``csrc/block_min_sweep.cu``)
-instantiated for each, each with a plain PyTorch twin beside it:
+Four forms of the reduction, each with a plain PyTorch twin beside it:
 
   - :func:`block_min_sweep`: row-major [N/r, B] float32 minima + int32
-    offsets (TPU kernel ``_block_min_kernel``);
+    offsets (TPU kernel ``_block_min_kernel``, #3);
   - :func:`block_min_sweep_qmajor`: query-major [B, N/r] float32 + int32
-    (``_block_min_qmajor_kernel``), or with ``compact=True`` bf16 + uint8
-    (``_block_min_qmajor_compact_kernel``);
+    (``_block_min_qmajor_kernel``, #4), or with ``compact=True`` bf16 +
+    uint8 (``_block_min_qmajor_compact_kernel``, #5);
   - :func:`block_min2_sweep`: the two smallest per block by the JAX
-    package's tournament, row-major (``_block_min2_kernel``).
+    package's tournament, row-major (``_block_min2_kernel``, #6).
 
-The compact q-major form has a second kernel of its own
-(``csrc/block_min_compact.cu``: wgmma with the queries in registers, the
-rows by TMA, a persistent grid). :func:`compact_plan` decides from the
-arguments alone which kernel takes a compact call: the new one for bf16
-rows, 8 <= r <= 256 and D1 <= 256, ``block_min_sweep.cu`` for the rest.
+Two CUDA kernels serve them. ``csrc/block_min_compact.cu`` (wgmma with the
+queries in registers, the rows by TMA, a persistent grid; the epilogue a
+template parameter) takes the compact, row-major and top-2 calls for bf16
+rows, 8 <= r <= 256 and D1 <= 256. ``csrc/block_min_sweep.cu`` (mma.sync,
+one instance a form) takes the rest: int8 rows, r < 8 or > 256, wider
+rows, and every float32 q-major call. :func:`sweep_plan` decides from the
+arguments alone.
 
 CPU tensors take the twins; CUDA tensors launch a kernel or raise. Each
-kernel launch adds one to its entry in :data:`LAUNCHES`; a compact launch
-also adds one to the entry of the kernel that served it in
-:data:`COMPACT_LAUNCHES`.
+kernel launch adds one to its form's entry in :data:`LAUNCHES` and to the
+entry of the kernel that served it in :data:`LAUNCHES_BY_KERNEL`
+(:data:`COMPACT_LAUNCHES` is the compact form's).
 
 :func:`block_minima` keeps the JAX package's dispatch rule
 (``sweep_block_candidates``): the tournament for top2; the row-major form
@@ -86,10 +87,12 @@ INT8_NORM_REAL_MAX = 400_000
 LAUNCHES: Dict[str, int] = {"block_min": 0, "block_min_qmajor": 0,
                             "block_min_qmajor_compact": 0, "block_min2": 0}
 
-# Compact q-major launches by the kernel that served them: the wgmma kernel
-# of csrc/block_min_compact.cu or the mma.sync kernel of block_min_sweep.cu.
-COMPACT_LAUNCHES: Dict[str, int] = {"block_min_compact": 0,
-                                    "block_min_sweep": 0}
+# Each form's launches by the kernel that served them: the wgmma kernel of
+# csrc/block_min_compact.cu or the mma.sync kernel of block_min_sweep.cu.
+LAUNCHES_BY_KERNEL: Dict[str, Dict[str, int]] = {
+    name: {"block_min_compact": 0, "block_min_sweep": 0}
+    for name in LAUNCHES}
+COMPACT_LAUNCHES = LAUNCHES_BY_KERNEL["block_min_qmajor_compact"]
 
 # the JAX package pads a search batch to this many queries (its bf16
 # sublane count) before the dispatch reads the batch size
@@ -104,7 +107,7 @@ _fn = None
 
 
 def reset_launches() -> None:
-    for counts in (LAUNCHES, COMPACT_LAUNCHES):
+    for counts in (LAUNCHES, *LAUNCHES_BY_KERNEL.values()):
         for name in counts:
             counts[name] = 0
 
@@ -552,22 +555,24 @@ def kernel_smem_bytes(d1: int, int8_rows: bool, top2: bool) -> int:
             + 2 * _TILE_Q * 16 + _TILE_ROWS // 8 * _TILE_Q * (12 if top2 else 8))
 
 
-# -- the compact q-major kernel (csrc/block_min_compact.cu) --------------------
+# -- the wgmma kernel (csrc/block_min_compact.cu) ------------------------------
 
 # rows and queries of a tile (the wgmma N and two warpgroups' M); bf16
 # columns of one 128-byte swizzled TMA box of rows; boxes a row tile may
-# span (D1 <= 256); ring stages; blocks a query of a run stages
+# span (D1 <= 256); ring stages; blocks a query of a run
 COMPACT_TILE_ROWS, COMPACT_TILE_Q, COMPACT_BOX_COLS = 128, 128, 64
 _COMPACT_MAX_BOXES, _COMPACT_MAX_STAGES, _COMPACT_RUN_BLOCKS = 4, 8, 64
-# streaming multiprocessors of an H100 SXM: compact_plan's default grid width
+# streaming multiprocessors of an H100 SXM: sweep_plan's default grid width
 H100_SMS = 132
+# the kernel's epilogues, in the order of its kCompact, kRowMajor, kTop2
+SWEEP_FORMS = ("compact", "rowmajor", "top2")
 
 _compact_fn = None
 
 
 class CompactPlan(NamedTuple):
-    """Launch plan of the compact kernel: ``nks`` k16 steps a tile (4 a
-    TMA box of 64 columns), ``stages`` in the TMA ring, ``cluster`` CTAs
+    """Launch plan of ``block_min_compact.cu``: ``nks`` k16 steps a tile (4
+    a TMA box of 64 columns), ``stages`` in the TMA ring, ``cluster`` CTAs
     sharing each row tile (each loads 128 / cluster of its rows into all),
     ``run_tiles`` row tiles a work unit, ``units`` = ``runs`` x
     ceil(``q_tiles`` / cluster) work units of a cluster, ``smem_bytes`` a
@@ -583,29 +588,49 @@ class CompactPlan(NamedTuple):
 
 
 def compact_smem_bytes(d1: int, r: int, stages: int, run_tiles: int) -> int:
-    """Shared memory of one CTA (csrc/block_min_compact.cu compact_layout):
-    the ring's stages of ceil(D1 / 64) TMA boxes of 128 rows x 128 bytes,
-    the run's staged bf16 minima and u8 offsets (rows padded to 16 bytes,
-    plus 16), the barriers, 1 KB of alignment."""
+    """Shared memory of one CTA of the compact form (csrc/
+    block_min_compact.cu sweep_layout): the ring's stages of ceil(D1 / 64)
+    TMA boxes of 128 rows x 128 bytes, the run's staged bf16 minima and u8
+    offsets (rows padded to 16 bytes, plus 16), the barriers, 1 KB of
+    alignment."""
+    return sweep_smem_bytes("compact", d1, r, stages, run_tiles)
+
+
+def sweep_smem_bytes(form: str, d1: int, r: int, stages: int,
+                     run_tiles: int) -> int:
+    """Shared memory of one CTA of ``form``: as
+    :func:`compact_smem_bytes`; the row-major forms store from registers
+    and stage nothing."""
     blocks = run_tiles * COMPACT_TILE_ROWS // r
     stage = -(-d1 // COMPACT_BOX_COLS) * COMPACT_TILE_ROWS * 128
     staging = COMPACT_TILE_Q * (align_up(2 * blocks, 16) + 16
                                 + align_up(blocks, 16) + 16)
-    return 1024 + stages * stage + staging + 16 * stages
+    return (1024 + stages * stage + 16 * stages
+            + (staging if form == "compact" else 0))
 
 
 def compact_plan(n: int, b: int, d1: int, r: int, int8_rows: bool,
                  sms: int = H100_SMS) -> Optional[CompactPlan]:
-    """The compact kernel's plan for a call, or None where the call stays
-    with ``block_min_sweep.cu``: int8 rows, r outside [8, 256], D1 past 256
-    or not a multiple of 8, 2**31 rows or more.
+    """:func:`sweep_plan` of the compact form."""
+    return sweep_plan("compact", n, b, d1, r, int8_rows, sms)
+
+
+def sweep_plan(form: str, n: int, b: int, d1: int, r: int, int8_rows: bool,
+               sms: int = H100_SMS) -> Optional[CompactPlan]:
+    """The plan of ``block_min_compact.cu`` for a call of ``form`` (one of
+    :data:`SWEEP_FORMS`), or None where the call stays with
+    ``block_min_sweep.cu``: int8 rows, r outside [8, 256], D1 past 256 or
+    not a multiple of 8, 2**31 rows or more.
 
     Clusters of 2 CTAs where there are 2 query tiles or more, so each row
     tile leaves L2 once for 2 query tiles (clusters of 4 fit 120 of the
     H100's 132 SMs and ran slower). A run is r / 2 tiles (64 blocks a
     query), halved while the units would not fill ``sms`` CTAs, and even
     where r = 256 (a block spans two tiles). The ring takes up to eight
-    stages that fit in shared memory beside the staging, at least two."""
+    stages that fit in shared memory beside the compact form's staging,
+    at least two."""
+    if form not in SWEEP_FORMS:
+        raise ValueError(f"form must be one of {SWEEP_FORMS}, got {form!r}")
     if (int8_rows or r < 8 or r > 256 or r & (r - 1)
             or d1 <= 0 or d1 % 8 or n <= 0 or b <= 0 or n % r
             or n >= 1 << 31):
@@ -623,7 +648,7 @@ def compact_plan(n: int, b: int, d1: int, r: int, int8_rows: bool,
            and -(-n_tiles // run_tiles) * q_groups * cluster < sms):
         run_tiles //= 2
     for stages in range(_COMPACT_MAX_STAGES, 1, -1):
-        smem = compact_smem_bytes(d1, r, stages, run_tiles)
+        smem = sweep_smem_bytes(form, d1, r, stages, run_tiles)
         if smem <= MAX_SHARED_MEMORY:
             runs = -(-n_tiles // run_tiles)
             return CompactPlan(4 * boxes, stages, cluster, run_tiles, runs,
@@ -667,7 +692,7 @@ def _compact_kernel_fn():
         fn = native.load("block_min_compact").block_min_compact
         vp, i32 = ctypes.c_void_p, ctypes.c_int
         fn.argtypes = [vp, vp, vp, vp, vp, ctypes.c_longlong, i32, i32, i32,
-                       i32, i32, i32, vp]
+                       i32, i32, i32, i32, vp, vp, vp]
         fn.restype = ctypes.c_int
         _compact_fn = fn
     return _compact_fn
@@ -676,10 +701,10 @@ def _compact_kernel_fn():
 def _launch(name: str, q_aug, db_aug, r: int, penalty, *, qmajor: bool,
             compact: bool, top2: bool, mma_sync: bool = False):
     """Checks the arguments, allocates the outputs and launches the
-    kernel on the current stream of the tensors' device: a compact call
-    that :func:`compact_plan` accepts goes to ``block_min_compact.cu``
-    unless ``mma_sync`` (the old kernel, kept as a same-run yardstick),
-    every other call to ``block_min_sweep.cu``."""
+    kernel on the current stream of the tensors' device: a compact,
+    row-major or top-2 call that :func:`sweep_plan` accepts goes to
+    ``block_min_compact.cu`` unless ``mma_sync`` (the old kernel, kept as a
+    same-run yardstick), every other call to ``block_min_sweep.cu``."""
     device = q_aug.device
     for label, t in (("db_aug", db_aug), ("penalty", penalty)):
         if t is not None and t.device != device:
@@ -722,8 +747,24 @@ def _launch(name: str, q_aug, db_aug, r: int, penalty, *, qmajor: bool,
         db_aug = db_aug.clone()
     q_aug = q_aug.contiguous()
     penalty = None if penalty is None else penalty.contiguous()
+    form = ("top2" if top2 else "compact" if compact
+            else None if qmajor else "rowmajor")
+    plan = (sweep_plan(form, n, b, d1, r, db_aug.dtype == torch.int8,
+                       torch.cuda.get_device_properties(
+                           device).multi_processor_count)
+            if form is not None and not mma_sync else None)
     nb = n // r
-    shape = (b, nb) if qmajor else (nb, b)
+    if plan is not None and form == "top2" and n % COMPACT_TILE_ROWS:
+        # the top-2 form reads rows through a view of whole 128-row tiles:
+        # a copy padded with zero rows (the searcher's rows are whole
+        # tiles), whose blocks past N / r are cut from the outputs
+        pad = COMPACT_TILE_ROWS - n % COMPACT_TILE_ROWS
+        db_aug = torch.cat([db_aug, db_aug.new_zeros(pad, d1)])
+        if penalty is not None:
+            penalty = torch.cat([penalty.reshape(-1),
+                                 penalty.new_zeros(pad)]).view(-1, r)
+        n += pad
+    shape = (b, n // r) if qmajor else (n // r, b)
     v_dtype, l_dtype = ((torch.bfloat16, torch.uint8) if compact
                         else (torch.float32, torch.int32))
     v1 = torch.empty(shape, dtype=v_dtype, device=device)
@@ -734,10 +775,6 @@ def _launch(name: str, q_aug, db_aug, r: int, penalty, *, qmajor: bool,
     def ptr(t):
         return None if t is None else t.data_ptr()
 
-    plan = (compact_plan(n, b, d1, r, db_aug.dtype == torch.int8,
-                         torch.cuda.get_device_properties(
-                             device).multi_processor_count)
-            if compact and not mma_sync else None)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         if plan is not None:
@@ -746,7 +783,8 @@ def _launch(name: str, q_aug, db_aug, r: int, penalty, *, qmajor: bool,
             err = _compact_kernel_fn()(
                 db_aug.data_ptr(), q_img.data_ptr(), ptr(penalty),
                 v1.data_ptr(), l1.data_ptr(), n, b, d1, r, plan.stages,
-                plan.run_tiles, plan.cluster, stream)
+                plan.run_tiles, plan.cluster, SWEEP_FORMS.index(form),
+                ptr(v2), ptr(l2), stream)
         else:
             kernel = "block_min_sweep"
             err = _kernel_fn()(
@@ -757,9 +795,8 @@ def _launch(name: str, q_aug, db_aug, r: int, penalty, *, qmajor: bool,
     if err != 0:
         raise RuntimeError(f"{kernel} kernel launch failed: CUDA error {err}")
     LAUNCHES[name] += 1
-    if compact:
-        COMPACT_LAUNCHES[kernel] += 1
-    return (v1, l1, v2, l2) if top2 else (v1, l1)
+    LAUNCHES_BY_KERNEL[name][kernel] += 1
+    return (v1[:nb], l1[:nb], v2[:nb], l2[:nb]) if top2 else (v1, l1)
 
 
 def block_min_sweep(q_aug: torch.Tensor, db_aug: torch.Tensor, *,

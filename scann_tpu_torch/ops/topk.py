@@ -181,3 +181,8 @@ def keep_best_per_id(vals: torch.Tensor, ids: torch.Tensor, out_k: int,
         return out_v, out_i
     return out_v, out_i, torch.gather(torch.gather(payload, -1, order), -1,
                                       pos)
+
+
+def radius_search_mask(dists: torch.Tensor, radius: float) -> torch.Tensor:
+    """Boolean mask of the points within ``radius`` (``dists <= radius``)."""
+    return dists <= radius

@@ -61,3 +61,14 @@ def on_card(t: torch.Tensor, fn_name: str) -> bool:
         raise ValueError(f"{fn_name} runs on CPU or CUDA tensors, got "
                          f"{t.device}")
     return True
+
+
+def pad_rows(arr: np.ndarray, multiple: int, fill=0) -> np.ndarray:
+    """Pad the leading dimension of ``arr`` up to a multiple of ``multiple``
+    (numpy, as the JAX package pads host arrays)."""
+    n = arr.shape[0]
+    n_pad = align_up(max(n, 1), multiple)
+    if n_pad == n:
+        return arr
+    pad_widths = [(0, n_pad - n)] + [(0, 0)] * (arr.ndim - 1)
+    return np.pad(arr, pad_widths, constant_values=fill)

@@ -13,6 +13,9 @@ candidates from, on the device:
   - the id-embedded CSR store (:func:`build_csr_rerank_store`): rows in CSR
     order with the point id in ``ID_LANES`` base-256 digit lanes.
 
+:class:`ReorderingHelper` re-ranks given candidate lists against a dataset
+exactly, as the JAX package's helper does.
+
 The codecs are the JAX package's numpy code, so their codes equal its bytes.
 numpy's uint16 int16 codes are stored in ``torch.int16`` as ``code - 32768``
 (torch indexes int16 on the card; uint16 has few CUDA ops) and decode to the
@@ -26,7 +29,14 @@ from typing import Callable, Optional, Tuple, Union
 import numpy as np
 import torch
 
-from scann_tpu_torch.types import align_up
+from scann_tpu_torch.ops.distances import DistanceMeasure, gathered_distances
+from scann_tpu_torch.ops.topk import top_k_smallest
+from scann_tpu_torch.types import (
+    DEFAULT_DEVICE,
+    MASKED_DISTANCE,
+    align_up,
+    require_device,
+)
 
 ID_LANES = 4  # base-256 digits: ids to 2**32, exact in bf16 / f32 / u8 lanes
 
@@ -50,6 +60,38 @@ def decode_codes(store: torch.Tensor) -> torch.Tensor:
     """float32 values of stored codes (int16 stores add the offset back)."""
     x = store.float()
     return x + _U16_OFFSET if store.dtype == torch.int16 else x
+
+
+class ReorderingHelper:
+    """Exact re-rank of given candidate lists (the JAX package's
+    ``ReorderingHelper``), on ``device``."""
+
+    def __init__(self, distance_measure: DistanceMeasure =
+                 DistanceMeasure.SQUARED_L2,
+                 device: Union[str, torch.device] = DEFAULT_DEVICE):
+        self.distance_measure = distance_measure
+        self.device = torch.device(device)
+
+    def reorder(self, dataset, queries: np.ndarray, candidates: np.ndarray,
+                k: int) -> Tuple[np.ndarray, np.ndarray]:
+        """``dataset`` a DenseDataset, ``queries`` [B, D] (or one [D]),
+        ``candidates`` [B, C] row indices, -1 where missing -> (ids [B, k']
+        int32, distances [B, k'] float32) ascending, k' = min(k, C); -1 and
+        inf where fewer than k' candidates are real."""
+        dev = require_device(self.device)
+        db = dataset.device_tensor(dev)
+        q = torch.as_tensor(np.asarray(queries, np.float32), device=dev)
+        cand = torch.as_tensor(np.asarray(candidates, np.int64), device=dev)
+        q = q[None] if q.dim() == 1 else q
+        cand = cand[None] if cand.dim() == 1 else cand
+        dists = gathered_distances(self.distance_measure, q,
+                                   db[cand.clamp_min(0)])
+        dists = torch.where(cand >= 0, dists, float(MASKED_DISTANCE))
+        vals, pos = top_k_smallest(dists, min(k, cand.shape[1]))
+        idx = torch.gather(cand, 1, pos)
+        missing = vals >= MASKED_DISTANCE / 2
+        return (torch.where(missing, -1, idx).int().cpu().numpy(),
+                torch.where(missing, float("inf"), vals).cpu().numpy())
 
 
 def rerank_codec(data: np.ndarray, n: int, dtype: str):

@@ -532,6 +532,143 @@ def test_block_min_compact_kernel_matches_twin(n, d, b, r, penalty, int8_rows,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("form", ["rowmajor", "top2"])
+@pytest.mark.parametrize("n,d,b,r,penalty,int8_rows,kernel", [
+    # the wgmma kernel (csrc/block_min_compact.cu): each r, B not a
+    # multiple of 128, a ragged last tile, D1 = 8 / 104 / 136, the penalty,
+    # r = 256 across two tiles
+    (4096, 100, 70, 8, False, False, "block_min_compact"),
+    (4096 + 8, 7, 300, 8, True, False, "block_min_compact"),
+    (4096, 100, 130, 16, True, False, "block_min_compact"),
+    (4096 + 32, 100, 200, 32, False, False, "block_min_compact"),
+    (4096, 100, 512, 64, False, False, "block_min_compact"),
+    (4096 + 64, 100, 600, 64, True, False, "block_min_compact"),
+    (8192, 130, 1, 128, True, False, "block_min_compact"),
+    (8192, 100, 1024, 128, False, False, "block_min_compact"),
+    (8192, 100, 200, 256, True, False, "block_min_compact"),
+    (8192, 100, 64, 256, False, False, "block_min_compact"),
+    # the mma.sync kernel (csrc/block_min_sweep.cu): int8 rows, r < 8
+    (4096, 100, 64, 64, True, True, "block_min_sweep"),
+    (4096, 100, 64, 4, False, False, "block_min_sweep"),
+])
+def test_block_min_rowmajor_kernels_match_twin(form, n, d, b, r, penalty,
+                                               int8_rows, kernel):
+    """#3 and #6 through their wrappers against their twins with
+    check_against_twin: values within 1e-5 * sum|terms| + 1e-5, offsets
+    reaching the twin's; one launch of the kernel that sweep_plan names."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from scann_tpu_torch.ops import sweep as sw
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.default_rng(n + d + b + r + len(form))
+    q_aug, aug, pen = _sweep_inputs(rng, n=n, d=d, b=b, r=r,
+                                    int8_rows=int8_rows, penalty=penalty)
+    plan = sw.sweep_plan(form, n, b, aug.shape[1], r, int8_rows)
+    assert (plan is not None) == (kernel == "block_min_compact")
+    name = "block_min2" if form == "top2" else "block_min"
+    sw.reset_launches()
+    fn = sw.block_min2_sweep if form == "top2" else sw.block_min_sweep
+    got = fn(q_aug, aug, r=r, penalty=pen)
+    torch.cuda.synchronize()
+    assert sw.LAUNCHES[name] == 1 and sum(sw.LAUNCHES.values()) == 1
+    assert sw.LAUNCHES_BY_KERNEL[name][kernel] == 1
+    assert sum(sw.LAUNCHES_BY_KERNEL[name].values()) == 1
+    assert [tuple(t.shape) for t in got] == [(n // r, b)] * len(got)
+    report = sw.check_against_twin(form, got, q_aug, aug, r=r, penalty=pen)
+    assert report["checked"] == (n // r) * b * (2 if form == "top2" else 1)
+    assert report["loc_equal"] > 0.9
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", ["rowmajor", "top2", "compact"])
+@pytest.mark.parametrize("r,b", [(8, 130), (16, 64), (64, 512), (128, 200),
+                                 (256, 70)])
+@pytest.mark.parametrize("penalty", [False, True])
+def test_block_min_kernels_break_ties_as_the_twin(form, r, b, penalty):
+    """Integer-valued bf16 rows and queries (|v| <= 8) and a penalty of 0
+    or 256: every float32 sum is exact in any order, so the new kernel's
+    values and offsets equal the twin's bit for bit, the tournament's tie
+    order included."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from scann_tpu_torch.ops import sweep as sw
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.default_rng(r + b + 3 * penalty)
+    n, d1 = 8192 + (0 if r > 64 else r), 104
+    rows = torch.from_numpy(rng.integers(-8, 9, size=(n, d1)).astype(
+        np.float32)).to(torch.bfloat16).cuda()
+    rows[0:n - 1:5] = rows[1::5]    # repeated rows: ties inside blocks
+    q = torch.from_numpy(rng.integers(-8, 9, size=(b, d1)).astype(
+        np.float32)).to(torch.bfloat16).cuda()
+    pen = None
+    if penalty:
+        pen = torch.from_numpy(np.where(rng.random((n // r, r)) < 0.3, 256.0,
+                                        0.0).astype(np.float32)).to(
+            torch.bfloat16).cuda()
+    assert sw.sweep_plan(form, n, b, d1, r, False) is not None
+    sw.reset_launches()
+    if form == "top2":
+        got = sw.block_min2_sweep(q, rows, r=r, penalty=pen)
+        want = sw.block_min2_sweep_reference(q, rows, r=r, penalty=pen)
+        name = "block_min2"
+    elif form == "rowmajor":
+        got = sw.block_min_sweep(q, rows, r=r, penalty=pen)
+        want = sw.block_min_sweep_reference(q, rows, r=r, penalty=pen)
+        name = "block_min"
+    else:
+        got = sw.block_min_sweep_qmajor(q, rows, r=r, penalty=pen,
+                                        compact=True)
+        want = sw.block_min_sweep_qmajor_reference(q, rows, r=r, penalty=pen,
+                                                   compact=True)
+        name = "block_min_qmajor_compact"
+    torch.cuda.synchronize()
+    assert sw.LAUNCHES_BY_KERNEL[name] == {"block_min_compact": 1,
+                                           "block_min_sweep": 0}
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype
+        assert torch.equal(g, w)
+    if form == "top2":      # the tie rule is exercised
+        assert bool((got[2] == got[0]).any())
+
+
+@pytest.mark.cuda
+def test_block_min_rowmajor_kernels_reject_bad_arguments():
+    """A call the plan accepts raises on bad arguments instead of falling
+    back; the C entry point refuses a top-2 call without its seconds."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from scann_tpu_torch.ops import sweep as sw
+
+    rng = np.random.default_rng(1)
+    q_aug, aug, _ = _sweep_inputs(rng, n=4096, d=100, b=16, r=64,
+                                  int8_rows=False, penalty=False)
+    with pytest.raises(ValueError, match="penalty"):
+        sw.block_min2_sweep(q_aug, aug, r=64,
+                            penalty=torch.zeros(64, 32, dtype=torch.bfloat16,
+                                                device="cuda"))
+    with pytest.raises(ValueError, match="multiple"):
+        sw.block_min_sweep(q_aug, aug[:4000], r=64)
+    with pytest.raises(ValueError, match="width"):
+        sw.block_min2_sweep(q_aug[:, :96].contiguous(), aug, r=64)
+    plan = sw.sweep_plan("top2", 4096, 16, aug.shape[1], 64, False)
+    out = torch.empty(64, 16, device="cuda")
+    img = sw.block_min_compact_query_image(q_aug)
+    stream = torch.cuda.current_stream().cuda_stream
+    err = sw._compact_kernel_fn()(
+        aug.data_ptr(), img.data_ptr(), None, out.data_ptr(), out.data_ptr(),
+        4096, 16, aug.shape[1], 64, plan.stages, plan.run_tiles,
+        plan.cluster, 2, None, None, stream)
+    assert err != 0
+    err = sw._compact_kernel_fn()(
+        aug.data_ptr(), img.data_ptr(), None, out.data_ptr(), out.data_ptr(),
+        4096, 16, aug.shape[1], 64, plan.stages, plan.run_tiles,
+        plan.cluster, 3, None, None, stream)
+    assert err != 0
+
+
+@pytest.mark.cuda
 def test_block_min_sweep_kernel_rejects_bad_arguments():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
