@@ -15,23 +15,26 @@ queries:
   configuration), checks the four forms of the CUDA block-min kernels
   against their twins on the first batch's real augmented queries and the
   full augmented copy (with an allowlist penalty and int8 rows as well): the
-  main compact, row-major (r=128) and top-2 (r=64, B=512) calls through the
-  wgmma kernel of ``block_min_compact.cu``, their int8 + penalty calls
-  through ``block_min_sweep.cu``, as ``ops/sweep.sweep_plan`` routes them;
-  serves the batches through ``BlockSweepSearcher.search_batched_tensors``
-  (recall@10 >= 0.99, every compact launch on the new kernel), drives the
-  other three forms through the searcher (top2 and block_r=128, each on the
-  new kernel alone with recall@10 >= 0.99 and its batch median, and
-  block_r=512 at B=128), and times #3, #5 and #6 beside the old kernel's
-  instances of the same calls in turns;
+  main compact, row-major (r=128), top-2 (r=64, B=512) and float32 q-major
+  (r=512, B=128) calls through the wgmma kernel of ``block_min_compact.cu``,
+  their int8 + penalty calls through ``block_min_sweep.cu``, as
+  ``ops/sweep.sweep_plan`` routes them; serves the batches through
+  ``BlockSweepSearcher.search_batched_tensors`` (recall@10 >= 0.99, every
+  compact launch on the new kernel), drives the other three forms through
+  the searcher (top2 and block_r=128 with recall@10 >= 0.99, block_r=512 at
+  B=128, each on the new kernel alone, with its batch median on both
+  kernels), and times #3, #4, #5 and #6 beside the old kernel's instances
+  of the same calls in turns;
 - asymmetric hashing: builds the PQ index on the card (S=50, C=16, the JAX
   package's bench.py configuration), checks the fused int8 LUT16 sweep
-  kernel (bit for bit) and the LUT16 score kernel against their twins on the
-  first batch's real tables, serves the batches through
+  kernel and the query-tiled LUT16 score kernel (at B=1024 bf16, B=128
+  float32 and the 16,384-row hasher's call) against their twins bit for
+  bit on the first batch's real tables, serves the batches through
   ``AsymmetricHasher.search_batched_tensors`` with pre_k=300 (the fused
-  sweep, recall@10 >= 0.9), and drives the score kernel through the
+  sweep, recall@10 >= 0.9), drives the score kernel through the
   approximate-only path (B=128, float32 scores) and a 16,384-row hasher's
-  re-rank path (bf16 scores);
+  re-rank path (bf16 scores), and times the score kernel and both paths
+  beside the one-column-a-thread kernel it replaced, in turns;
 - exact brute force: serves the batches through
   ``BruteForceSearcher.search_batched_tensors`` (the composed path,
   recall@10 >= 0.999), then at the JAX package's bench.py headline shape
@@ -62,8 +65,8 @@ with CUDA events (the grouped and per-pair SOAR paths also at twice the
 batch, past the pair density where groups widen). The grouped scorer's
 times (#1 on both indexes, #1b) stand beside its output contract's
 traffic floor and its shared-memory lookup floors; [2] reports registers
-and spills of every instance of #1/#1b, #10 and the three forms of
-``block_min_compact.cu`` (#3, #5, #6).
+and spills of every instance of #1/#1b, #8, #10 and the four forms of
+``block_min_compact.cu`` (#3, #4, #5, #6).
 
     python3 chip_smoke.py
 
@@ -108,6 +111,10 @@ PEAK_BF16, PEAK_INT8, PEAK_F32, PEAK_HBM = 989e12, 1979e12, 67e12, 3.35e12
 # as 2), two adds per lane per clock (IADD3 sums three operands):
 # 132 SMs x 64 x 2 x 1.98 GHz
 PEAK_I32_ADD = PEAK_F32 / 2
+# float32 adds outside the tensor cores: PEAK_F32 counts an FMA as two
+# operations, a plain add is one a lane a clock on the 128 float32 lanes of
+# an SM: 132 SMs x 128 x 1.98 GHz (the LUT sums of #1, #8 and #10)
+PEAK_F32_ADD = PEAK_F32 / 2
 
 
 def log(msg: str) -> None:
@@ -294,21 +301,32 @@ def main() -> int:
     log("[2 kernel build] tree_ah_leaf (#10), ptxas: " + "; ".join(
         kernel_ptxas(native.saved_logs.get("tree_ah_leaf", ""),
                      "tree_ah_leaf_kernel", lambda c: f"C={c}")))
-    forms = ("compact #5", "rowmajor #3", "top2 #6")
+    forms = ("compact #5", "rowmajor #3", "top2 #6", "qmajor #4")
     compact_ptxas = kernel_ptxas(
         native.saved_logs.get("block_min_compact", ""),
         "block_min_compact_kernel",
         lambda ks, rt, p, f: f"{forms[f]} KS={ks} r={rt}"
         f"{'+' if rt == 128 else ''}{' penalty' if p else ''}")
-    log("[2 kernel build] block_min_compact (#3, #5, #6), ptxas: "
+    log("[2 kernel build] block_min_compact (#3, #4, #5, #6), ptxas: "
         + "; ".join(compact_ptxas))
     log("[2 kernel build] block_min_compact main instances (D1 104, KS=8), "
         "ptxas: " + "; ".join(
             ln for ln in compact_ptxas for want in (
                 "compact #5 KS=8 r=64:", "rowmajor #3 KS=8 r=128+:",
-                "top2 #6 KS=8 r=64:", "compact #5 KS=8 r=64 penalty:",
+                "top2 #6 KS=8 r=64:", "qmajor #4 KS=8 r=128+:",
+                "compact #5 KS=8 r=64 penalty:",
                 "rowmajor #3 KS=8 r=128+ penalty:",
-                "top2 #6 KS=8 r=64 penalty:") if ln.startswith(want)))
+                "top2 #6 KS=8 r=64 penalty:",
+                "qmajor #4 KS=8 r=128+ penalty:") if ln.startswith(want)))
+    score_log = native.saved_logs.get("lut16_scoring", "")
+    log("[2 kernel build] lut16_score (#8) query-tiled instances (the main "
+        "ones: 128 queries a tile, float32 and bf16 out), ptxas: "
+        + "; ".join(kernel_ptxas(
+            score_log, "lut16_score_tiled_kernel",
+            lambda qs, bf: f"q_tile {8 * qs} {'bf16' if bf else 'float32'}"))
+        + "; the one-column-a-thread yardstick: " + "; ".join(kernel_ptxas(
+            score_log, "lut16_score_kernel",
+            lambda bf: f"{'bf16' if bf else 'float32'}")))
     log("[2 kernel build] tree_ah_grouped (#1, #1b), ptxas: " + "; ".join(
         kernel_ptxas(native.saved_logs.get("tree_ah_grouped", ""),
                      "tree_ah_grouped_kernel",
@@ -458,7 +476,7 @@ def main() -> int:
     tree_bound, tree_by, tree_bytes, tree_ops = leaf_bound(
         parts, part_sizes, s=n_sub, c=cb.shape[1], entry_bytes=2,
         row_bytes=(n_sub + 1) // 2 if packed else n_sub, out_bytes=2,
-        l_cap=l_cap, index_bytes=n_groups * 8, peak=PEAK_F32)
+        l_cap=l_cap, index_bytes=n_groups * 8, peak=PEAK_F32_ADD)
     log(f"[7 kernel time] grouped leaf scorer, L2 flushed: kernel "
         f"{kernel_ms:.4f} ms, plain twin {plain_ms:.4f} ms, bound "
         f"{tree_bound:.4f} ms, bound by {tree_by} ({tree_bytes} bytes, "
@@ -576,6 +594,40 @@ def event_ms(search, queries, batch, batches, reps=3):
     return float(np.median(times)), float(np.max(times))
 
 
+def back_to_back_ms(launch, reps):
+    """ms a call of ``launch`` (a kernel's C entry with its arguments bound)
+    takes back to back on the stream, L2 warm: the kernel's own time,
+    without the wrapper's host work between launches."""
+    import torch
+
+    if launch() != 0:
+        raise AssertionError("the raw launch failed")
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(reps):
+        launch()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / reps
+
+
+def host_us(call, reps=200):
+    """Microseconds of host time a call takes on an input small enough
+    that the card never holds the host back."""
+    import torch
+
+    call()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        call()
+    t = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return t / reps * 1e6
+
+
 def block_sweep_phases(ds, queries, db_dev, gt_np, cold_ms, turns, smi):
     """Phases 8-11, the block sweep; returns the kernels' JSON records."""
     import numpy as np
@@ -645,7 +697,9 @@ def block_sweep_phases(ds, queries, db_dev, gt_np, cold_ms, turns, smi):
         "block_min": sw.sweep_plan("rowmajor", aug128.shape[0], BATCH, d1,
                                    128, False, sms),
         "block_min2": sw.sweep_plan("top2", n_pad, BATCH // 2, d1, SWEEP_R,
-                                    False, sms)}
+                                    False, sms),
+        "block_min_qmajor": sw.sweep_plan("qmajor", aug512.shape[0], 128,
+                                          d1, 512, False, sms)}
     for name, plan in plans.items():
         log(f"[9 sweep plan] {name}: {plan}")
         if plan is None:
@@ -666,8 +720,9 @@ def block_sweep_phases(ds, queries, db_dev, gt_np, cold_ms, turns, smi):
     check_served("block_min_compact", "block_min", "rowmajor",
                  sw.block_min_sweep(q_aug, aug128, r=128), q_aug, aug128, 128,
                  None, "")
-    check("block_min_qmajor", "qmajor",
-          sw.block_min_sweep_qmajor(q_512, aug512, r=512), q_512, aug512, 512)
+    check_served("block_min_compact", "block_min_qmajor", "qmajor",
+                 sw.block_min_sweep_qmajor(q_512, aug512, r=512), q_512,
+                 aug512, 512, None, "")
     check_served("block_min_compact", "block_min2", "top2",
                  sw.block_min2_sweep(q_top2, aug64, r=SWEEP_R), q_top2, aug64,
                  SWEEP_R, None, "")
@@ -675,6 +730,11 @@ def block_sweep_phases(ds, queries, db_dev, gt_np, cold_ms, turns, smi):
     allow = np.random.default_rng(SEED + 1).random(ds.size) < 0.5
     pen64 = main_s._allow_penalty(allow, n_pad).to(dev)
     pen128 = r128_s._allow_penalty(allow, aug128.shape[0]).to(dev)
+    pen512 = r512_s._allow_penalty(allow, aug512.shape[0]).to(dev)
+    check_served("block_min_compact", "block_min_qmajor", "qmajor",
+                 sw.block_min_sweep_qmajor(q_512, aug512, r=512,
+                                           penalty=pen512),
+                 q_512, aug512, 512, pen512, " + penalty")
     check_served("block_min_compact", "block_min", "rowmajor",
                  sw.block_min_sweep(q_aug, aug128, r=128, penalty=pen128),
                  q_aug, aug128, 128, pen128, " + penalty")
@@ -692,8 +752,12 @@ def block_sweep_phases(ds, queries, db_dev, gt_np, cold_ms, turns, smi):
             allow, n_pad, r, inv_perm=main_s._inv_host,
             mask_value=4.0 * sw.INT8_NORM_DIGIT_MAX * sn).to(dev)
 
-    pen8, pen8_128 = pen_int8(SWEEP_R), pen_int8(128)
+    pen8, pen8_128, pen8_512 = pen_int8(SWEEP_R), pen_int8(128), pen_int8(512)
     label8 = " + int8 rows + penalty"
+    check_served("block_min_sweep", "block_min_qmajor", "qmajor",
+                 sw.block_min_sweep_qmajor(q_aug8[:128], aug8, r=512,
+                                           penalty=pen8_512),
+                 q_aug8[:128], aug8, 512, pen8_512, label8)
     check_served("block_min_sweep", "block_min_qmajor_compact", "compact",
                  sw.block_min_sweep_qmajor(q_aug8, aug8, r=SWEEP_R,
                                            compact=True, penalty=pen8),
@@ -745,10 +809,11 @@ def block_sweep_phases(ds, queries, db_dev, gt_np, cold_ms, turns, smi):
         f"{dict(sw.COMPACT_LAUNCHES)}")
     launcher = sw._launch
     side_medians = {}
-    for s, name, label, want in ((top2_s, "block_min2", "top2 r=64", 2),
-                                 (r128_s, "block_min", "r=128", 1)):
-        side_recall = run(s, queries[:BATCH], BATCH, name, label,
-                          SWEEP_RECALL_FLOOR)
+    for s, name, label, want, batch, floor in (
+            (top2_s, "block_min2", "top2 r=64", 2, BATCH, SWEEP_RECALL_FLOOR),
+            (r128_s, "block_min", "r=128", 1, BATCH, SWEEP_RECALL_FLOOR),
+            (r512_s, "block_min_qmajor", "r=512 B=128", 1, 128, None)):
+        side_recall = run(s, queries[:batch], batch, name, label, floor)
         by_kernel = dict(sw.LAUNCHES_BY_KERNEL[name])
         if by_kernel != {"block_min_compact": want, "block_min_sweep": 0}:
             raise AssertionError(f"{label}: launches by kernel {by_kernel}, "
@@ -762,20 +827,19 @@ def block_sweep_phases(ds, queries, db_dev, gt_np, cold_ms, turns, smi):
             try:
                 meds.append(event_ms(
                     lambda qb: s.search_batched_tensors(qb, K), queries,
-                    BATCH, BATCHES))
+                    batch, BATCHES))
             finally:
                 sw._launch = launcher
         med = float(np.median([meds[0][0], meds[3][0]]))
-        side_medians[name] = med
+        side_medians[label] = med
         log(f"[10 sweep search/{label}] launches by kernel {by_kernel}; "
-            f"search_batched_tensors, B={BATCH}, n={3 * BATCHES} batches a "
+            f"search_batched_tensors, B={batch}, n={3 * BATCHES} batches a "
             f"turn, median (max) ms on block_min_compact.cu "
             f"{meds[0][0]:.4f} ({meds[0][1]:.4f}), {meds[3][0]:.4f} "
             f"({meds[3][1]:.4f}), on the old kernel {meds[1][0]:.4f} "
             f"({meds[1][1]:.4f}), {meds[2][0]:.4f} ({meds[2][1]:.4f}) -> "
-            f"{BATCH / med * 1e3:.0f} queries/s at recall@10 "
+            f"{batch / med * 1e3:.0f} queries/s at recall@10 "
             f"{side_recall:.4f} ({smi})")
-    run(r512_s, queries[:128], 128, "block_min_qmajor", "r=512 B=128")
 
     # -- 11. timings -----------------------------------------------------------------
     forms = [  # name, source line, kernel, twin, (B, rows, r, out bytes)
@@ -818,10 +882,13 @@ def block_sweep_phases(ds, queries, db_dev, gt_np, cold_ms, turns, smi):
         if name in plans:
             # the same call on the mma.sync kernel it replaces, same run
             q, top2 = {"block_min": (q_aug, False),
-                       "block_min2": (q_top2, True)}.get(name, (q_aug, False))
+                       "block_min2": (q_top2, True),
+                       "block_min_qmajor": (q_512, False)}.get(
+                           name, (q_aug, False))
             compact = name == "block_min_qmajor_compact"
+            qmajor = compact or name == "block_min_qmajor"
             old_ms, new_ms = turns(
-                lambda: sw._launch(name, q, aug, r, None, qmajor=compact,
+                lambda: sw._launch(name, q, aug, r, None, qmajor=qmajor,
                                    compact=compact, top2=top2,
                                    mma_sync=True),
                 kernel, 20, 20)
@@ -830,6 +897,38 @@ def block_sweep_phases(ds, queries, db_dev, gt_np, cold_ms, turns, smi):
                 f"({b_ms / old_ms:.3f} of the bound), block_min_compact.cu "
                 f"{new_ms:.4f} ms ({b_ms / new_ms:.3f} of the bound), "
                 f"{old_ms / new_ms:.2f}x; plan {plans[name]} ({smi})")
+        if name == "block_min_qmajor":
+            # the kernels alone, launched back to back through their C
+            # entries (the wrapper's host work, which the cold timings
+            # above include where it outlasts the card's, left out), in
+            # turns new, old, old, new; and the wrappers' host time a call
+            plan4 = plans[name]
+            v4 = torch.empty(128, n_rows // r, device=dev)
+            l4 = torch.empty(128, n_rows // r, dtype=torch.int32, device=dev)
+            stream = torch.cuda.current_stream().cuda_stream
+            new4 = functools.partial(
+                sw._compact_kernel_fn(), aug.data_ptr(), q.data_ptr(),
+                None, v4.data_ptr(), l4.data_ptr(), n_rows, 128, width, r,
+                plan4.stages, plan4.run_tiles, plan4.cluster,
+                sw.SWEEP_FORMS.index("qmajor"), None, None, stream)
+            old4 = functools.partial(
+                sw._kernel_fn(), aug.data_ptr(), q.data_ptr(), None,
+                v4.data_ptr(), l4.data_ptr(), None, None, n_rows, 128, width,
+                r, 0, 0, 1, 0, stream)
+            raw = [back_to_back_ms(f, 20) for f in (new4, old4, old4, new4)]
+            q8, aug8r = q[:8].contiguous(), aug[:128 * r]
+            h_new = host_us(lambda: sw.block_min_sweep_qmajor(q8, aug8r,
+                                                              r=r))
+            h_old = host_us(lambda: sw._launch(
+                name, q8, aug8r, r, None, qmajor=True, compact=False,
+                top2=False, mma_sync=True))
+            log(f"[11 kernel time] block_min_qmajor back to back, L2 warm, "
+                f"in turns: block_min_compact.cu {raw[0]:.4f}, "
+                f"{raw[3]:.4f} ms ({b_ms / raw[0]:.3f}, {b_ms / raw[3]:.3f} "
+                f"of the bound), block_min_sweep.cu {raw[1]:.4f}, "
+                f"{raw[2]:.4f} ms; host time a call of the wrapper (B=8, "
+                f"{128 * r} rows): {h_new:.1f} us on block_min_compact.cu, "
+                f"{h_old:.1f} us on block_min_sweep.cu ({smi})")
         records.append({
             "name": name, "route": "cuda",
             "source": f"scann_tpu_torch/csrc/{source}.cu",
@@ -877,7 +976,7 @@ def block_sweep_phases(ds, queries, db_dev, gt_np, cold_ms, turns, smi):
         f"{med:.4f} ms, max {top:.4f} ms -> {BATCH / med * 1e3:.0f} "
         f"queries/s at recall@10 {recall:.4f} ({smi})")
     log("[11 sweep search time] side paths on block_min_compact.cu, median "
-        "per batch of 1024: " + ", ".join(
+        "per batch: " + ", ".join(
             f"{n} {v:.4f} ms" for n, v in side_medians.items())
         + f" ({smi})")
     return records
@@ -959,22 +1058,36 @@ def hasher_phases(ds, queries, db_dev, gt_np, cold_ms, turns, smi):
         mag = bits & (0x7FFF if x.dtype == torch.bfloat16 else 0x7FFFFFFF)
         return torch.where(bits < 0, -mag, mag)
 
+    # the 16,384-row hasher's tables and codes (its own codebook)
+    luts_small = ah._ah_luts(q0, small.codebook.centroids, measure)
+    codes_small = small._device_codes_t()
     score_err = 0.0
-    for b, dtype in ((BATCH, torch.bfloat16), (AH_APPROX_B, torch.float32)):
-        got = sk.lut16_score(luts[:b], codes_t, dtype)
+    for label, lb, ct, dtype in (
+            ("timing shape", luts, codes_t, torch.bfloat16),
+            ("approximate only", luts[:AH_APPROX_B], codes_t, torch.float32),
+            (f"{AH_SMALL_N} rows re-rank", luts_small, codes_small,
+             torch.bfloat16)):
+        sk.reset_launches()
+        got = sk.lut16_score(lb, ct, dtype)
         torch.cuda.synchronize()
-        want = sk.lut16_score_reference(luts[:b], codes_t, dtype)
+        served = dict(sk.SCORE_LAUNCHES)
+        want = sk.lut16_score_reference(lb, ct, dtype)
         same = torch.equal(got, want)
         ulp = 0 if same else int((order(got) - order(want)).abs().max())
         err = float((got.float() - want.float()).abs().max())
         score_err = max(score_err, err)
-        log(f"[13 kernel check] lut16_score: B={b}, {dtype}, codes "
-            f"{list(codes_t.shape)} -> {list(got.shape)}: bit-identical "
-            f"{same}, max {ulp} ulp, max abs err {err} (tolerance: bit for "
-            f"bit, both add bf16 entries in ascending s in float32)")
+        log(f"[13 kernel check] lut16_score ({label}): B={lb.shape[0]}, "
+            f"{dtype}, codes {list(ct.shape)} -> {list(got.shape)}, plan "
+            f"{sk.lut16_score_plan(lb.shape[0], AH_S, AH_C, ct.shape[1])}, "
+            f"launches by kernel {served}: bit-identical {same}, max {ulp} "
+            f"ulp, max abs err {err} (tolerance: bit for bit, both add bf16 "
+            f"entries in ascending s in float32)")
         if not same:
             raise AssertionError(f"lut16_score ({dtype}) differs from its "
                                  f"twin by up to {ulp} ulp")
+        if served != {"query_tiled": 1, "column_per_thread": 0}:
+            raise AssertionError(f"lut16_score ({label}) served by {served}, "
+                                 f"not the query-tiled kernel alone")
         del got, want
 
     # -- 14. search through the entry point: each path counted from zero ---------
@@ -1003,6 +1116,10 @@ def hasher_phases(ds, queries, db_dev, gt_np, cold_ms, turns, smi):
             f"rel err {err:.3g}, host wall {wall:.3f}s")
         if counts[kernel] <= 0:
             raise AssertionError(f"{label}: {kernel} was never launched")
+        if kernel == "lut16_score" and sk.SCORE_LAUNCHES != {
+                "query_tiled": counts[kernel], "column_per_thread": 0}:
+            raise AssertionError(f"{label}: lut16_score launches by kernel "
+                                 f"{sk.SCORE_LAUNCHES}, not all query-tiled")
         if floor is not None and recall < floor:
             raise AssertionError(f"{label}: recall@10 {recall} < {floor}")
         return recall
@@ -1040,23 +1157,92 @@ def hasher_phases(ds, queries, db_dev, gt_np, cold_ms, turns, smi):
         f"bytes) -> {f_ops / f_ms / 1e9:.1f} TOPS, {f_bound / f_ms:.3f} of "
         f"the bound ({smi})")
     score = {}
-    for b, dtype in ((BATCH, torch.bfloat16), (AH_APPROX_B, torch.float32)):
-        lb = luts[:b]
-        k_ms, p_ms = turns(lambda: sk.lut16_score(lb, codes_t, dtype),
-                           lambda: sk.lut16_score_reference(lb, codes_t,
-                                                            dtype), 10, 2)
+    for label, lb, ct, dtype, reps in (
+            ("approximate only", luts[:AH_APPROX_B], codes_t, torch.float32,
+             10),
+            (f"{AH_SMALL_N} rows re-rank", luts_small, codes_small,
+             torch.bfloat16, 50),
+            ("timing shape", luts, codes_t, torch.bfloat16, 10)):
+        k_ms, p_ms = turns(lambda: sk.lut16_score(lb, ct, dtype),
+                           lambda: sk.lut16_score_reference(lb, ct, dtype),
+                           reps, 2)
+        # the same call on the one-column-a-thread kernel it replaced, in
+        # turns new, old, old, new
+        old_ms, new_ms = turns(
+            lambda: sk._score_launch(lb, ct, dtype, per_column=True),
+            lambda: sk.lut16_score(lb, ct, dtype), reps, reps)
         # the kernel looks entries up and sums them: one float32 add per
         # table entry per column and query, as for the grouped scorer
-        cols = codes_t.shape[1]
+        b, cols = lb.shape[0], ct.shape[1]
         ops = b * AH_S * cols
-        nbytes = (codes_t.numel() + lb.numel() * 4
+        nbytes = (ct.numel() + lb.numel() * 4
                   + b * cols * (2 if dtype == torch.bfloat16 else 4))
-        b_ms, b_by = bound(ops, PEAK_F32, nbytes)
-        score[b] = (k_ms, p_ms, b_ms, b_by)
-        log(f"[15 kernel time] lut16_score: B={b}, {dtype}, columns {cols}, "
-            f"L2 flushed: kernel {k_ms:.4f} ms, plain twin {p_ms:.4f} ms, "
-            f"bound {b_ms:.4f} ms, bound by {b_by} ({ops} float32 adds, "
-            f"{nbytes} bytes) -> {b_ms / k_ms:.3f} of the bound ({smi})")
+        b_ms, b_by = bound(ops, PEAK_F32_ADD, nbytes)
+        score[label] = (k_ms, p_ms, b_ms, b_by)
+        log(f"[15 kernel time] lut16_score ({label}): B={b}, {dtype}, "
+            f"columns {cols}, L2 flushed: kernel {k_ms:.4f} ms, plain twin "
+            f"{p_ms:.4f} ms, bound {b_ms:.4f} ms, bound by {b_by} ({ops} "
+            f"float32 adds at {PEAK_F32_ADD:.4g}/s, {nbytes} bytes) -> "
+            f"{b_ms / k_ms:.3f} of the bound; yardstick in turns: "
+            f"one-column-a-thread kernel {old_ms:.4f} ms ({b_ms / old_ms:.3f} "
+            f"of the bound), query-tiled {new_ms:.4f} ms "
+            f"({b_ms / new_ms:.3f}), {old_ms / new_ms:.2f}x; plan "
+            f"{sk.lut16_score_plan(b, AH_S, AH_C, cols)} ({smi})")
+    # the 16,384-row call's kernels alone, back to back through their C
+    # entries, in turns new, old, old, new; and the wrappers' host time
+    score_fn, _, tiled_fn = sk._kernel_fns()
+    plan8 = sk.lut16_score_plan(BATCH, AH_S, AH_C, codes_small.shape[1])
+    img8 = sk.lut16_score_table_image(luts_small, plan8.q_tile)
+    table8 = luts_small.to(torch.bfloat16).contiguous()
+    out8 = torch.empty(BATCH, codes_small.shape[1], dtype=torch.bfloat16,
+                       device=dev)
+    stream = torch.cuda.current_stream().cuda_stream
+    codes8 = codes_small.contiguous()
+    dims8 = (BATCH, AH_S, AH_C, codes8.shape[1], 1)
+    new8 = functools.partial(tiled_fn, img8.data_ptr(), codes8.data_ptr(),
+                             out8.data_ptr(), *dims8, plan8.q_tile,
+                             plan8.stage_rows, stream)
+    old8 = functools.partial(score_fn, table8.data_ptr(), codes8.data_ptr(),
+                             out8.data_ptr(), *dims8, stream)
+    raw = [back_to_back_ms(f, 50) for f in (new8, old8, old8, new8)]
+    l8, c8 = luts_small[:8], codes_small[:, :256]
+    h_new = host_us(lambda: sk.lut16_score(l8, c8, torch.bfloat16))
+    h_old = host_us(lambda: sk._score_launch(l8, c8, torch.bfloat16,
+                                             per_column=True))
+    b_small = score[f"{AH_SMALL_N} rows re-rank"][2]
+    log(f"[15 kernel time] lut16_score ({AH_SMALL_N} rows re-rank) back to "
+        f"back, L2 warm, in turns: query-tiled {raw[0]:.4f}, {raw[3]:.4f} ms "
+        f"({b_small / raw[0]:.3f}, {b_small / raw[3]:.3f} of the bound), "
+        f"one-column-a-thread {raw[1]:.4f}, {raw[2]:.4f} ms; host time a "
+        f"call of the wrapper (B=8, 256 columns): {h_new:.1f} us "
+        f"query-tiled, {h_old:.1f} us one-column-a-thread ({smi})")
+    del img8, table8, out8
+    # the two search paths that launch #8, with #8 on the query-tiled
+    # kernel and on the kernel it replaced, in turns new, old, old, new
+    tiled = ah.lut16_score
+
+    def per_column(lt, ct, out_dtype=torch.float32):
+        return sk._score_launch(lt, ct, out_dtype, per_column=True)
+
+    for s_, label, batch, prm in (
+            (h, "approximate only", AH_APPROX_B, None),
+            (small, f"{AH_SMALL_N} rows re-rank", BATCH, params)):
+        meds = []
+        for old_kernel in (False, True, True, False):
+            if old_kernel:
+                ah.lut16_score = per_column
+            try:
+                meds.append(event_ms(
+                    lambda qb: s_.search_batched_tensors(qb, K, prm),
+                    queries, batch, BATCHES))
+            finally:
+                ah.lut16_score = tiled
+        log(f"[15 hasher search time/{label}] search_batched_tensors, "
+            f"B={batch}, n={3 * BATCHES} batches a turn, median (max) ms "
+            f"with #8 query-tiled {meds[0][0]:.4f} ({meds[0][1]:.4f}), "
+            f"{meds[3][0]:.4f} ({meds[3][1]:.4f}), one-column-a-thread "
+            f"{meds[1][0]:.4f} ({meds[1][1]:.4f}), {meds[2][0]:.4f} "
+            f"({meds[2][1]:.4f}) ({smi})")
     onehot = torch.nn.functional.one_hot(h.codes.long(), AH_C).reshape(
         n, AH_S * AH_C).to(torch.bfloat16)
     lut_bf = luts.reshape(BATCH, -1).to(torch.bfloat16)
@@ -1100,7 +1286,7 @@ def hasher_phases(ds, queries, db_dev, gt_np, cold_ms, turns, smi):
         f"pre_k={AH_PRE_K}, B={BATCH}, n={3 * BATCHES} batches: median "
         f"{med:.4f} ms, max {top:.4f} ms -> {BATCH / med * 1e3:.0f} "
         f"queries/s at recall@10 {recall:.4f} ({smi})")
-    k_ms, p_ms, b_ms, b_by = score[BATCH]
+    k_ms, p_ms, b_ms, b_by = score["approximate only"]
     return [
         {"name": "lut16_fused_sweep", "route": "cuda",
          "source": "scann_tpu_torch/csrc/lut16_scoring.cu",
@@ -1769,7 +1955,7 @@ def soar_phases(ds, queries, db_dev, gt_np, cold_ms, turns, smi, base):
     b1, by1, bytes1, _ = leaf_bound(
         parts, sizes, s=n_sub, c=cb.shape[1], entry_bytes=2,
         row_bytes=(n_sub + 1) // 2, out_bytes=2, l_cap=l_cap,
-        index_bytes=n_groups * 8, peak=PEAK_F32)
+        index_bytes=n_groups * 8, peak=PEAK_F32_ADD)
     log(f"[23 kernel time] tree_ah_grouped bf16 (#1) at the SOAR shape, L2 "
         f"flushed: bit-identical {same1}, kernel {k1:.4f} ms, plain twin "
         f"{p1:.4f} ms, bound {b1:.4f} ms, bound by {by1} ({bytes1} bytes) -> "
@@ -1786,7 +1972,7 @@ def soar_phases(ds, queries, db_dev, gt_np, cold_ms, turns, smi, base):
     b10, by10, bytes10, ops10 = leaf_bound(
         parts, sizes, s=n_sub, c=cb.shape[1], entry_bytes=4, row_bytes=n_sub,
         out_bytes=4, l_cap=l_cap, index_bytes=BATCH * SOAR_P * 8,
-        peak=PEAK_F32)
+        peak=PEAK_F32_ADD)
     log(f"[23 kernel time] tree_ah_leaf (#10), L2 flushed: kernel {k10:.4f} "
         f"ms, plain twin {p10:.4f} ms, bound {b10:.4f} ms, bound by {by10} "
         f"({bytes10} bytes, {ops10} float32 adds) -> {b10 / k10:.3f} of the "

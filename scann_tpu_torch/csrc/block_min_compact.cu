@@ -1,16 +1,17 @@
 // Block-min sweeps on Hopper (sm_90a) for bf16 rows: the block-sweep
-// searcher's compact q-major kernel (#5), its row-major top-1 (#3) and its
-// top-2 tournament (#6), one kernel with the epilogue as a template
-// parameter.
+// searcher's compact q-major kernel (#5), its row-major top-1 (#3), its
+// top-2 tournament (#6) and its float32 q-major top-1 (#4), one kernel with
+// the epilogue as a template parameter.
 //
 // Replaces the TPU kernels of scann_tpu/ops/sweep_pallas.py
 //   _block_min_qmajor_compact_kernel (:300; pallas_call :378),
-//   _block_min_kernel (:247; :475) and _block_min2_kernel (:395; :516)
-// for bf16 rows, blocks of 8 <= r <= 256 rows and row widths D1 <= 256.
-// The calls it does not take (int8 rows, r < 8, wider rows, and the
-// float32 q-major form #4) stay with the mma.sync kernel of
-// csrc/block_min_sweep.cu; ops/sweep.sweep_plan decides from the arguments
-// alone, before any launch.
+//   _block_min_kernel (:247; :475), _block_min2_kernel (:395; :516) and
+//   _block_min_qmajor_kernel (:270; :378)
+// for bf16 rows, blocks of 8 <= r <= 256 rows (512 for #4) and row widths
+// D1 <= 256. The calls it does not take (int8 rows, r < 8, r past those,
+// wider rows) stay with the mma.sync kernel of csrc/block_min_sweep.cu;
+// ops/sweep.sweep_plan decides from the arguments alone, before any
+// launch.
 //
 // What it computes, for rows x_n (bf16 [N, D1]) and augmented queries q_b
 // (bf16 [B, D1]):
@@ -23,7 +24,14 @@
 //  - kRowMajor (#3): the same minimum in float32, unrounded, and its int32
 //    offset, row-major: [N/r, B];
 //  - kTop2 (#6): the first and second of the JAX package's tournament
-//    (float32 values, int32 offsets), row-major: four [N/r, B] arrays.
+//    (float32 values, int32 offsets), row-major: four [N/r, B] arrays;
+//  - kQMajor (#4): kRowMajor's minimum and offset, q-major: [B, N/r].
+//
+// #4 on the block-sweep searcher (B = 128, r = 512 over 1,245,184 rows)
+// is bound by its bytes: 259 MB of rows, 0.078 ms at 3.35 TB/s, against
+// 1.36e10 bf16 FLOP (0.014 ms); the grid shares 2432 blocks of four tiles
+// among 132 SMs, so the plan takes runs of 19 blocks (76 tiles, 128 units:
+// the busiest CTA walks 76 tiles where 73.7 is an even share).
 //
 // What bounds it on the H100, at the main shapes (N = 1,187,840 rows,
 // D1 = 104, B = 1024, r = 64): 2 * 1024 * 104 * 1,187,840 = 2.53e11 bf16
@@ -42,8 +50,9 @@
 // throwaway variants of this file; chip_smoke.py [11] times the result):
 //  - Queries on M as the A operand, in registers. A CTA holds a tile of 128
 //    queries: two consumer warpgroups of 64 each, which load their A
-//    fragments once a work unit from a query image the wrapper lays out
-//    (ops/sweep.block_min_compact_query_image; 4 registers a k16 step),
+//    fragments once a work unit straight from the [B, D1] queries (the
+//    layout ops/sweep.block_min_compact_query_image models; 4 registers a
+//    k16 step),
 //    and issue wgmma.m64n128k16.f32.bf16.bf16 with A from registers.
 //  - Rows on N as the B operand, by TMA: 2-D boxes of 128 rows x 64
 //    columns (128 bytes) in the 128-byte swizzle, read through a swizzled
@@ -86,8 +95,11 @@
 //    kernel's time (chip_smoke.py [11]). The view needs whole 128-row
 //    tiles (the wrapper pads a copy otherwise). A run is (first, second)
 //    values and their rows; a shuffle carries both rows in one register.
-//  - A block of 256 rows spans two tiles: the first tile's result waits in
-//    registers and is merged with the second's as the lower run.
+//  - A block of 256 rows spans two tiles, one of 512 (the q-major form)
+//    four: the top-1 forms carry the block's running (value, row) in
+//    registers from tile to tile, the earlier tile's on a tie, and write
+//    it at the block's last tile; the tournament merges the first tile's
+//    run with the second's as the lower run. A run holds whole blocks.
 //  - A persistent grid of clusters walks work units of two query tiles x
 //    one run of consecutive row tiles, ordered by run, so the clusters
 //    that read a run read it at about the same time. The compact form
@@ -97,6 +109,11 @@
 //    registers: at each store the lanes of a warp hold 16 consecutive
 //    queries of one or two blocks, so each store instruction writes 64
 //    contiguous bytes a block, whole 32-byte sectors, and needs no staging.
+//    The float32 q-major form stores from registers too, 4 bytes a query a
+//    block: its output is small beside the rows (2.5 MB against 259 MB at
+//    r = 512) and a query's neighbouring blocks meet in L2; with nothing
+//    staged its run length is free, and the plan picks the one that
+//    balances the grid.
 //  - Not kept: a second accumulator a warpgroup (its next tile's product
 //    in flight while it reduces the last), with 384 threads and
 //    setmaxnreg or with 64-row tiles; ptxas serialized the wgmmas (C7514,
@@ -126,9 +143,11 @@ constexpr int kBox = kRows * 128;          // one box: 128 rows x 128 bytes
 constexpr int kMaxStages = 8;
 constexpr int kMaxBoxes = 4;               // D1 <= 256
 constexpr int kMaxCluster = 2;             // CTAs sharing each row tile
+constexpr int kMaxSmem = 232448;           // shared memory a block may use
 constexpr int kConsumerBar = 1;            // named barrier of the consumers
 // the epilogues (ops/sweep.SWEEP_FORMS numbers them the same way)
-constexpr int kCompact = 0, kRowMajor = 1, kTop2 = 2;
+constexpr int kCompact = 0, kRowMajor = 1, kTop2 = 2, kQMajor = 3;
+constexpr int kMaxTilesABlock = 4;  // r <= 512 (the q-major form; else 256)
 
 __device__ __forceinline__ void mbar_arrive(uint32_t bar) {
   asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
@@ -398,18 +417,18 @@ __device__ __forceinline__ Run exchange_runs(const Run& i0, const Run& i1,
   return merge_runs(select_run(bit, recv, keep), select_run(bit, keep, recv));
 }
 
-// KS: k16 steps of a tile, 4 a box (the query image is zero past d1, the
+// KS: k16 steps of a tile, 4 a box (the A fragments are zero past d1, the
 // boxes zero past d1, so the product needs no branch between its steps);
-// RT: rows of a block within one tile (min(r, 128); r = 256 carries across
-// two tiles); PEN: the penalty; FORM: the epilogue (kCompact, kRowMajor,
-// kTop2). `cluster` CTAs (1 or 2) share each row tile: each loads
-// 128 / cluster of its rows into all of them. out_v / out_l: bf16 / u8
-// (compact) or float / int32 (row-major) minima and offsets; out_v2 /
-// out_l2 the tournament's seconds.
+// RT: rows of a block within one tile (min(r, 128); r = 256 and 512 carry
+// across two and four tiles); PEN: the penalty; FORM: the epilogue
+// (kCompact, kRowMajor, kTop2, kQMajor). `cluster` CTAs (1 or 2) share each
+// row tile: each loads 128 / cluster of its rows into all of them. out_v /
+// out_l: bf16 / u8 (compact) or float / int32 (row-major, q-major) minima
+// and offsets; out_v2 / out_l2 the tournament's seconds.
 template <int KS, int RT, bool PEN, int FORM>
 __global__ void __launch_bounds__(kThreads, 1)
 block_min_compact_kernel(const __grid_constant__ CUtensorMap rows_map,
-                         const uint4* __restrict__ q_img,
+                         const __nv_bfloat16* __restrict__ q_aug,
                          const __nv_bfloat16* __restrict__ pen,
                          void* __restrict__ out_v, void* __restrict__ out_l,
                          float* __restrict__ out_v2,
@@ -511,20 +530,25 @@ block_min_compact_kernel(const __grid_constant__ CUtensorMap rows_map,
       const int t0 = (int)(u / q_groups) * run_tiles;
       const int t1 = min(t0 + run_tiles, n_tiles);
       {
-        // a CTA past the last query tile multiplies zeros, stores nothing
-        const uint4* src =
-            q_img + ((long long)(qt * 2 + wg) * KS) * 128 + (tid & 127);
+        // the unit's A fragments straight from q_aug [b, d1]: register i
+        // of k-step ks holds the bf16 pair of query qrow + 8 (i & 1) of
+        // the tile at dimensions 16 ks + 2 t + 8 (i >> 1) + {0, 1}, zero
+        // past B and D1 (a CTA past the last query tile multiplies zeros
+        // and stores nothing)
+        const long long q0 = (long long)qt * kQ + qrow;
 #pragma unroll
-        for (int ks = 0; ks < KS; ++ks) {
-          const uint4 w =
-              qt < q_tiles ? src[ks * 128] : make_uint4(0, 0, 0, 0);
-          a[ks][0] = w.x;
-          a[ks][1] = w.y;
-          a[ks][2] = w.z;
-          a[ks][3] = w.w;
-        }
+        for (int ks = 0; ks < KS; ++ks)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const long long qq = q0 + 8 * (i & 1);
+            const int d = 16 * ks + 2 * t + 8 * (i >> 1);
+            a[ks][i] = qq < b && d < d1
+                           ? *reinterpret_cast<const uint32_t*>(
+                                 q_aug + qq * d1 + d)
+                           : 0u;
+          }
       }
-      float carry_v = 0.0f;  // r = 256: the first tile's half of the block
+      float carry_v = 0.0f;  // r > 128: the block's minimum so far
       int carry_i = 0;
       Run carry2 = {0.0f, 0.0f, 0, 0};
 
@@ -695,29 +719,37 @@ block_min_compact_kernel(const __grid_constant__ CUtensorMap rows_map,
               float val = v[0];
               int off = ix[0];
               bool write = true;
-              if (RT == kRows && r > kRows) {  // r = 256: two tiles a block
-                blk = (tile - t0) >> 1;
-                if (((tile - t0) & 1) == 0) {
+              if (RT == kRows && r > kRows) {
+                // a block over r / 128 tiles (a run holds whole blocks):
+                // the running minimum, the earlier tile's on a tie, written
+                // at the block's last tile
+                const int per = r / kRows, part = (tile - t0) & (per - 1);
+                blk = (tile - t0) / per;
+                if (part == 0 || val < carry_v) {
                   carry_v = val;
-                  carry_i = off;
-                  write = false;
-                } else if (val < carry_v) {
-                  off += kRows;
-                } else {
-                  val = carry_v;
-                  off = carry_i;
+                  carry_i = off + part * kRows;
                 }
+                write = part == per - 1;
+                val = carry_v;
+                off = carry_i;
               }
               if (write) {
                 if constexpr (FORM == kCompact) {
                   st_v[q * sv_q + blk] = __float2bfloat16_rn(val);
                   st_l[q * lay.stride_l + blk] = (uint8_t)off;
                 } else {
+                  // row-major [N/r, B] or q-major [B, N/r], from registers:
+                  // a row-major store covers 16 queries of a block (64
+                  // bytes); the q-major output (2.5 MB at B = 128, r = 512)
+                  // is written 4 bytes a query and meets in L2
                   const long long gblk = (long long)t0 * kRows / r + blk;
                   const int gq = qt * kQ + q;
                   if (gq < b && gblk < nb) {
-                    static_cast<float*>(out_v)[gblk * b + gq] = val;
-                    static_cast<int*>(out_l)[gblk * b + gq] = off;
+                    const long long o = FORM == kQMajor
+                                            ? (long long)gq * nb + gblk
+                                            : gblk * b + gq;
+                    static_cast<float*>(out_v)[o] = val;
+                    static_cast<int*>(out_l)[o] = off;
                   }
                 }
               }
@@ -776,7 +808,7 @@ block_min_compact_kernel(const __grid_constant__ CUtensorMap rows_map,
 }
 
 struct Args {
-  const void *q_img, *pen;
+  const void *q_aug, *pen;
   void *out_v, *out_l, *out_v2, *out_l2;
   int n, b, d1, r, stages, run_tiles, cluster, smem;
   cudaStream_t stream;
@@ -785,8 +817,17 @@ struct Args {
 template <int KS, int RT, bool PEN, int FORM>
 int launch(const CUtensorMap& map, const Args& x) {
   auto kernel = block_min_compact_kernel<KS, RT, PEN, FORM>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, x.smem);
+  // host queries that cost microseconds a launch, made once an instance
+  // and device: the shared-memory limit (raised to what any call may
+  // take) and, below, the occupancy
+  static HostMemo limit, memo;
+  int dev = 0, done = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  err = limit.get((uint32_t)(dev & 127), &done, [&](int*) {
+    return cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
+  });
   if (err != cudaSuccess) return (int)err;
   cudaLaunchConfig_t cfg = {};
   cudaLaunchAttribute attr[1];
@@ -799,12 +840,15 @@ int launch(const CUtensorMap& map, const Args& x) {
   cfg.stream = x.stream;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  // one CTA per SM, as many clusters as the card holds at once
+  // one CTA per SM, as many clusters as the card holds at once (once an
+  // instance, device, cluster width and shared-memory size)
   int clusters = 0;
   cfg.gridDim = dim3(x.cluster * 256);
-  if ((err = cudaOccupancyMaxActiveClusters(&clusters, kernel, &cfg)) !=
-      cudaSuccess)
-    return (int)err;
+  err = memo.get((uint32_t)((dev & 127) << 24 | x.cluster << 20 | x.smem),
+                 &clusters, [&](int* v) {
+                   return cudaOccupancyMaxActiveClusters(v, kernel, &cfg);
+                 });
+  if (err != cudaSuccess) return (int)err;
   if (clusters < 1) return (int)cudaErrorInvalidConfiguration;
   const long long n_tiles = (x.n + kRows - 1) / kRows;
   const long long units =
@@ -813,7 +857,7 @@ int launch(const CUtensorMap& map, const Args& x) {
   cfg.gridDim =
       dim3((unsigned)(x.cluster * (units < clusters ? units : clusters)));
   err = cudaLaunchKernelEx(
-      &cfg, kernel, map, static_cast<const uint4*>(x.q_img),
+      &cfg, kernel, map, static_cast<const __nv_bfloat16*>(x.q_aug),
       static_cast<const __nv_bfloat16*>(x.pen), x.out_v, x.out_l,
       static_cast<float*>(x.out_v2), static_cast<int*>(x.out_l2), x.n, x.b,
       x.d1, x.r, x.stages, x.run_tiles, x.cluster);
@@ -825,6 +869,7 @@ template <int KS, int RT, bool PEN>
 int launch_form(int form, const CUtensorMap& map, const Args& x) {
   if (form == kCompact) return launch<KS, RT, PEN, kCompact>(map, x);
   if (form == kRowMajor) return launch<KS, RT, PEN, kRowMajor>(map, x);
+  if (form == kQMajor) return launch<KS, RT, PEN, kQMajor>(map, x);
   return launch<KS, RT, PEN, kTop2>(map, x);
 }
 
@@ -846,32 +891,36 @@ int launch_r(int form, const CUtensorMap& map, const Args& x) {
 }  // namespace
 
 // Plain C entry point, loaded through ctypes. rows [n, d1] bf16, 16-byte
-// aligned; q_img the query image of ops/sweep.block_min_compact_query_image
-// (ceil(b / 128) tiles of 4 * ceil(d1 / 64) k-steps of 4096 bytes); pen [n]
-// bf16 or null; `form` 0 (compact: out_v [b, n / r] bf16, out_l [b, n / r]
+// aligned; q_aug [b, d1] bf16, contiguous (the kernel reads each work
+// unit's A fragments from it, as ops/sweep.block_min_compact_query_image
+// lays them out); pen [n] bf16 or null; `form` 0 (compact: out_v [b, n / r] bf16, out_l [b, n / r]
 // u8), 1 (row-major: out_v [n / r, b] float32, out_l [n / r, b] int32) or
-// 2 (top-2: out_v, out_l, out_v2, out_l2 row-major as form 1), allocated
+// 2 (top-2: out_v, out_l, out_v2, out_l2 row-major as form 1) or 3
+// (q-major: out_v [b, n / r] float32, out_l [b, n / r] int32), allocated
 // by the caller; out_v2 / out_l2 null unless form 2. r a power of two in
-// [8, 256], n % r == 0, d1 % 8 == 0 and d1 <= 256; stages, run_tiles (even
-// where r = 256) and cluster (1 or 2) from ops/sweep.sweep_plan. Launches
-// on `stream`, does not synchronise, allocates nothing; returns a CUDA
-// error code (0 on success).
-extern "C" int block_min_compact(const void* rows, const void* q_img,
+// [8, 256] ([8, 512] for form 3), n % r == 0, d1 % 8 == 0 and d1 <= 256;
+// stages, run_tiles (a multiple of r / 128 where r > 128) and cluster (1
+// or 2) from ops/sweep.sweep_plan. Launches on `stream`, does not
+// synchronise, allocates nothing; returns a CUDA error code (0 on
+// success).
+extern "C" int block_min_compact(const void* rows, const void* q_aug,
                                  const void* pen, void* out_v, void* out_l,
                                  long long n, int b, int d1, int r, int stages,
                                  int run_tiles, int cluster, int form,
                                  void* out_v2, void* out_l2, void* stream) {
   if (n <= 0 || b <= 0) return 0;
   if (n >= (1LL << 31) || d1 <= 0 || d1 % 8 || d1 > kMaxBoxes * kBoxCols ||
-      r < 8 || r > 2 * kRows || (r & (r - 1)) || n % r || stages < 1 ||
-      stages > kMaxStages || run_tiles < 1 || (r > kRows && run_tiles % 2) ||
+      r < 8 || r > (form == kQMajor ? kMaxTilesABlock : 2) * kRows ||
+      (r & (r - 1)) || n % r || stages < 1 || stages > kMaxStages ||
+      run_tiles < 1 || (r > kRows && run_tiles % (r / kRows)) ||
       (cluster != 1 && cluster != kMaxCluster) || form < kCompact ||
-      form > kTop2 || ((out_v2 == nullptr || out_l2 == nullptr ||
+      form > kQMajor || ((out_v2 == nullptr || out_l2 == nullptr ||
                         n % kRows) && form == kTop2) ||
       reinterpret_cast<uintptr_t>(rows) % 16)
     return (int)cudaErrorInvalidValue;
   const Layout lay = sweep_layout(d1, r, stages, run_tiles, form == kCompact);
-  if (lay.blocks < 1 || lay.total > 232448) return (int)cudaErrorInvalidValue;
+  if (lay.blocks < 1 || lay.total > kMaxSmem)
+    return (int)cudaErrorInvalidValue;
   EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return (int)cudaErrorSharedObjectSymbolNotFound;
 
@@ -899,7 +948,7 @@ extern "C" int block_min_compact(const void* rows, const void* q_img,
              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
     return (int)cudaErrorInvalidValue;
 
-  const Args x = {q_img, pen, out_v, out_l, out_v2, out_l2, (int)n, b, d1, r,
+  const Args x = {q_aug, pen, out_v, out_l, out_v2, out_l2, (int)n, b, d1, r,
                   stages, run_tiles, cluster, lay.total,
                   static_cast<cudaStream_t>(stream)};
 #define SWEEP_KS(BOXES) \

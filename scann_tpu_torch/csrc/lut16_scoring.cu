@@ -3,8 +3,9 @@
 // Replaces two TPU kernels of scann_tpu/ops/pallas_kernels.py:
 //   _lut16_kernel        :40   lut16_score_pallas (pallas_call :75)
 //   _lut16_fused_kernel  :109  lut16_fused_sweep_pallas (pallas_call :171)
-// with one source and two plain C entry points, lut16_score and
-// lut16_fused_sweep, loaded through ctypes.
+// with one source and three plain C entry points, loaded through ctypes:
+// lut16_score_tiled (#8), lut16_score (#8's earlier form, a yardstick) and
+// lut16_fused_sweep (#7).
 //
 // --- lut16_score (#8) ------------------------------------------------------
 //
@@ -14,26 +15,52 @@
 // even). The TPU kernel feeds a bf16 one-hot to its matrix unit; here the
 // lookup is a lookup. The plain twin (ops/scoring_kernels.py::
 // lut16_score_reference) adds the same bf16 entries in the same order in
-// float32, so the two agree bit for bit.
+// float32, so the two agree bit for bit (a tensor-core one-hot would not:
+// its accumulation does not round each add as float32 does).
 //
-// What bounds it on the H100, at B = 1024 over 1,183,514 columns, S = 50,
-// C = 16: the function's own work is one float32 add per table entry,
-// B*N*S = 6.06e10 adds, 0.90 ms at the 67 TFLOP/s float32 peak; the bytes
-// (the codes once, the bf16 [B, N] output once: 2.49 GB) need 0.74 ms at
-// 3.35 TB/s. Each add needs a shared-memory table read, and shared memory
-// serves one 32-lane wavefront per clock per SM, so ~4 ms is where this
-// design ends. The design: a CTA holds the bf16 tables of 32 queries in shared
-// memory as bf16 pairs (two queries per 32-bit word, so one load feeds two
-// sums), laid out [s][code][query pair] with a row of 17 words, so the 16
-// codes of a subspace fall in 16 different banks and a warp's loads never
-// conflict. Each thread owns one column and keeps its 32 float32 sums in
-// registers; the CTA walks 16 column tiles of 256 so the table slab is
-// loaded once per 4096 columns. Codes are read coalesced, one byte per
-// thread per subspace, the next one loaded before the current one is used.
-// Outputs are written coalesced along N. A one-hot bf16 product on the
-// tensor cores (as the TPU does it) escapes the shared-memory limit with 32x
-// the operations (1.96 ms at the 989 TFLOP/s bf16 peak), at the price of
-// the tensor cores' own addition order; later work.
+// What bounds it on the H100, at the approximate-only hasher's call (B =
+// 128, S = 50, C = 16, 1,183,514 columns, float32 out): one float32 add
+// per table entry, B*N*S = 7.57e9 adds, 0.226 ms at 33.5 T/s (one add a
+// lane a clock on 128 lanes of 132 SMs); the bytes (codes once, the [B, N]
+// scores once: 665 MB) 0.199 ms. Beside each add the CUDA cores issue the
+// bf16 half's conversion (a shift or a mask) and a share of a shared load,
+// so about 2.1 issue slots an entry: an issue floor near 0.48 ms; shared
+// memory delivers 64 bf16 entries a clock an SM, a floor of 0.45 ms.
+//
+// The design (lut16_score_tiled_kernel, the form every search path takes;
+// plan from ops/scoring_kernels.lut16_score_plan):
+//  - Tables. A CTA stages a tile of Q queries' bf16 tables (Q = 128 where
+//    they fit beside the code ring, else 64 .. 8) in shared memory
+//    entry-major and interleaved by query, [S*C][Q], copied as they are
+//    from an image the wrapper lays out (lut16_score_table_image). A
+//    column group of 8 lanes shares a code: lane lq holds queries
+//    8 (lq + 8k) + 0..7, so one 16-byte load returns 8 queries' entries
+//    and a quarter warp's loads read 128 contiguous bytes of one row,
+//    free of bank conflicts whatever the codes (checked on the CPU in
+//    tests/test_torch_lut16_score_plan.py).
+//  - Codes. The [S, N] u8 rows stream through a 3-slot cp.async ring, all S
+//    rows of a column tile a slot where they fit, each row copied from the
+//    16-byte aligned address at or below its first column (any N, any
+//    alignment). A thread owns 4 neighbouring columns (8 below Q = 128)
+//    and reads their codes as one word a row (two aligned words and a
+//    funnel shift), clamped below C; a byte permute gives each lookup's
+//    row.
+//  - Adds. 4 columns x 16 queries = 64 float32 accumulators a thread, each
+//    adding its entries in ascending s from 0.0f: w << 16 for the low
+//    half, w & 0xFFFF0000 for the high one. No FMA contraction, denormals
+//    kept (no --use_fast_math), as PyTorch adds.
+//  - Grid. Persistent: as many CTAs as the card holds (one an SM at Q =
+//    128, 226,400 bytes), each taking an even share of the (query tile,
+//    column tile) tiles, query tile major, so a CTA restages its tables
+//    only where its share crosses a query tile.
+//  - Stores. Each query row of a thread's columns in one 16-byte (float32)
+//    or 8-byte (bf16) store where the row's alignment allows, narrower
+//    ones where it does not; rows at or past B and columns past N are never
+//    written.
+// The kernel it replaced (lut16_score_kernel: one column a thread, 32
+// queries' tables a CTA as bf16 pairs, one code byte a subspace from global
+// memory, a grid of 2.19 waves at B = 128) stays as a same-run yardstick,
+// reached only through ops/scoring_kernels._score_launch(per_column=True).
 //
 // --- lut16_fused_sweep (#7) ------------------------------------------------
 //
@@ -94,7 +121,7 @@ namespace {
 using namespace sm90;
 
 // ---------------------------------------------------------------------------
-// lut16_score
+// lut16_score, one column a thread (the yardstick)
 // ---------------------------------------------------------------------------
 
 constexpr int kScoreThreads = 256;     // one column per thread
@@ -180,6 +207,358 @@ int launch_score(const void* luts, const void* codes, void* out, int b, int s,
       static_cast<const uint16_t*>(luts), static_cast<const uint8_t*>(codes),
       out, b, s, c, n, q_tiles);
   return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// lut16_score, query-tiled (the form every search path launches)
+// ---------------------------------------------------------------------------
+
+constexpr int kTiledThreads = 256;  // 32 column groups of 8 lanes
+constexpr int kTiledHalf = 128;     // threads of a half: 4 warps
+constexpr int kTiledLanes = 8;      // lanes splitting a tile's queries
+constexpr int kTiledRing = 3;       // code ring slots of each half
+
+// The shape of one instance: QS queries a thread, a tile of Q = 8 QS
+// queries; COLS neighbouring columns a thread, TC a tile, TC / 2 a half;
+// ROW bytes a ring row of a half (its TC / 2 codes and the 16 the aligned
+// copy may start before them); a lookup reads NL loads of LB bytes (16
+// bytes = 8 queries' entries).
+template <int QS>
+struct Tiled {
+  static constexpr int kQ = kTiledLanes * QS;
+  static constexpr int kCols = QS == 16 ? 4 : 8;
+  static constexpr int kTC = kTiledThreads / kTiledLanes * kCols;
+  static constexpr int kHalfCols = kTC / 2;
+  static constexpr int kRow = kHalfCols + 16;
+  static constexpr int kLB = QS >= 8 ? 16 : 2 * QS;
+  static constexpr int kNL = QS >= 8 ? QS / 8 : 1;
+  static constexpr int kEntries = kLB / 2;  // a load's queries
+};
+
+struct TiledArgs {
+  const uint8_t* img;    // [q_tiles][S*C][Q] bf16 (lut16_score_table_image)
+  const uint8_t* codes;  // [S, N] u8, rows N bytes apart
+  void* out;             // [B, N] float32 or bf16
+  long long n;
+  long long col_tiles;
+  int b, s, c;
+  int stage_rows;        // code rows a ring slot
+  int tab_bytes;         // 2 * Q * S * C
+};
+
+__device__ __forceinline__ void tiled_cp_async16(void* smem, const void* gmem,
+                                                 int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_u32(smem)),
+               "l"(gmem), "r"(src_bytes) : "memory");
+}
+
+__device__ __forceinline__ void tiled_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void tiled_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// The first column of half h of tile t, clamped to the last column: a
+// half wholly past N reads (and never stores) the last column's codes.
+template <int QS>
+__device__ __forceinline__ long long tiled_half_col(const TiledArgs& a,
+                                                   long long t, int h) {
+  return min((t % a.col_tiles) * Tiled<QS>::kTC + h * Tiled<QS>::kHalfCols,
+             a.n - 1);
+}
+
+// Copies ring item `item` of this CTA (tile t0 + item / nsc, code rows
+// stage item % nsc) for half h into the half's slot, if the CTA has that
+// item, and commits one cp.async group either way. Row j of a slot holds
+// the kRow bytes from the 16-byte aligned address at or below the half's
+// first column; pieces past the row's last column are zero-filled.
+template <int QS>
+__device__ __forceinline__ void tiled_copy(const TiledArgs& a, long long t0,
+                                           long long items, int nsc,
+                                           long long item, uint8_t* ring,
+                                           int h) {
+  using T = Tiled<QS>;
+  if (item < items) {
+    const long long t = t0 + item / nsc;
+    const int st = (int)(item % nsc);
+    const long long col0 = tiled_half_col<QS>(a, t, h);
+    const int ncols = (int)min((long long)T::kHalfCols, a.n - col0);
+    const int s0 = st * a.stage_rows;
+    const int rows = min(a.stage_rows, a.s - s0);
+    uint8_t* slot = ring + (item % kTiledRing) * a.stage_rows * T::kRow;
+    constexpr int kPieces = T::kRow / 16;
+    for (int i = threadIdx.x % kTiledHalf; i < rows * kPieces;
+         i += kTiledHalf) {
+      const int j = i / kPieces, k = i - j * kPieces;
+      const uintptr_t src = reinterpret_cast<uintptr_t>(
+          a.codes + (long long)(s0 + j) * a.n + col0);
+      const uintptr_t base = src & ~uintptr_t(15);
+      // a piece that holds a byte of the row is read whole (an aligned 16
+      // bytes cannot cross a page)
+      const bool live = 16 * k < (int)(src - base) + ncols;
+      tiled_cp_async16(slot + j * T::kRow + 16 * k,
+                       reinterpret_cast<const void*>(live ? base + 16 * k
+                                                          : base),
+                       live ? 16 : 0);
+    }
+  }
+  tiled_commit();
+}
+
+// The kCols outputs of one query row, at dst (column col of N): whole
+// 16-, 8- or 4-byte stores where the row and its alignment allow.
+template <int COLS, bool BF16_OUT>
+__device__ __forceinline__ void tiled_store(void* dst, const float (&v)[COLS],
+                                            int valid) {
+  constexpr int kBytes = COLS * (BF16_OUT ? 2 : 4);
+  uint32_t w[kBytes / 4];
+#pragma unroll
+  for (int i = 0; i < kBytes / 4; ++i) {
+    if (BF16_OUT) {
+      // round to nearest even, as torch.Tensor.to(torch.bfloat16)
+      w[i] = (uint32_t)__bfloat16_as_ushort(__float2bfloat16_rn(v[2 * i])) |
+             ((uint32_t)__bfloat16_as_ushort(__float2bfloat16_rn(v[2 * i + 1]))
+              << 16);
+    } else {
+      w[i] = __float_as_uint(v[i]);
+    }
+  }
+  const uint32_t mis = (uint32_t)reinterpret_cast<uintptr_t>(dst);
+  if (valid >= COLS && (mis & 15) == 0) {
+#pragma unroll
+    for (int i = 0; i < kBytes / 16; ++i)
+      reinterpret_cast<uint4*>(dst)[i] =
+          make_uint4(w[4 * i], w[4 * i + 1], w[4 * i + 2], w[4 * i + 3]);
+    if constexpr (kBytes == 8)
+      *reinterpret_cast<uint2*>(dst) = make_uint2(w[0], w[1]);
+  } else if (valid >= COLS && (mis & 7) == 0) {
+#pragma unroll
+    for (int i = 0; i < kBytes / 8; ++i)
+      reinterpret_cast<uint2*>(dst)[i] = make_uint2(w[2 * i], w[2 * i + 1]);
+  } else if (valid >= COLS && (mis & 3) == 0) {
+#pragma unroll
+    for (int i = 0; i < kBytes / 4; ++i)
+      reinterpret_cast<uint32_t*>(dst)[i] = w[i];
+  } else {
+#pragma unroll
+    for (int cc = 0; cc < COLS; ++cc) {
+      if (cc < valid) {
+        if (BF16_OUT)
+          static_cast<uint16_t*>(dst)[cc] =
+              (uint16_t)(w[cc / 2] >> (16 * (cc & 1)));
+        else
+          static_cast<uint32_t*>(dst)[cc] = w[cc];
+      }
+    }
+  }
+}
+
+// The tile's tables are [S*C][Q] bf16 (entry-major, query-interleaved):
+// entry (s, code) of query q at byte 2 (((s C + code) Q) + q). Lane lq of
+// a column group reads queries 8 (lq + 8 k) .. + 7 (load k, QS >= 8) or
+// lq QS .. + QS - 1: the 8 lanes of a quarter warp share the group's code,
+// so each 16-byte load instruction reads 128 contiguous bytes of one row,
+// whatever the codes (no bank conflict). Accumulator j of a column holds
+// query 8 (lq + 8 (j / 8)) + j % 8, or lq QS + j.
+//
+// The two halves of the CTA (4 warps each) score the two column halves of
+// every tile, each with its own code ring and named barrier (1 + h); half
+// 1 starts each run of tiles one ring item after half 0 (named barrier 3),
+// so the halves' stores at the ends of their tiles alternate with the
+// other half's lookups instead of all 8 warps storing at once. A table
+// staging syncs the whole CTA.
+template <int QS, bool BF16_OUT>
+__global__ void __launch_bounds__(kTiledThreads, 1)
+lut16_score_tiled_kernel(const TiledArgs a) {
+  using T = Tiled<QS>;
+  constexpr int kCols = T::kCols;
+  extern __shared__ __align__(16) uint8_t smem[];
+  const int tid = threadIdx.x;
+  const int h = tid / kTiledHalf;  // the column half
+  uint8_t* tabs = smem;
+  uint8_t* ring = smem + a.tab_bytes + h * kTiledRing * a.stage_rows * T::kRow;
+
+  const int lane = tid & 31;
+  const int lq = lane & (kTiledLanes - 1);
+  // column group within the half; its first column in the half and tile
+  const int cg = (tid % kTiledHalf >> 5) * (32 / kTiledLanes) + (lane >> 3);
+  const int hc = cg * kCols;
+  const int tid_c = h * T::kHalfCols + hc;
+  // this CTA's tiles: an even share of the q_tiles x col_tiles tiles,
+  // query tile major, so a CTA restages its tables at most a few times
+  const long long units =
+      (long long)((a.b + T::kQ - 1) / T::kQ) * a.col_tiles;
+  const long long t0 = units * blockIdx.x / gridDim.x;
+  const long long t1 = units * (blockIdx.x + 1) / gridDim.x;
+  const int nsc = (a.s + a.stage_rows - 1) / a.stage_rows;
+  const long long items = (t1 - t0) * nsc;
+  // codes are below C; a larger byte reads entry C - 1, never another
+  // subspace's row
+  const uint32_t cmax4 = (uint32_t)(min(a.c, 256) - 1) * 0x01010101u;
+  const uint32_t n16 = (uint32_t)(a.n & 15);
+  const int row_bytes = a.c * 2 * T::kQ;  // one subspace's tables
+
+  for (int i = 0; i < kTiledRing - 1; ++i)
+    tiled_copy<QS>(a, t0, items, nsc, i, ring, h);
+
+  long long cur_qt = -1;
+  bool lead = false;  // half 0's first item after a table staging
+  float acc[kCols][QS];
+  for (long long it = 0; it < items; ++it) {
+    const long long t = t0 + it / nsc;
+    const int st = (int)(it % nsc);
+    const long long qt = t / a.col_tiles;
+    if (qt != cur_qt) {  // uniform over the block
+      __syncthreads();   // every thread is done with the last tables
+      const uint8_t* src = a.img + qt * (long long)a.tab_bytes;
+      for (int i = tid; i < a.tab_bytes / 16; i += kTiledThreads)
+        tiled_cp_async16(tabs + 16 * i, src + 16 * i, 16);
+      tiled_commit();
+      tiled_wait<0>();
+      __syncthreads();
+      cur_qt = qt;
+      lead = h == 0;
+      // half 1 starts once half 0 has scored its first item
+      if (h == 1) asm volatile("bar.sync 3, %0;\n" ::"n"(kTiledThreads)
+                               : "memory");
+    }
+    tiled_wait<kTiledRing - 2>();
+    // the half's item is ready; its threads are done with item - 1's slot
+    asm volatile("bar.sync %0, %1;\n" ::"r"(1 + h), "n"(kTiledHalf)
+                 : "memory");
+    tiled_copy<QS>(a, t0, items, nsc, it + kTiledRing - 1, ring, h);
+    if (st == 0) {
+#pragma unroll
+      for (int cc = 0; cc < kCols; ++cc)
+#pragma unroll
+        for (int j = 0; j < QS; ++j) acc[cc][j] = 0.0f;
+    }
+    const uint8_t* slot = ring + (it % kTiledRing) * a.stage_rows * T::kRow;
+    const int s0 = st * a.stage_rows;
+    const int rows = min(a.stage_rows, a.s - s0);
+    // row j of the slot starts `shift` bytes before the half's first code
+    uint32_t shift = ((uint32_t)reinterpret_cast<uintptr_t>(a.codes) +
+                      (uint32_t)s0 * n16 +
+                      (uint32_t)tiled_half_col<QS>(a, t, h)) & 15u;
+    const uint8_t* tab_s = tabs + s0 * row_bytes + lq * T::kLB;
+#pragma unroll 2
+    for (int j = 0; j < rows; ++j) {
+      const uint32_t pos = shift + hc;
+      const uint8_t* rp = slot + j * T::kRow + (pos & ~3u);
+      const uint32_t sh = (pos & 3u) * 8u;
+      uint32_t w[kCols / 4];
+      {
+        const uint32_t x0 = *reinterpret_cast<const uint32_t*>(rp);
+        const uint32_t x1 = *reinterpret_cast<const uint32_t*>(rp + 4);
+        w[0] = __vminu4(__funnelshift_r(x0, x1, sh), cmax4);
+        if constexpr (kCols == 8) {
+          const uint32_t x2 = *reinterpret_cast<const uint32_t*>(rp + 8);
+          w[1] = __vminu4(__funnelshift_r(x1, x2, sh), cmax4);
+        }
+      }
+      shift = (shift + n16) & 15u;
+#pragma unroll
+      for (int cc = 0; cc < kCols; ++cc) {
+        const uint32_t code = __byte_perm(w[cc / 4], 0, 0x4440 + (cc & 3));
+        const uint8_t* p = tab_s + code * (2 * T::kQ);
+#pragma unroll
+        for (int k = 0; k < T::kNL; ++k) {
+          uint32_t e[4];
+          if constexpr (T::kLB == 16) {
+            const uint4 v = *reinterpret_cast<const uint4*>(p + 128 * k);
+            e[0] = v.x, e[1] = v.y, e[2] = v.z, e[3] = v.w;
+          } else if constexpr (T::kLB == 8) {
+            const uint2 v = *reinterpret_cast<const uint2*>(p);
+            e[0] = v.x, e[1] = v.y;
+          } else if constexpr (T::kLB == 4) {
+            e[0] = *reinterpret_cast<const uint32_t*>(p);
+          } else {
+            e[0] = *reinterpret_cast<const uint16_t*>(p);
+          }
+          // entries as float32: the high half masked, the low one shifted
+#pragma unroll
+          for (int i = 0; i < T::kEntries; ++i) {
+            const uint32_t x = e[i / 2];
+            acc[cc][8 * k + i] +=
+                __uint_as_float((i & 1) ? (x & 0xFFFF0000u) : (x << 16));
+          }
+        }
+      }
+      tab_s += row_bytes;
+    }
+    if (lead) asm volatile("bar.arrive 3, %0;\n" ::"n"(kTiledThreads)
+                           : "memory");
+    lead = false;
+    if (st != nsc - 1) continue;
+    const long long col = (t % a.col_tiles) * T::kTC + tid_c;
+    const int valid = (int)min((long long)kCols, a.n - col);
+    if (valid <= 0) continue;
+#pragma unroll
+    for (int j = 0; j < QS; ++j) {
+      const int ql = QS >= 8 ? 8 * (lq + 8 * (j / 8)) + j % 8 : lq * QS + j;
+      const long long q = qt * T::kQ + ql;
+      if (q >= a.b) continue;
+      float v[kCols];
+#pragma unroll
+      for (int cc = 0; cc < kCols; ++cc) v[cc] = acc[cc][j];
+      uint8_t* dst = static_cast<uint8_t*>(a.out) +
+                     (q * a.n + col) * (BF16_OUT ? 2 : 4);
+      tiled_store<kCols, BF16_OUT>(dst, v, valid);
+    }
+  }
+  tiled_wait<0>();
+}
+
+template <int QS, bool BF16_OUT>
+int launch_tiled(const TiledArgs& a, cudaStream_t stream) {
+  using T = Tiled<QS>;
+  auto kernel = lut16_score_tiled_kernel<QS, BF16_OUT>;
+  const int smem = a.tab_bytes + 2 * kTiledRing * a.stage_rows * T::kRow;
+  // host queries that cost microseconds a launch, made once an instance
+  // and device: the shared-memory limit (raised to what any call may
+  // take) and the occupancy (once a shared-memory size too)
+  static HostMemo limit, memo;
+  int dev = 0, sms = 0, per_sm = 0, done = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  if ((err = limit.get((uint32_t)(dev & 127), &done, [&](int*) {
+         return cudaFuncSetAttribute(
+             kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, 232448);
+       })) != cudaSuccess)
+    return (int)err;
+  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                    dev)) != cudaSuccess)
+    return (int)err;
+  if ((err = memo.get((uint32_t)((dev & 127) << 24 | smem), &per_sm,
+                      [&](int* v) {
+                        return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                            v, kernel, kTiledThreads, smem);
+                      })) != cudaSuccess)
+    return (int)err;
+  if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
+  // a persistent grid: as many CTAs as the card holds at once, each
+  // taking an even share of the tiles
+  const long long units =
+      (long long)((a.b + T::kQ - 1) / T::kQ) * a.col_tiles;
+  const long long grid = min(units, (long long)sms * per_sm);
+  kernel<<<(unsigned)grid, kTiledThreads, smem, stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
+template <bool BF16_OUT>
+int dispatch_tiled(int q_tile, const TiledArgs& a, cudaStream_t stream) {
+  switch (q_tile) {
+    case 128: return launch_tiled<16, BF16_OUT>(a, stream);
+    case 64: return launch_tiled<8, BF16_OUT>(a, stream);
+    case 32: return launch_tiled<4, BF16_OUT>(a, stream);
+    case 16: return launch_tiled<2, BF16_OUT>(a, stream);
+    case 8: return launch_tiled<1, BF16_OUT>(a, stream);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -511,6 +890,30 @@ extern "C" int lut16_score(const void* luts, const void* codes, void* out,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (bf16_out) return launch_score<true>(luts, codes, out, b, s, c, n, st);
   return launch_score<false>(luts, codes, out, b, s, c, n, st);
+}
+
+// The query-tiled form. img: ceil(B / q_tile) tiles of [S*C][q_tile] bf16
+// (ops/scoring_kernels.lut16_score_table_image); codes: [S, N] u8, rows N
+// bytes apart, any alignment; out: [B, N] float32 or bf16. q_tile (8, 16,
+// 32, 64 or 128) and stage_rows (code rows a ring slot, 1..S) from
+// ops/scoring_kernels.lut16_score_plan.
+extern "C" int lut16_score_tiled(const void* img, const void* codes,
+                                 void* out, int b, int s, int c, long long n,
+                                 int bf16_out, int q_tile, int stage_rows,
+                                 void* stream) {
+  if (b <= 0 || n <= 0) return 0;
+  const long long tab = 2LL * q_tile * s * c;
+  const int tc = q_tile == 128 ? 128 : 256;  // Tiled<QS>::kTC
+  if (s < 1 || c < 1 || stage_rows < 1 || stage_rows > s ||
+      tab + 2LL * kTiledRing * stage_rows * (tc / 2 + 16) > 232448 ||
+      reinterpret_cast<uintptr_t>(img) % 16)
+    return (int)cudaErrorInvalidValue;
+  const TiledArgs a = {static_cast<const uint8_t*>(img),
+                       static_cast<const uint8_t*>(codes), out, n,
+                       (n + tc - 1) / tc, b, s, c, stage_rows, (int)tab};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (bf16_out) return dispatch_tiled<true>(q_tile, a, st);
+  return dispatch_tiled<false>(q_tile, a, st);
 }
 
 // tables: ceil(B/q_tile) query tiles of sh * q_tile * 32 bytes, the int8

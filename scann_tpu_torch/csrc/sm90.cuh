@@ -11,6 +11,8 @@
 #include <dlfcn.h>
 #include <stdint.h>
 
+#include <atomic>
+
 namespace sm90 {
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -125,6 +127,32 @@ typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
                                 CUtensorMapInterleave, CUtensorMapSwizzle,
                                 CUtensorMapL2promotion,
                                 CUtensorMapFloatOOBfill);
+
+// The last result of a host query that costs microseconds (an occupancy
+// calculation) and repeats with the same arguments at every launch: one
+// (key, value) pair packed in an atomic word, so launches from several
+// threads always read a pair that belongs together. Keys below 2^31,
+// values below 2^32.
+class HostMemo {
+ public:
+  // the value for `key`: the cached one, or f(&value) (a CUDA error code)
+  template <class F>
+  cudaError_t get(uint32_t key, int* value, F f) {
+    const uint64_t w = word_.load(std::memory_order_relaxed);
+    if ((w >> 32) == (uint64_t)key + 1) {
+      *value = (int)(uint32_t)w;
+      return cudaSuccess;
+    }
+    const cudaError_t err = f(value);
+    if (err == cudaSuccess)
+      word_.store((((uint64_t)key + 1) << 32) | (uint32_t)*value,
+                  std::memory_order_relaxed);
+    return err;
+  }
+
+ private:
+  std::atomic<uint64_t> word_{0};
+};
 
 // cuTensorMapEncodeTiled from the libcuda the CUDA runtime loaded
 inline EncodeTiled encode_tiled() {

@@ -5,7 +5,11 @@ Three kernels, each with a plain PyTorch twin beside it. Two share one CUDA
 source (``csrc/lut16_scoring.cu``):
 
   - :func:`lut16_score` — ``out[b, n] = Σ_s bf16(luts[b, s, codes_t[s, n]])``
-    summed in float32, as float32 or bf16 (TPU kernel ``_lut16_kernel``);
+    summed in float32, as float32 or bf16 (TPU kernel ``_lut16_kernel``),
+    on the query-tiled kernel (:func:`lut16_score_plan`; the
+    one-column-a-thread kernel it replaced stays as a yardstick behind
+    ``_score_launch(per_column=True)``, counted apart in
+    :data:`SCORE_LAUNCHES`);
   - :func:`lut16_fused_sweep` — the int8 LUT16 sweep over packed nibbles
     with the r:1 block minimum fused in: the [N, B] score matrix never
     reaches device memory (TPU kernel ``_lut16_fused_kernel``). Each output
@@ -27,8 +31,9 @@ chunks, so they agree with the kernels bit for bit and never hold a
 [B, S, N] gather; the int8-dots twin is a float32 matrix product, within
 1e-5 of Σ_d |q_d · c_d| of the kernel's three bf16 tensor-core products.
 
-The two tensor-core kernels take their shared-memory operands laid out here,
-in plain PyTorch that the CPU tests reach: :func:`lut16_fused_table_image`
+The kernels take their shared-memory operands laid out here, in plain
+PyTorch that the CPU tests reach: :func:`lut16_score_table_image` (a query
+tile's bf16 tables, interleaved by query), :func:`lut16_fused_table_image`
 (the int8 tables as wgmma's B operand) and :func:`int8_dots_query_image`
 (the queries' bf16 x 3 split, :func:`split_bf16x3`, likewise).
 """
@@ -36,7 +41,7 @@ in plain PyTorch that the CPU tests reach: :func:`lut16_fused_table_image`
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Optional, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -52,10 +57,20 @@ INVALID_COMBINED = 1e9
 # show that its main path went through the kernels.
 LAUNCHES: Dict[str, int] = {"lut16_score": 0, "lut16_fused_sweep": 0,
                              "int8_dots": 0}
+# lut16_score's launches by the kernel that served them: the query-tiled
+# kernel every search path takes, or the one-column-a-thread kernel it
+# replaced (a yardstick reached only through _score_launch(per_column=True))
+SCORE_LAUNCHES: Dict[str, int] = {"query_tiled": 0, "column_per_thread": 0}
 
-# the CUDA kernels' tiles (csrc/lut16_scoring.cu): score kernel words per
-# (subspace, code) row of 32 queries; fused kernel code bytes per packed
-# byte and stage (kFusedUnits x kFusedWin) and the largest block
+# the CUDA kernels' tiles (csrc/lut16_scoring.cu): the query-tiled score
+# kernel's column groups of 8 lanes a CTA (kTiledThreads / kTiledLanes),
+# code ring slots of each column half (kTiledRing) and query tiles, widest
+# first; the
+# one-column-a-thread score kernel's words per (subspace, code) row of 32
+# queries; fused kernel code bytes per packed byte and stage (kFusedUnits x
+# kFusedWin) and the largest block
+SCORE_GROUPS, SCORE_RING = 32, 3
+_SCORE_Q_TILES = (128, 64, 32, 16, 8)
 _SCORE_ROW_WORDS = 17
 _FUSED_STAGE_ROWS, _FUSED_MAX_R = 512, 1024
 # the fused kernel's (queries per tile, code stages per warpgroup), widest
@@ -75,8 +90,9 @@ _int8_fn = None
 
 
 def reset_launches() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    for counts in (LAUNCHES, SCORE_LAUNCHES):
+        for name in counts:
+            counts[name] = 0
 
 
 def _kernel_fns():
@@ -93,7 +109,10 @@ def _kernel_fns():
         fused.argtypes = [vp, vp, vp, i32, i32, i64, i64, i64, i32, i32, i32,
                           vp]
         fused.restype = ctypes.c_int
-        _fns = (score, fused)
+        tiled = lib.lut16_score_tiled
+        tiled.argtypes = [vp, vp, vp, i32, i32, i32, i64, i32, i32, i32, vp]
+        tiled.restype = ctypes.c_int
+        _fns = (score, fused, tiled)
     return _fns
 
 
@@ -142,6 +161,130 @@ def lut16_score_reference(luts: torch.Tensor, codes_t: torch.Tensor,
     return out
 
 
+class ScorePlan(NamedTuple):
+    """Launch plan of the query-tiled score kernel: ``q_tile`` queries a
+    tile (``q_tile / 8`` a thread), ``cols`` neighbouring columns a thread,
+    ``tile_cols`` columns a tile (32 column groups of 8 lanes),
+    ``stage_rows`` code rows (subspaces) a ring slot, ``smem_bytes`` a CTA
+    (the tile's tables, then the ring), and the ``q_tiles`` x
+    ``col_tiles`` = ``units`` tiles the persistent grid shares out."""
+    q_tile: int
+    cols: int
+    tile_cols: int
+    stage_rows: int
+    smem_bytes: int
+    q_tiles: int
+    col_tiles: int
+    units: int
+
+
+def lut16_score_smem_bytes(q_tile: int, s: int, c: int,
+                           stage_rows: int) -> int:
+    """Shared memory of one CTA of the query-tiled kernel: the tile's bf16
+    tables (2 * q_tile * S * C bytes) and, for each of the CTA's two column
+    halves, SCORE_RING slots of ``stage_rows`` code rows of tile_cols / 2 +
+    16 bytes."""
+    tile_cols = SCORE_GROUPS * _score_cols(q_tile)
+    return (2 * q_tile * s * c
+            + 2 * SCORE_RING * stage_rows * (tile_cols // 2 + 16))
+
+
+def _score_cols(q_tile: int) -> int:
+    """Columns a thread: 4 with 16 queries a thread, else 8."""
+    return 4 if q_tile == 128 else 8
+
+
+def lut16_score_plan(b: int, s: int, c: int, n: int) -> Optional[ScorePlan]:
+    """The query-tiled kernel's plan for a [B, S, C] x [S, N] call: the
+    widest query tile (128, 64, 32, 16 or 8, no wider than B needs) whose
+    tables leave room for the code ring, with as many code rows a slot as
+    fit, up to S; None where even 8 queries' tables do not fit a block's
+    shared memory."""
+    if b <= 0 or s <= 0 or c <= 0 or n <= 0:
+        return None
+    cap = max(_SCORE_Q_TILES[-1], 1 << (b - 1).bit_length())
+    for q_tile in _SCORE_Q_TILES:
+        if q_tile > cap:
+            continue
+        cols = _score_cols(q_tile)
+        tile_cols = SCORE_GROUPS * cols
+        room = MAX_SHARED_MEMORY - lut16_score_smem_bytes(q_tile, s, c, 0)
+        rows = min(s, room // (2 * SCORE_RING * (tile_cols // 2 + 16)))
+        if rows >= 1:
+            q_tiles, col_tiles = -(-b // q_tile), -(-n // tile_cols)
+            return ScorePlan(q_tile, cols, tile_cols, rows,
+                             lut16_score_smem_bytes(q_tile, s, c, rows),
+                             q_tiles, col_tiles, q_tiles * col_tiles)
+    return None
+
+
+def lut16_score_units(plan: ScorePlan, grid: int, cta: int
+                      ) -> Tuple[int, int]:
+    """Tiles [t0, t1) of CTA ``cta`` of a persistent grid of ``grid``: an
+    even share of the q_tiles x col_tiles tiles, query tile major (tile t
+    is query tile t // col_tiles, column tile t % col_tiles)."""
+    return plan.units * cta // grid, plan.units * (cta + 1) // grid
+
+
+def lut16_score_table_image(luts: torch.Tensor, q_tile: int) -> torch.Tensor:
+    """The query-tiled kernel's tables, flat bf16: per tile of ``q_tile``
+    queries (zero past B), [S*C][q_tile], so the q_tile entries of one
+    (subspace, code) are contiguous (16 bytes = 8 queries) and the kernel
+    copies a tile's tables into shared memory as they are."""
+    b, s, c = luts.shape
+    qt = -(-b // q_tile)
+    t = luts.reshape(b, s * c)
+    if qt * q_tile != b:
+        t = torch.nn.functional.pad(t, (0, 0, 0, qt * q_tile - b))
+    # one copy rounds to bf16 (nearest even) and transposes each tile
+    img = torch.empty(qt, s * c, q_tile, dtype=torch.bfloat16,
+                      device=luts.device)
+    img.copy_(t.view(qt, q_tile, s * c).transpose(1, 2))
+    return img.view(-1)
+
+
+def _score_launch(luts: torch.Tensor, codes_t: torch.Tensor,
+                  out_dtype: torch.dtype, *, per_column: bool = False
+                  ) -> torch.Tensor:
+    """Checks a card call, allocates the output and launches the
+    query-tiled kernel, or with ``per_column`` the kernel it replaced (one
+    column a thread, 32 queries a CTA; kept as a same-run yardstick, never
+    reached by a search path)."""
+    _check_score_args(luts, codes_t, out_dtype)
+    if codes_t.device != luts.device:
+        raise ValueError(f"codes_t is on {codes_t.device}, luts on "
+                         f"{luts.device}")
+    b, s, c = luts.shape
+    n = codes_t.shape[1]
+    # the least shared memory either kernel takes for these tables
+    smem = (4 * _SCORE_ROW_WORDS * s * c if per_column
+            else lut16_score_smem_bytes(_SCORE_Q_TILES[-1], s, c, 1))
+    if smem > MAX_SHARED_MEMORY:
+        raise ValueError(f"tables of S={s} x C={c} need {smem} bytes of "
+                         f"shared memory, more than the {MAX_SHARED_MEMORY} "
+                         f"a block has")
+    out = torch.empty(b, n, dtype=out_dtype, device=luts.device)
+    if b == 0 or n == 0:
+        return out
+    codes = codes_t.contiguous()
+    bf16_out = int(out_dtype == torch.bfloat16)
+    score, _, tiled = _kernel_fns()
+    with torch.cuda.device(luts.device):
+        stream = torch.cuda.current_stream(luts.device).cuda_stream
+        if per_column:
+            table = luts.to(torch.bfloat16).contiguous()
+            _launch(score, "lut16_score", table.data_ptr(), codes.data_ptr(),
+                    out.data_ptr(), b, s, c, n, bf16_out, stream)
+        else:
+            plan = lut16_score_plan(b, s, c, n)
+            img = lut16_score_table_image(luts, plan.q_tile)
+            _launch(tiled, "lut16_score", img.data_ptr(), codes.data_ptr(),
+                    out.data_ptr(), b, s, c, n, bf16_out, plan.q_tile,
+                    plan.stage_rows, stream)
+    SCORE_LAUNCHES["column_per_thread" if per_column else "query_tiled"] += 1
+    return out
+
+
 def lut16_score(luts: torch.Tensor, codes_t: torch.Tensor,
                 out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """Approximate distances [B, N] from per-query tables.
@@ -153,33 +296,13 @@ def lut16_score(luts: torch.Tensor, codes_t: torch.Tensor,
             (candidates are re-ranked exactly anyway).
 
     CPU tensors go to :func:`lut16_score_reference`; CUDA tensors to the
-    CUDA kernel, built from ``csrc/lut16_scoring.cu`` at first use. A failed
-    build or launch raises: there is no fallback on the GPU."""
+    query-tiled CUDA kernel (:func:`lut16_score_plan`), built from
+    ``csrc/lut16_scoring.cu`` at first use. A failed build or launch, or
+    tables too large for the plan, raise: there is no fallback on the
+    GPU."""
     if not on_card(luts, "lut16_score"):
         return lut16_score_reference(luts, codes_t, out_dtype)
-    _check_score_args(luts, codes_t, out_dtype)
-    if codes_t.device != luts.device:
-        raise ValueError(f"codes_t is on {codes_t.device}, luts on "
-                         f"{luts.device}")
-    b, s, c = luts.shape
-    n = codes_t.shape[1]
-    smem = 4 * _SCORE_ROW_WORDS * s * c
-    if smem > MAX_SHARED_MEMORY:
-        raise ValueError(f"tables of S={s} x C={c} need {smem} bytes of "
-                         f"shared memory, more than the {MAX_SHARED_MEMORY} "
-                         f"a block has")
-    out = torch.empty(b, n, dtype=out_dtype, device=luts.device)
-    if b == 0 or n == 0:
-        return out
-    table = luts.to(torch.bfloat16).contiguous()
-    codes = codes_t.contiguous()
-    score, _ = _kernel_fns()
-    with torch.cuda.device(luts.device):
-        stream = torch.cuda.current_stream(luts.device).cuda_stream
-        _launch(score, "lut16_score", table.data_ptr(), codes.data_ptr(),
-                out.data_ptr(), b, s, c, n, int(out_dtype == torch.bfloat16),
-                stream)
-    return out
+    return _score_launch(luts, codes_t, out_dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -332,7 +455,7 @@ def lut16_fused_sweep(luts_i8: torch.Tensor, codes_packed_t: torch.Tensor,
         # TMA reads the rows at a 16-byte pitch from a 16-byte aligned start
         codes = codes_packed_t.new_zeros(sh, pitch)
         codes[:, :n] = codes_packed_t
-    _, fused = _kernel_fns()
+    _, fused, _ = _kernel_fns()
     with torch.cuda.device(luts_i8.device):
         stream = torch.cuda.current_stream(luts_i8.device).cuda_stream
         _launch(fused, "lut16_fused_sweep", tables.data_ptr(),

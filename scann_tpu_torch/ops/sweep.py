@@ -28,11 +28,11 @@ Four forms of the reduction, each with a plain PyTorch twin beside it:
 
 Two CUDA kernels serve them. ``csrc/block_min_compact.cu`` (wgmma with the
 queries in registers, the rows by TMA, a persistent grid; the epilogue a
-template parameter) takes the compact, row-major and top-2 calls for bf16
-rows, 8 <= r <= 256 and D1 <= 256. ``csrc/block_min_sweep.cu`` (mma.sync,
-one instance a form) takes the rest: int8 rows, r < 8 or > 256, wider
-rows, and every float32 q-major call. :func:`sweep_plan` decides from the
-arguments alone.
+template parameter) takes every form's calls for bf16 rows, D1 <= 256 and
+8 <= r <= 256, and the float32 q-major form's up to r = 512 (a block over
+four 128-row tiles). ``csrc/block_min_sweep.cu`` (mma.sync, one instance a
+form) takes the rest: int8 rows, r < 8, r > 256 (r > 512 q-major), wider
+rows. :func:`sweep_plan` decides from the arguments alone.
 
 CPU tensors take the twins; CUDA tensors launch a kernel or raise. Each
 kernel launch adds one to its form's entry in :data:`LAUNCHES` and to the
@@ -50,6 +50,7 @@ of ``sweep_search_kernel``.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 from typing import Dict, NamedTuple, Optional, Tuple
 
@@ -564,8 +565,12 @@ COMPACT_TILE_ROWS, COMPACT_TILE_Q, COMPACT_BOX_COLS = 128, 128, 64
 _COMPACT_MAX_BOXES, _COMPACT_MAX_STAGES, _COMPACT_RUN_BLOCKS = 4, 8, 64
 # streaming multiprocessors of an H100 SXM: sweep_plan's default grid width
 H100_SMS = 132
-# the kernel's epilogues, in the order of its kCompact, kRowMajor, kTop2
-SWEEP_FORMS = ("compact", "rowmajor", "top2")
+# the kernel's epilogues, in the order of its kCompact, kRowMajor, kTop2,
+# kQMajor
+SWEEP_FORMS = ("compact", "rowmajor", "top2", "qmajor")
+# the largest block each form takes: r = 512 spans four 128-row tiles, a
+# carry the q-major form keeps in registers; the others keep r <= 256
+_SWEEP_MAX_R = {"compact": 256, "rowmajor": 256, "top2": 256, "qmajor": 512}
 
 _compact_fn = None
 
@@ -599,8 +604,8 @@ def compact_smem_bytes(d1: int, r: int, stages: int, run_tiles: int) -> int:
 def sweep_smem_bytes(form: str, d1: int, r: int, stages: int,
                      run_tiles: int) -> int:
     """Shared memory of one CTA of ``form``: as
-    :func:`compact_smem_bytes`; the row-major forms store from registers
-    and stage nothing."""
+    :func:`compact_smem_bytes`; the row-major and q-major float32 forms
+    store from registers and stage nothing."""
     blocks = run_tiles * COMPACT_TILE_ROWS // r
     stage = -(-d1 // COMPACT_BOX_COLS) * COMPACT_TILE_ROWS * 128
     staging = COMPACT_TILE_Q * (align_up(2 * blocks, 16) + 16
@@ -615,23 +620,28 @@ def compact_plan(n: int, b: int, d1: int, r: int, int8_rows: bool,
     return sweep_plan("compact", n, b, d1, r, int8_rows, sms)
 
 
+@functools.lru_cache(maxsize=256)
 def sweep_plan(form: str, n: int, b: int, d1: int, r: int, int8_rows: bool,
                sms: int = H100_SMS) -> Optional[CompactPlan]:
     """The plan of ``block_min_compact.cu`` for a call of ``form`` (one of
     :data:`SWEEP_FORMS`), or None where the call stays with
-    ``block_min_sweep.cu``: int8 rows, r outside [8, 256], D1 past 256 or
-    not a multiple of 8, 2**31 rows or more.
+    ``block_min_sweep.cu``: int8 rows, r outside [8, 256] ([8, 512] for the
+    q-major float32 form), D1 past 256 or not a multiple of 8, 2**31 rows
+    or more.
 
     Clusters of 2 CTAs where there are 2 query tiles or more, so each row
     tile leaves L2 once for 2 query tiles (clusters of 4 fit 120 of the
     H100's 132 SMs and ran slower). A run is r / 2 tiles (64 blocks a
-    query), halved while the units would not fill ``sms`` CTAs, and even
-    where r = 256 (a block spans two tiles). The ring takes up to eight
-    stages that fit in shared memory beside the compact form's staging,
-    at least two."""
+    query), halved while the units would not fill ``sms`` CTAs, and a
+    multiple of r / 128 tiles where a block spans several. The q-major
+    float32 form stages nothing, so its run is free: the one whose busiest
+    cluster walks the fewest tiles (:func:`busiest_cluster_tiles`), the
+    longest of those. The ring takes up to eight stages that fit in shared
+    memory beside the compact form's staging, at least two. Plans are
+    cached: a search batch asks for the same one each call."""
     if form not in SWEEP_FORMS:
         raise ValueError(f"form must be one of {SWEEP_FORMS}, got {form!r}")
-    if (int8_rows or r < 8 or r > 256 or r & (r - 1)
+    if (int8_rows or r < 8 or r > _SWEEP_MAX_R[form] or r & (r - 1)
             or d1 <= 0 or d1 % 8 or n <= 0 or b <= 0 or n % r
             or n >= 1 << 31):
         return None
@@ -644,9 +654,14 @@ def sweep_plan(form: str, n: int, b: int, d1: int, r: int, int8_rows: bool,
     q_groups = -(-q_tiles // cluster)
     least = max(1, r // COMPACT_TILE_ROWS)
     run_tiles = _COMPACT_RUN_BLOCKS * r // COMPACT_TILE_ROWS
-    while (run_tiles > least
-           and -(-n_tiles // run_tiles) * q_groups * cluster < sms):
-        run_tiles //= 2
+    if form == "qmajor":
+        run_tiles = min(range(least, run_tiles + 1, least), key=lambda rt: (
+            busiest_cluster_tiles(n_tiles, rt, q_groups, sms // cluster),
+            -rt))
+    else:
+        while (run_tiles > least
+               and -(-n_tiles // run_tiles) * q_groups * cluster < sms):
+            run_tiles //= 2
     for stages in range(_COMPACT_MAX_STAGES, 1, -1):
         smem = sweep_smem_bytes(form, d1, r, stages, run_tiles)
         if smem <= MAX_SHARED_MEMORY:
@@ -654,6 +669,20 @@ def sweep_plan(form: str, n: int, b: int, d1: int, r: int, int8_rows: bool,
             return CompactPlan(4 * boxes, stages, cluster, run_tiles, runs,
                                q_tiles, runs * q_groups, smem)
     return None
+
+
+def busiest_cluster_tiles(n_tiles: int, run_tiles: int, q_groups: int,
+                          clusters: int) -> int:
+    """Row tiles the busiest cluster of the persistent grid walks: runs of
+    ``run_tiles`` (the last one short) x ``q_groups`` work units, unit u
+    on cluster u % G of G = min(units, ``clusters``) (:func:`compact_unit`
+    orders them)."""
+    runs = -(-n_tiles // run_tiles)
+    tiles = np.minimum(run_tiles, n_tiles - np.arange(runs) * run_tiles)
+    per_unit = np.repeat(tiles, q_groups)
+    grid = max(1, min(per_unit.size, clusters))
+    return int(np.bincount(np.arange(per_unit.size) % grid,
+                           weights=per_unit).max())
 
 
 def compact_unit(plan: CompactPlan, u: int) -> Tuple[int, int]:
@@ -666,18 +695,19 @@ def compact_unit(plan: CompactPlan, u: int) -> Tuple[int, int]:
 
 
 def block_min_compact_query_image(q_aug: torch.Tensor) -> torch.Tensor:
-    """The compact kernel's A fragments, flat uint8: per tile of 128
-    queries, per warpgroup (64 queries), per k16 step (4 a 64-column box),
-    16 bytes for each of the warpgroup's 128 threads. Thread (warp w, lane
-    4g + t) holds in register i the bf16 pair of query 16w + g + 8 * (i & 1)
-    at dimensions 16 ks + 2t + 8 * (i >> 1) + {0, 1}, the low half first.
-    Zero past B and D1."""
+    """The A fragments of ``block_min_compact.cu``, flat uint8: per tile of
+    128 queries, per warpgroup (64 queries), per k16 step (4 a 64-column
+    box), 16 bytes for each of the warpgroup's 128 threads. Thread (warp w,
+    lane 4g + t) holds in register i the bf16 pair of query 16w + g + 8 *
+    (i & 1) at dimensions 16 ks + 2t + 8 * (i >> 1) + {0, 1}, the low half
+    first. Zero past B and D1. The kernel loads these registers straight
+    from the [B, D1] queries at each work unit; this image is the model of
+    those loads that the CPU tests hold against wgmma's fragment map."""
     b, d1 = q_aug.shape
     nks = 4 * -(-d1 // COMPACT_BOX_COLS)
     qt = -(-b // COMPACT_TILE_Q)
-    q = torch.zeros(qt * COMPACT_TILE_Q, nks * 16, dtype=torch.bfloat16,
-                    device=q_aug.device)
-    q[:b, :d1] = q_aug
+    q = torch.nn.functional.pad(q_aug.to(torch.bfloat16),
+                                (0, nks * 16 - d1, 0, qt * COMPACT_TILE_Q - b))
     # [qt, wg, w, h, g, ks, kh, t, e] -> [qt, wg, ks, w, g, t, kh, h, e]
     img = q.view(qt, COMPACT_TILE_Q // 64, 4, 2, 8, nks, 2, 4, 2).permute(
         0, 1, 5, 2, 4, 7, 6, 3, 8)
@@ -701,8 +731,8 @@ def _compact_kernel_fn():
 def _launch(name: str, q_aug, db_aug, r: int, penalty, *, qmajor: bool,
             compact: bool, top2: bool, mma_sync: bool = False):
     """Checks the arguments, allocates the outputs and launches the
-    kernel on the current stream of the tensors' device: a compact,
-    row-major or top-2 call that :func:`sweep_plan` accepts goes to
+    kernel on the current stream of the tensors' device: a call that
+    :func:`sweep_plan` accepts for its form goes to
     ``block_min_compact.cu`` unless ``mma_sync`` (the old kernel, kept as a
     same-run yardstick), every other call to ``block_min_sweep.cu``."""
     device = q_aug.device
@@ -748,11 +778,11 @@ def _launch(name: str, q_aug, db_aug, r: int, penalty, *, qmajor: bool,
     q_aug = q_aug.contiguous()
     penalty = None if penalty is None else penalty.contiguous()
     form = ("top2" if top2 else "compact" if compact
-            else None if qmajor else "rowmajor")
-    plan = (sweep_plan(form, n, b, d1, r, db_aug.dtype == torch.int8,
+            else "qmajor" if qmajor else "rowmajor")
+    plan = (None if mma_sync else
+            sweep_plan(form, n, b, d1, r, db_aug.dtype == torch.int8,
                        torch.cuda.get_device_properties(
-                           device).multi_processor_count)
-            if form is not None and not mma_sync else None)
+                           device).multi_processor_count))
     nb = n // r
     if plan is not None and form == "top2" and n % COMPACT_TILE_ROWS:
         # the top-2 form reads rows through a view of whole 128-row tiles:
@@ -779,9 +809,8 @@ def _launch(name: str, q_aug, db_aug, r: int, penalty, *, qmajor: bool,
         stream = torch.cuda.current_stream(device).cuda_stream
         if plan is not None:
             kernel = "block_min_compact"
-            q_img = block_min_compact_query_image(q_aug)
             err = _compact_kernel_fn()(
-                db_aug.data_ptr(), q_img.data_ptr(), ptr(penalty),
+                db_aug.data_ptr(), q_aug.data_ptr(), ptr(penalty),
                 v1.data_ptr(), l1.data_ptr(), n, b, d1, r, plan.stages,
                 plan.run_tiles, plan.cluster, SWEEP_FORMS.index(form),
                 ptr(v2), ptr(l2), stream)

@@ -457,7 +457,10 @@ def test_compact_calls_route_by_the_plan(monkeypatch, d1, r, int8_rows,
         plan = sw.compact_plan(n, b, d1, r, False)
         assert calls[0][1][5:12] == (n, b, d1, r, plan.stages,
                                      plan.run_tiles, plan.cluster)
-    # the other forms never take the new kernel
+    # the float32 q-major form routes by its own plan, which takes these
+    # calls where the compact plan does
     calls.clear()
     sw.block_min_sweep_qmajor(q_aug, aug, r=r, compact=False)
-    assert [c[0] for c in calls] == ["block_min_sweep"]
+    assert [c[0] for c in calls] == [want]
+    assert (sw.sweep_plan("qmajor", n, b, d1, r, int8_rows) is None) == (
+        want == "block_min_sweep")

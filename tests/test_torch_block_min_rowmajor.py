@@ -107,12 +107,12 @@ def test_plan_of_each_row_major_form(form, r, d1, n, b):
         1024 + (plan.stages + 1) * (stage + 16) > MAX_SHARED_MEMORY
 
 
-@pytest.mark.parametrize("form", sw.SWEEP_FORMS)
+@pytest.mark.parametrize("form", ["compact", "rowmajor", "top2"])
 @pytest.mark.parametrize("n,b,d1,r,int8_rows", [
     (4096, 64, 104, 64, True),      # int8 rows
     (4096, 64, 104, 4, False),      # r < 8
     (4096, 64, 104, 2, False),
-    (4096, 64, 104, 512, False),    # r > 256
+    (4096, 64, 104, 512, False),    # r > 256 (the q-major form's limit: 512)
     (4096, 64, 264, 64, False),     # wider than 16 k-steps
     (4096, 64, 100, 64, False),     # D1 not a multiple of 8
     (4096 + 32, 64, 104, 64, False),  # N not a multiple of r
@@ -124,7 +124,7 @@ def test_plan_rejects(form, n, b, d1, r, int8_rows):
 
 def test_plan_rejects_an_unknown_form():
     with pytest.raises(ValueError, match="form"):
-        sw.sweep_plan("qmajor", 4096, 64, 104, 64, False)
+        sw.sweep_plan("float32", 4096, 64, 104, 64, False)
 
 
 # -- routing ------------------------------------------------------------------
@@ -231,12 +231,21 @@ def test_top2_calls_on_part_of_a_tile_take_a_padded_copy(stub_card, n, r):
 
 
 def test_float32_qmajor_calls_stay_on_the_old_kernel(stub_card):
+    """The float32 q-major calls its plan refuses (int8 rows, r < 8) stay
+    on block_min_sweep.cu; bf16 rows at 8 <= r <= 512 take the q-major
+    form of block_min_compact.cu (tests/test_torch_block_min_qmajor.py),
+    and the yardstick's mma_sync=True the old kernel."""
     q_aug = torch.empty(200, 104, dtype=torch.bfloat16, device="meta")
     aug = torch.empty(4096, 104, dtype=torch.bfloat16, device="meta")
+    aug8 = torch.empty(4096, 104, dtype=torch.int8, device="meta")
     sw.reset_launches()
-    sw.block_min_sweep_qmajor(q_aug, aug, r=64)
-    assert [c[0] for c in stub_card] == ["block_min_sweep"]
-    assert sw.LAUNCHES_BY_KERNEL["block_min_qmajor"]["block_min_sweep"] == 1
+    sw.block_min_sweep_qmajor(q_aug, aug8, r=64)
+    sw.block_min_sweep_qmajor(q_aug, aug, r=4)
+    sw._launch("block_min_qmajor", q_aug, aug, 64, None, qmajor=True,
+               compact=False, top2=False, mma_sync=True)
+    assert [c[0] for c in stub_card] == ["block_min_sweep"] * 3
+    assert sw.LAUNCHES_BY_KERNEL["block_min_qmajor"]["block_min_sweep"] == 3
+    assert sw.LAUNCHES_BY_KERNEL["block_min_qmajor"]["block_min_compact"] == 0
 
 
 # -- the top-2 form's rows: a permuted 5-D TMA box -----------------------------

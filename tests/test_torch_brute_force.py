@@ -13,7 +13,9 @@ index first.
 """
 
 import json
+import warnings
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -74,6 +76,37 @@ def assert_results_match(got_i, got_d, want_i, want_d, rtol=RTOL, atol=ATOL):
     np.testing.assert_array_equal(got_i[same], want_i[same])
 
 
+def _exact_l2(q, db):
+    """Exact L2 distances of the fixture's rows: their squared distances
+    are sums of multiples of 1/64, exact in float32, so the float64 root of
+    the float64 squares is the correctly rounded distance."""
+    sq = ((q.astype(np.float64)[:, None] - db[None].astype(np.float64)) ** 2
+          ).sum(-1)
+    return np.sqrt(sq).astype(np.float32)
+
+
+def _check_l2_against_exact(q, db, got, want):
+    """The port's L2 within RTOL/ATOL of the exact root (stricter than the
+    JAX comparison it replaces where JAX is off); JAX's result held to the
+    port only where JAX itself agrees with the exact root. One whole-suite
+    run once saw the two sides differ by up to 3e-4 relative, which side
+    being off unknown (ROADMAP queue 3): a failure here names the port's
+    error and JAX's, and the warning JAX's."""
+    exact = _exact_l2(q, db)
+    port_err = float(np.abs(got - exact).max())
+    jax_err = float(np.abs(want - exact).max())
+    np.testing.assert_allclose(
+        got, exact, rtol=RTOL, atol=ATOL,
+        err_msg=f"the port's L2 is off the exact root by up to {port_err} "
+                f"(JAX's by {jax_err})")
+    if np.allclose(want, exact, rtol=RTOL, atol=ATOL):
+        np.testing.assert_allclose(got, want, rtol=RTOL, atol=ATOL)
+    else:
+        warnings.warn(f"JAX's L2 is off the exact root by up to {jax_err} "
+                      f"in this process (the port's by {port_err}); the "
+                      f"port was held to the exact root")
+
+
 @pytest.mark.parametrize("name", DENSE)
 def test_many_to_many_every_dense_measure_matches_jax(data, name):
     db, q = data
@@ -85,8 +118,11 @@ def test_many_to_many_every_dense_measure_matches_jax(data, name):
     assert got.shape == want.shape and got.dtype == torch.float32
     np.testing.assert_array_equal(np.isinf(got.numpy()), np.isinf(want))
     fin = np.isfinite(want)
-    np.testing.assert_allclose(got.numpy()[fin], want[fin], rtol=RTOL,
-                               atol=ATOL)
+    if name == "L2":
+        _check_l2_against_exact(q, db, got.numpy(), want)
+    else:
+        np.testing.assert_allclose(got.numpy()[fin], want[fin], rtol=RTOL,
+                                   atol=ATOL)
     if name in ("SQUARED_L2", "L1", "COSINE"):
         # the single-query, pairwise and scalar forms
         np.testing.assert_allclose(
@@ -103,6 +139,72 @@ def test_many_to_many_every_dense_measure_matches_jax(data, name):
             td.DistanceMeasure[name], torch.from_numpy(q[3]),
             torch.from_numpy(db[9]))) - want[3, 9]) <= ATOL + RTOL * abs(
                 want[3, 9])
+
+
+def _leaked_state(state, tmp_path):
+    """Sets one process-wide setting that an earlier test file on the same
+    worker could leave behind; returns the function that restores it."""
+    if state == "torch_flush_denormal":
+        torch.set_flush_denormal(True)
+        return lambda: torch.set_flush_denormal(False)
+    if state == "torch_one_thread":
+        n = torch.get_num_threads()
+        torch.set_num_threads(1)
+        return lambda: torch.set_num_threads(n)
+    if state == "torch_matmul_medium":
+        old = torch.get_float32_matmul_precision()
+        torch.set_float32_matmul_precision("medium")
+        return lambda: torch.set_float32_matmul_precision(old)
+    if state == "mkldnn_off":
+        torch.backends.mkldnn.enabled = False
+        return lambda: setattr(torch.backends.mkldnn, "enabled", True)
+    if state == "jax_matmul_bf16":
+        jax.config.update("jax_default_matmul_precision", "bfloat16")
+        return lambda: jax.config.update("jax_default_matmul_precision",
+                                         None)
+    # the persistent compilation cache scann_tpu turns on outside the
+    # tests (SCANN_TPU_COMPILE_CACHE): every program written, then loaded
+    keys = ("jax_compilation_cache_dir",
+            "jax_persistent_cache_min_compile_time_secs",
+            "jax_persistent_cache_min_entry_size_bytes")
+    old = {k: getattr(jax.config, k) for k in keys}
+    for k, v in zip(keys, (str(tmp_path), 0.0, -1)):
+        jax.config.update(k, v)
+    jax.clear_caches()
+
+    def restore():
+        for k, v in old.items():
+            jax.config.update(k, v)
+        jax.clear_caches()
+    return restore
+
+
+@pytest.mark.parametrize("state", [
+    "torch_flush_denormal", "torch_one_thread", "torch_matmul_medium",
+    "mkldnn_off", "jax_matmul_bf16", "jax_compile_cache"])
+def test_l2_parity_holds_under_leaked_states(data, state, tmp_path):
+    """The L2 case of the test above after each process-wide setting an
+    earlier file on the worker could leave (ROADMAP queue 3: the one
+    failure was not reproduced in whole-suite runs or behind any single
+    file): both sides stay within RTOL/ATOL of the exact root, twice (the
+    second call of the compile-cache case loads the cached programs)."""
+    db, q = data
+    restore = _leaked_state(state, tmp_path)
+    try:
+        for _ in range(2):
+            want = np.asarray(jd.many_to_many(
+                jd.DistanceMeasure.L2, jnp.asarray(q), jnp.asarray(db),
+                chunk_size=96))
+            got = td.many_to_many(td.DistanceMeasure.L2, torch.from_numpy(q),
+                                  torch.from_numpy(db), chunk_size=96)
+            exact = _exact_l2(q, db)
+            np.testing.assert_allclose(got.numpy(), exact, rtol=RTOL,
+                                       atol=ATOL)
+            np.testing.assert_allclose(want, exact, rtol=RTOL, atol=ATOL)
+            if state == "jax_compile_cache":
+                jax.clear_caches()
+    finally:
+        restore()
 
 
 @pytest.mark.parametrize("name", ["L2", "L1", "JACCARD", "DICE", "COSINE"])

@@ -634,6 +634,99 @@ def test_block_min_kernels_break_ties_as_the_twin(form, r, b, penalty):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("r", [8, 256, 512])
+@pytest.mark.parametrize("b", [24, 128, 300])
+@pytest.mark.parametrize("penalty", [False, True])
+def test_block_min_qmajor_kernel_matches_twin(r, b, penalty):
+    """#4 on the q-major form of block_min_compact.cu against its twin
+    through check_against_twin("qmajor"): float32 values within 1e-5 *
+    sum|terms| + 1e-5, offsets reaching the twin's minimum; r = 512 carries
+    a block across four tiles; one launch of the new kernel."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from scann_tpu_torch.ops import sweep as sw
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.default_rng(r + b + penalty)
+    n = 16 * max(r, 128) + (8 if r == 8 else 0)
+    q_aug, aug, pen = _sweep_inputs(rng, n=n, d=100, b=b, r=r,
+                                    int8_rows=False, penalty=penalty)
+    assert sw.sweep_plan("qmajor", n, b, aug.shape[1], r, False) is not None
+    sw.reset_launches()
+    got = sw.block_min_sweep_qmajor(q_aug, aug, r=r, penalty=pen)
+    torch.cuda.synchronize()
+    assert sw.LAUNCHES_BY_KERNEL["block_min_qmajor"] == {
+        "block_min_compact": 1, "block_min_sweep": 0}
+    assert [(tuple(t.shape), t.dtype) for t in got] == [
+        ((b, n // r), torch.float32), ((b, n // r), torch.int32)]
+    report = sw.check_against_twin("qmajor", got, q_aug, aug, r=r,
+                                   penalty=pen)
+    assert report["checked"] == (n // r) * b
+    assert report["loc_equal"] > 0.9
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("r,b", [(8, 130), (256, 70), (512, 24), (512, 300)])
+@pytest.mark.parametrize("penalty", [False, True])
+def test_block_min_qmajor_kernel_breaks_ties_as_the_twin(r, b, penalty):
+    """Integer-valued bf16 rows and queries with repeated rows and a
+    penalty of 0 or 256: every sum is exact, so values and offsets equal
+    the twin's bit for bit, the lowest row first among equal minima (at
+    r = 512 across the four tiles of a block)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from scann_tpu_torch.ops import sweep as sw
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.default_rng(r + b + 3 * penalty)
+    n, d1 = 8192, 104
+    rows = torch.from_numpy(rng.integers(-8, 9, size=(n, d1)).astype(
+        np.float32)).to(torch.bfloat16).cuda()
+    rows[0:n - 1:5] = rows[1::5]    # repeated rows: ties inside blocks
+    rows[128:256] = rows[0:128]     # a block's tiles repeated: ties across
+    q = torch.from_numpy(rng.integers(-8, 9, size=(b, d1)).astype(
+        np.float32)).to(torch.bfloat16).cuda()
+    pen = None
+    if penalty:
+        pen = torch.from_numpy(np.where(rng.random((n // r, r)) < 0.3, 256.0,
+                                        0.0).astype(np.float32)).to(
+            torch.bfloat16).cuda()
+    sw.reset_launches()
+    got = sw.block_min_sweep_qmajor(q, rows, r=r, penalty=pen)
+    want = sw.block_min_sweep_qmajor_reference(q, rows, r=r, penalty=pen)
+    torch.cuda.synchronize()
+    assert sw.LAUNCHES_BY_KERNEL["block_min_qmajor"] == {
+        "block_min_compact": 1, "block_min_sweep": 0}
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and torch.equal(g, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("int8_rows,r", [(True, 512), (True, 64),
+                                         (False, 4)])
+def test_block_min_qmajor_calls_outside_the_plan_stay_on_the_old_kernel(
+        int8_rows, r):
+    """int8 rows and r < 8 go to block_min_sweep.cu, within the twin's
+    tolerance."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from scann_tpu_torch.ops import sweep as sw
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.default_rng(r + int8_rows)
+    n = 16 * max(r, 128)
+    q_aug, aug, pen = _sweep_inputs(rng, n=n, d=100, b=70, r=r,
+                                    int8_rows=int8_rows, penalty=int8_rows)
+    assert sw.sweep_plan("qmajor", n, 70, aug.shape[1], r, int8_rows) is None
+    sw.reset_launches()
+    got = sw.block_min_sweep_qmajor(q_aug, aug, r=r, penalty=pen)
+    torch.cuda.synchronize()
+    assert sw.LAUNCHES_BY_KERNEL["block_min_qmajor"] == {
+        "block_min_compact": 0, "block_min_sweep": 1}
+    sw.check_against_twin("qmajor", got, q_aug, aug, r=r, penalty=pen)
+
+
+@pytest.mark.cuda
 def test_block_min_rowmajor_kernels_reject_bad_arguments():
     """A call the plan accepts raises on bad arguments instead of falling
     back; the C entry point refuses a top-2 call without its seconds."""
@@ -654,18 +747,26 @@ def test_block_min_rowmajor_kernels_reject_bad_arguments():
         sw.block_min2_sweep(q_aug[:, :96].contiguous(), aug, r=64)
     plan = sw.sweep_plan("top2", 4096, 16, aug.shape[1], 64, False)
     out = torch.empty(64, 16, device="cuda")
-    img = sw.block_min_compact_query_image(q_aug)
     stream = torch.cuda.current_stream().cuda_stream
     err = sw._compact_kernel_fn()(
-        aug.data_ptr(), img.data_ptr(), None, out.data_ptr(), out.data_ptr(),
+        aug.data_ptr(), q_aug.data_ptr(), None, out.data_ptr(), out.data_ptr(),
         4096, 16, aug.shape[1], 64, plan.stages, plan.run_tiles,
         plan.cluster, 2, None, None, stream)
     assert err != 0
+    # an unknown form (form 3 is the q-major form since it was added)
     err = sw._compact_kernel_fn()(
-        aug.data_ptr(), img.data_ptr(), None, out.data_ptr(), out.data_ptr(),
+        aug.data_ptr(), q_aug.data_ptr(), None, out.data_ptr(), out.data_ptr(),
         4096, 16, aug.shape[1], 64, plan.stages, plan.run_tiles,
-        plan.cluster, 3, None, None, stream)
+        plan.cluster, 4, None, None, stream)
     assert err != 0
+    # the q-major form: r past 512, and r = 512 with runs of part of a block
+    qplan = sw.sweep_plan("qmajor", 4096, 16, aug.shape[1], 512, False)
+    for r, run_tiles in ((1024, 8), (512, 2)):
+        err = sw._compact_kernel_fn()(
+            aug.data_ptr(), q_aug.data_ptr(), None, out.data_ptr(),
+            out.data_ptr(), 4096, 16, aug.shape[1], r, qplan.stages,
+            run_tiles, 1, 3, None, None, stream)
+        assert err != 0
 
 
 @pytest.mark.cuda
@@ -798,10 +899,15 @@ def test_lut16_fused_sweep_kernel_small_code_count_and_ties():
 @pytest.mark.cuda
 @pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("b,s,c,n", [(1024, 50, 16, 20000), (100, 7, 16, 5000),
-                                     (33, 8, 256, 777), (1, 3, 4, 10)])
+                                     (33, 8, 256, 777), (1, 3, 4, 10),
+                                     # the approximate-only hasher's call and
+                                     # the 16,384-row hasher's re-rank call
+                                     (128, 50, 16, 1_183_514),
+                                     (1024, 50, 16, 16_384)])
 def test_lut16_score_kernel_matches_twin(out_dtype, b, s, c, n):
     """Bit-identical: both add bf16(entry) in ascending s in float32 and
-    round once to the output type."""
+    round once to the output type. Every call takes the query-tiled
+    kernel."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     from scann_tpu_torch.ops import scoring_kernels as sk
@@ -812,12 +918,66 @@ def test_lut16_score_kernel_matches_twin(out_dtype, b, s, c, n):
     codes_t = torch.from_numpy(rng.integers(0, c, size=(s, n)).astype(
         np.uint8)).cuda()
     before = sk.LAUNCHES["lut16_score"]
+    tiled = sk.SCORE_LAUNCHES["query_tiled"]
     got = sk.lut16_score(luts, codes_t, out_dtype)
     torch.cuda.synchronize()
     assert sk.LAUNCHES["lut16_score"] == before + 1
+    assert sk.SCORE_LAUNCHES["query_tiled"] == tiled + 1
     want = sk.lut16_score_reference(luts, codes_t, out_dtype)
     assert got.dtype == out_dtype and got.shape == (b, n)
     assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s,c,n", [(1024, 50, 16, 20000), (100, 7, 16, 5000),
+                                     (33, 8, 256, 777), (1, 3, 4, 10)])
+def test_lut16_score_per_column_kernel_matches_twin(out_dtype, b, s, c, n):
+    """The one-column-a-thread kernel (chip_smoke.py's same-run yardstick,
+    reached only through _score_launch(per_column=True)) stays bit-identical
+    to the twin."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from scann_tpu_torch.ops import scoring_kernels as sk
+
+    rng = np.random.default_rng(b + s + c + n + 1)
+    luts = torch.from_numpy((rng.normal(size=(b, s, c)) * 5).astype(
+        np.float32)).cuda()
+    codes_t = torch.from_numpy(rng.integers(0, c, size=(s, n)).astype(
+        np.uint8)).cuda()
+    before = sk.SCORE_LAUNCHES["column_per_thread"]
+    got = sk._score_launch(luts, codes_t, out_dtype, per_column=True)
+    torch.cuda.synchronize()
+    assert sk.SCORE_LAUNCHES["column_per_thread"] == before + 1
+    assert torch.equal(got, sk.lut16_score_reference(luts, codes_t,
+                                                     out_dtype))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s,c,n,view", [
+    (70, 5, 16, 1000, 3),     # codes a view starting 3 bytes in
+    (130, 50, 16, 4099, 0),   # N odd, B past a tile
+    (9, 12, 256, 300, 1),     # 16 queries a tile, C = 256
+])
+def test_lut16_score_kernel_reads_any_code_alignment(b, s, c, n, view):
+    """Codes at any alignment and row pitch (a column slice of a wider
+    matrix, made contiguous by the wrapper, and an offset view): the ring's
+    aligned copies and funnel shifts give the twin's result bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from scann_tpu_torch.ops import scoring_kernels as sk
+
+    rng = np.random.default_rng(b + n)
+    luts = torch.from_numpy((rng.normal(size=(b, s, c)) * 5).astype(
+        np.float32)).cuda()
+    flat = torch.from_numpy(rng.integers(0, c, size=s * n + view).astype(
+        np.uint8)).cuda()
+    codes_t = flat[view:].view(s, n)
+    assert codes_t.is_contiguous() and codes_t.data_ptr() % 16 == view
+    for dtype in (torch.float32, torch.bfloat16):
+        got = sk.lut16_score(luts, codes_t, dtype)
+        assert torch.equal(got, sk.lut16_score_reference(luts, codes_t,
+                                                         dtype))
 
 
 @pytest.mark.cuda
