@@ -39,8 +39,13 @@ queries:
   ``BruteForceSearcher.search_batched_tensors`` (the composed path,
   recall@10 >= 0.999), then at the JAX package's bench.py headline shape
   (10,000 x 64 uniform rows, seed 42, k=10) checks the fused small-database
-  kernel against its twin at B=100, serves B=100 through it (recall 1.0)
-  and B=6400 through the composed path;
+  kernel (the cluster kernel, and the first port's kernel kept as a
+  yardstick) against its twin at B=100, serves B=100 through it (recall
+  1.0, every launch on the cluster kernel) and B=6400 through the composed
+  path; both fused kernels also run, checked against the twin and timed in
+  turns, on the two searches the gate refuses (B=1024 over the 1.18M rows,
+  B=6400 at the headline shape), and at the headline in turns, back to
+  back at k = 1, 10 and 16, with their wrappers' host time;
 - scalar-quantized brute force: builds the int8 codes on the card, checks
   the int8-dots kernel against its twin on the first batch and the full
   transposed codes, serves the batches through
@@ -65,7 +70,8 @@ with CUDA events (the grouped and per-pair SOAR paths also at twice the
 batch, past the pair density where groups widen). The grouped scorer's
 times (#1 on both indexes, #1b) stand beside its output contract's
 traffic floor and its shared-memory lookup floors; [2] reports registers
-and spills of every instance of #1/#1b, #8, #10 and the four forms of
+and spills of every instance of #1/#1b, #2 (and fails on a stack frame or
+a spill in the cluster kernel), #8, #10 and the four forms of
 ``block_min_compact.cu`` (#3, #4, #5, #6).
 
     python3 chip_smoke.py
@@ -151,13 +157,15 @@ def leaf_bound(parts, part_sizes, *, s, c, entry_bytes, row_bytes,
 def kernel_ptxas(build_log: str, kernel: str, label):
     """'<label>: N registers, S bytes spill stores, L bytes spill loads' for
     each instance of ``kernel`` in an ``nvcc -Xptxas -v`` log; ``label``
-    names an instance from its integer and bool template arguments."""
+    names an instance from its integer and bool template arguments (none
+    for a kernel that is no template)."""
     out, args, spill = [], None, ""
     for ln in build_log.splitlines():
         if "Function properties for" in ln:
             m = re.search(kernel + r"I((?:L[ib]\d+E)+)E", ln)
             args = ([int(v) for v in re.findall(r"L[ib](\d+)E", m.group(1))]
-                    if m else None)
+                    if m else [] if re.search(r"\d" + kernel + "E", ln)
+                    else None)
         elif "spill stores" in ln:
             spill = ", ".join(x.strip() for x in ln.split(",")
                               if "spill" in x or "stack" in x)
@@ -327,6 +335,19 @@ def main() -> int:
         + "; the one-column-a-thread yardstick: " + "; ".join(kernel_ptxas(
             score_log, "lut16_score_kernel",
             lambda bf: f"{'bf16' if bf else 'float32'}")))
+    fused_log = native.saved_logs.get("fused_bf", "")
+    fused_ptxas = kernel_ptxas(
+        fused_log, "fused_bf_cluster_kernel",
+        lambda qt, v16: f"q_tile {qt} {16 if v16 else 4}-byte copies")
+    log("[2 kernel build] fused_bf (#2) cluster kernel, ptxas: "
+        + "; ".join(fused_ptxas) + "; the first port's kernel: "
+        + "; ".join(kernel_ptxas(fused_log, "fused_bf_kernel",
+                                 lambda: "fused_bf_kernel")))
+    if len(fused_ptxas) != 4 or not all(
+            "0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads"
+            in ln for ln in fused_ptxas):
+        raise AssertionError("an instance of the fused_bf cluster kernel "
+                             "has a stack frame or spills")
     log("[2 kernel build] tree_ah_grouped (#1, #1b), ptxas: " + "; ".join(
         kernel_ptxas(native.saved_logs.get("tree_ah_grouped", ""),
                      "tree_ah_grouped_kernel",
@@ -626,6 +647,15 @@ def host_us(call, reps=200):
     t = time.perf_counter() - t0
     torch.cuda.synchronize()
     return t / reps * 1e6
+
+
+def twin_chunks(fb, q, db, norms, n_valid, k, vals, idx, chunk=128):
+    """Largest abs value error of a fused kernel's result against its twin
+    (``fused_bf.check_against_twin``, which raises where they disagree),
+    ``chunk`` queries at a time so the twin's [chunk, N] distances fit."""
+    return max(fb.check_against_twin(
+        q[i:i + chunk], db, norms, n_valid, k, vals[i:i + chunk],
+        idx[i:i + chunk])["max_abs_err"] for i in range(0, len(q), chunk))
 
 
 def block_sweep_phases(ds, queries, db_dev, gt_np, cold_ms, turns, smi):
@@ -1375,7 +1405,7 @@ def brute_force_phases(ds, queries, db_dev, gt_np, cold_ms, turns, smi):
         """(ids, distances, host wall s, fused launches, int8-dots
         launches) of ``s`` over ``qs`` in calls of ``batch``, counted from
         zero."""
-        fb.LAUNCHES = 0
+        fb.reset_launches()
         sk.reset_launches()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -1436,18 +1466,27 @@ def brute_force_phases(ds, queries, db_dev, gt_np, cold_ms, turns, smi):
         f"float32, L2 flushed: by value {by_value:.4f} ms, by the int64 key "
         f"over the whole row {by_key:.4f} ms, same ids ({smi})")
     del dd
-    # aside for the fused gate: the fused kernel on this search, which the
+    # aside for the fused gate: both fused kernels on this search, which the
     # JAX package's 14 MB gate sends to the composed path
     got_v, got_i = fb.fused_bf_search(q0, db, norms, n, K)
     torch.cuda.synchronize()
     check_results(got_i.long(), got_v, q0, db_dev, BATCH)
     f_recall = recall_at_k(got_i.cpu().numpy(), gt_np[:BATCH], K)
-    f_ms, c_ms = turns(lambda: fb.fused_bf_search(q0, db, norms, n, K),
-                       lambda: bf.search_batched_tensors(q0, K), 3, 3)
-    log(f"[16 aside] the fused kernel on one batch of this search (B={BATCH},"
-        f" {n} rows; the gate refuses it): recall@10 {f_recall:.4f}, L2 "
-        f"flushed {f_ms:.4f} ms against {c_ms:.4f} ms for the composed path "
-        f"({smi})")
+    old_v, old_i = fb._launch(q0, db, norms, n, K, scratch_merge=True)
+    aside_err = [twin_chunks(fb, q0, db, norms, n, K, v, i)
+                 for v, i in ((got_v, got_i), (old_v, old_i))]
+    del old_v, old_i
+    f_ms, o_ms = turns(lambda: fb.fused_bf_search(q0, db, norms, n, K),
+                       lambda: fb._launch(q0, db, norms, n, K,
+                                          scratch_merge=True), 3, 3)
+    c_ms = cold_ms(lambda: bf.search_batched_tensors(q0, K), 3)
+    log(f"[16 aside] the fused kernels on one batch of this search "
+        f"(B={BATCH}, {n} rows; the gate refuses it; plan "
+        f"{fb._device_plan(dev.index or 0, BATCH, n, D, K)}): recall@10 "
+        f"{f_recall:.4f}, max abs err against the twin {aside_err[0]:.6g} "
+        f"(the first port's kernel {aside_err[1]:.6g}); L2 flushed, in turns:"
+        f" cluster kernel {f_ms:.4f} ms, the first port's kernel {o_ms:.4f} "
+        f"ms; the composed path {c_ms:.4f} ms ({smi})")
     med, top = event_ms(lambda qb: bf.search_batched_tensors(qb, K), queries,
                         BATCH, BATCHES)
     log(f"[16 brute force search time] search_batched_tensors, B={BATCH}, "
@@ -1471,14 +1510,17 @@ def brute_force_phases(ds, queries, db_dev, gt_np, cold_ms, turns, smi):
     got_v, got_i = fb.fused_bf_search(hq, hdb, hnorms, hn, K)
     torch.cuda.synchronize()
     rep = fb.check_against_twin(hq, hdb, hnorms, hn, K, got_v, got_i)
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    per_split, n_splits = fb.split_plan(HEAD_B, HEAD_N, sms)
-    log(f"[17 kernel check] fused_bf: B={HEAD_B}, {HEAD_N} x {HEAD_D}, k={K}, "
-        f"{n_splits} row splits of {per_split} x 256 rows x "
-        f"{-(-HEAD_B // 32)} query tiles: max abs err "
+    head_plan = fb._device_plan(dev.index or 0, HEAD_B, hn, HEAD_D, K)
+    old_v, old_i = fb._launch(hq, hdb, hnorms, hn, K, scratch_merge=True)
+    torch.cuda.synchronize()
+    rep_old = fb.check_against_twin(hq, hdb, hnorms, hn, K, old_v, old_i)
+    log(f"[17 kernel check] fused_bf cluster kernel: B={HEAD_B}, {HEAD_N} x "
+        f"{HEAD_D}, k={K}, plan {head_plan} (ring stages of "
+        f"{fb.slab_width(head_plan.q_tile, HEAD_D)} d): max abs err "
         f"{rep['max_abs_err']:.6g}, max rel err {rep['max_rel_err']:.3g} "
         f"(tolerance 1e-5 of |q|^2 + |x|^2), ids equal at "
-        f"{rep['ids_compared']} of {HEAD_B * K} slots away from ties")
+        f"{rep['ids_compared']} of {HEAD_B * K} slots away from ties; the "
+        f"first port's kernel: max abs err {rep_old['max_abs_err']:.6g}")
     exact = torch.cat([torch.topk(((hq[i:i + 25, None, :] - hdb[None]) ** 2)
                                   .sum(-1), K, dim=1, largest=False).indices
                        for i in range(0, HEAD_B, 25)]).cpu().numpy()
@@ -1488,30 +1530,43 @@ def brute_force_phases(ds, queries, db_dev, gt_np, cold_ms, turns, smi):
         check_results(idx, dists, qs, hdb, len(qs))
         if label == "fused":
             head_recall = recall_at_k(idx.cpu().numpy(), exact, K)
-            fused_launches = f_l
-            if head_recall < 1.0 or f_l <= 0:
-                raise AssertionError(f"fused path: recall {head_recall}, "
-                                     f"launches {f_l}")
+            fused_launches = fb.LAUNCHES_BY_KERNEL["cluster"]
+            if (head_recall < 1.0 or f_l <= 0 or fused_launches != f_l
+                    or fb.LAUNCHES_BY_KERNEL["scratch_merge"]):
+                raise AssertionError(
+                    f"fused path: recall {head_recall}, launches {f_l}, by "
+                    f"kernel {fb.LAUNCHES_BY_KERNEL}")
         elif f_l:
             raise AssertionError("B=6400 launched the fused kernel")
         head[label] = event_ms(lambda qb: hs.search_batched_tensors(qb, K),
                                qs, len(qs), 1, reps=30)
         log(f"[17 headline/{label}] B={len(qs)}: launches of fused_bf {f_l}"
+            + (f" (the cluster kernel {fused_launches})"
+               if label == "fused" else "")
             + (f", recall@10 {head_recall:.4f}" if label == "fused" else "")
             + f"; per-batch median {head[label][0]:.4f} ms, max "
             f"{head[label][1]:.4f} ms -> {len(qs) / head[label][0] * 1e3:.0f}"
             f" queries/s ({smi})")
 
-    # aside for the fused gate: the kernel at B=6400, which the gate refuses
+    # aside for the fused gate: both kernels at B=6400, which the gate
+    # refuses
     got_v, got_i = fb.fused_bf_search(hsat, hdb, hnorms, hn, K)
+    old_v, old_i = fb._launch(hsat, hdb, hnorms, hn, K, scratch_merge=True)
     torch.cuda.synchronize()
     sat = fb.check_against_twin(hsat, hdb, hnorms, hn, K, got_v, got_i)
-    f_ms, c_ms = turns(lambda: fb.fused_bf_search(hsat, hdb, hnorms, hn, K),
-                       lambda: hs.search_batched_tensors(hsat, K), 10, 10)
-    log(f"[17 aside] the fused kernel at B={HEAD_B_SAT} (the gate refuses "
-        f"it): max abs err against the twin {sat['max_abs_err']:.6g}, L2 "
-        f"flushed {f_ms:.4f} ms against {c_ms:.4f} ms for the composed path "
-        f"({smi})")
+    sat_old = fb.check_against_twin(hsat, hdb, hnorms, hn, K, old_v, old_i)
+    f_ms, o_ms = turns(
+        lambda: fb.fused_bf_search(hsat, hdb, hnorms, hn, K),
+        lambda: fb._launch(hsat, hdb, hnorms, hn, K, scratch_merge=True),
+        10, 10)
+    c_ms = cold_ms(lambda: hs.search_batched_tensors(hsat, K), 10)
+    log(f"[17 aside] the fused kernels at B={HEAD_B_SAT} (the gate refuses "
+        f"it; plan "
+        f"{fb._device_plan(dev.index or 0, HEAD_B_SAT, hn, HEAD_D, K)}): "
+        f"max abs err against the twin {sat['max_abs_err']:.6g} (the "
+        f"first port's kernel {sat_old['max_abs_err']:.6g}); L2 flushed, in "
+        f"turns: cluster kernel {f_ms:.4f} ms, the first port's kernel "
+        f"{o_ms:.4f} ms; the composed path {c_ms:.4f} ms ({smi})")
 
     # -- 18. scalar-quantized int8 over the 1.18M rows ------------------------
     torch.cuda.synchronize()
@@ -1662,55 +1717,75 @@ def brute_force_phases(ds, queries, db_dev, gt_np, cold_ms, turns, smi):
     k2, p2 = turns(lambda: fb.fused_bf_search(hq, hdb, hnorms, hn, K),
                    lambda: fb.fused_bf_search_reference(hq, hdb, hnorms, hn,
                                                         K), 50, 20)
+    # the cluster kernel beside the first port's in turns (new, old, old,
+    # new), each through its wrapper
+    k2t, o2t = turns(lambda: fb.fused_bf_search(hq, hdb, hnorms, hn, K),
+                     lambda: fb._launch(hq, hdb, hnorms, hn, K,
+                                        scratch_merge=True), 50, 50)
     ops2 = 2 * HEAD_B * HEAD_N * HEAD_D
     bytes2 = 4 * (HEAD_B * HEAD_D + HEAD_N * HEAD_D + HEAD_N) + 8 * HEAD_B * K
     b2, by2 = bound(ops2, PEAK_F32, bytes2)
     log(f"[19 kernel time] fused_bf: B={HEAD_B}, {HEAD_N} x {HEAD_D}, k={K}, "
-        f"L2 flushed: kernel {k2:.4f} ms, plain twin (the composed path: "
-        f"product, mask, tie-free top-k) {p2:.4f} ms, bound {b2:.4f} ms, "
-        f"bound by {by2} ({ops2} float32 FLOP, {bytes2} bytes) -> "
-        f"{b2 / k2:.3f} of the bound ({smi})")
-    # aside: the kernel alone, launched back to back through its C entry
-    # point with the outputs and scratch allocated once, for k = 1, 10, 16
-    raw = []
-    per_split, n_splits = fb.split_plan(HEAD_B, HEAD_N, sms)
+        f"L2 flushed: cluster kernel {k2:.4f} ms, plain twin (the composed "
+        f"path: product, mask, tie-free top-k) {p2:.4f} ms, bound {b2:.4f} "
+        f"ms, bound by {by2} ({ops2} float32 FLOP, {bytes2} bytes) -> "
+        f"{b2 / k2:.3f} of the bound; in turns: cluster kernel {k2t:.4f} ms,"
+        f" the first port's kernel {o2t:.4f} ms, {o2t / k2t:.2f}x ({smi})")
+    # aside: each kernel alone, launched back to back through its C entry
+    # point with the outputs (and the first port's scratch) allocated once,
+    # for k = 1, 10, 16, in turns new, old, old, new; the wrappers' host time
+    search2, _, old2 = fb._kernel_fns()
+    per_split, n_splits = fb.split_plan(
+        HEAD_B, HEAD_N, torch.cuda.get_device_properties(
+            dev).multi_processor_count)
     counters = torch.zeros(-(-HEAD_B // 32), dtype=torch.int32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
+    dk2 = fb.slab_width(head_plan.q_tile, HEAD_D)
+    raw = []
     for kk in (1, K, fb.MAX_K):
         out_v = torch.empty(HEAD_B, kk, device=dev)
         out_i = torch.empty(HEAD_B, kk, dtype=torch.int32, device=dev)
         part = torch.empty(HEAD_B * n_splits * kk, dtype=torch.int64,
                            device=dev)
 
-        def launch():
+        def new_launch():
+            return search2(hq.data_ptr(), hdb.data_ptr(), hnorms.data_ptr(),
+                           hn, HEAD_B, HEAD_D, kk, head_plan.q_tile,
+                           head_plan.cluster, head_plan.rows_per_cta, dk2,
+                           out_v.data_ptr(), out_i.data_ptr(), stream)
+
+        def old_launch():
             counters.zero_()
-            if fb._kernel_fn()(
-                    hq.data_ptr(), hdb.data_ptr(), hnorms.data_ptr(), hn,
-                    HEAD_B, HEAD_D, HEAD_N, kk, per_split, n_splits,
-                    part.data_ptr(), counters.data_ptr(), out_v.data_ptr(),
-                    out_i.data_ptr(), stream):
+            return old2(hq.data_ptr(), hdb.data_ptr(), hnorms.data_ptr(), hn,
+                        HEAD_B, HEAD_D, HEAD_N, kk, per_split, n_splits,
+                        part.data_ptr(), counters.data_ptr(),
+                        out_v.data_ptr(), out_i.data_ptr(), stream)
+
+        for launch in (new_launch, old_launch):
+            if launch():
                 raise AssertionError("fused_bf launch failed")
-
-        def back_to_back(fn, reps=300):
-            fn()
-            a = torch.cuda.Event(enable_timing=True)
-            b = torch.cuda.Event(enable_timing=True)
-            a.record()
-            for _ in range(reps):
-                fn()
-            b.record()
             torch.cuda.synchronize()
-            return a.elapsed_time(b) / reps
-
-        fb.check_against_twin(hq, hdb, hnorms, hn, kk, *(launch() or
-                                                          (out_v, out_i)))
-        raw.append(f"k={kk} {back_to_back(launch):.4f}")
-    reset_ms = back_to_back(counters.zero_)
-    log(f"[19 aside] fused_bf launched back to back, B={HEAD_B}: "
-        f"{'; '.join(raw)} ms each, of which the counter reset "
-        f"{reset_ms:.4f} ms ({smi})")
+            fb.check_against_twin(hq, hdb, hnorms, hn, kk, out_v, out_i)
+        t = [back_to_back_ms(f, 300) for f in (new_launch, old_launch,
+                                               old_launch, new_launch)]
+        raw.append((kk, (t[0] + t[3]) / 2, (t[1] + t[2]) / 2, t))
+    reset_ms = back_to_back_ms(lambda: (counters.zero_(), 0)[1], 300)
+    hq8, hdb8, hn8 = hq[:8], hdb[:64], hnorms[:64]
+    h_new = host_us(lambda: fb.fused_bf_search(hq8, hdb8, hn8, 64, K))
+    h_old = host_us(lambda: fb._launch(hq8, hdb8, hn8, 64, K,
+                                       scratch_merge=True))
+    log(f"[19 aside] fused_bf launched back to back, B={HEAD_B}, L2 warm, in "
+        f"turns (new, old, old, new): " + "; ".join(
+            f"k={kk} cluster kernel {nm:.4f} ms ({t[0]:.4f}, {t[3]:.4f}), "
+            f"the first port's {om:.4f} ms ({t[1]:.4f}, {t[2]:.4f}), "
+            f"{om / nm:.2f}x" for kk, nm, om, t in raw)
+        + f"; k=16 / k=1: cluster kernel {raw[2][1] / raw[0][1]:.2f}, the "
+        f"first port's {raw[2][2] / raw[0][2]:.2f}; of the first port's "
+        f"times its counter reset {reset_ms:.4f} ms; host time a call of the "
+        f"wrapper (B=8, 64 rows): {h_new:.1f} us cluster kernel, {h_old:.1f} "
+        f"us the first port's ({smi})")
     records.append({
-        "name": "fused_bf", "route": "cuda",
+        "name": "fused_bf_cluster", "route": "cuda",
         "source": "scann_tpu_torch/csrc/fused_bf.cu",
         "replaces": "scann_tpu/ops/fused_bf_pallas.py:28",
         "launches": fused_launches, "max_abs_err": rep["max_abs_err"],

@@ -85,22 +85,48 @@ def _exact_l2(q, db):
     return np.sqrt(sq).astype(np.float32)
 
 
+def _torch_state(q, db):
+    """The process-wide torch settings an earlier test file could leave
+    behind, and where the port's L2 moved: the error of its squared
+    distances against the exact squares, and the error of ``torch.sqrt``
+    over those same squares against their float64 root."""
+    # no getter for set_flush_denormal: a denormal input reads as 0 under it
+    flush = float(torch.tensor([1e-39]) * 2.0) == 0.0
+    sq = td.many_to_many(td.DistanceMeasure.SQUARED_L2, torch.from_numpy(q),
+                         torch.from_numpy(db), chunk_size=96)
+    exact_sq = ((q.astype(np.float64)[:, None]
+                 - db[None].astype(np.float64)) ** 2).sum(-1)
+    root64 = np.sqrt(sq.numpy().astype(np.float64)).astype(np.float32)
+    return (f"cpu capability {torch.backends.cpu.get_cpu_capability()}, "
+            f"{torch.get_num_threads()} threads, flush denormal {flush}, "
+            f"mkldnn enabled {torch.backends.mkldnn.enabled}, float32 matmul "
+            f"precision {torch.get_float32_matmul_precision()}; squares off "
+            f"the exact squares by up to "
+            f"{float(np.abs(sq.numpy() - exact_sq).max())}, torch.sqrt of "
+            f"them off their float64 root by up to "
+            f"{float(np.abs(sq.sqrt().numpy() - root64).max())}")
+
+
 def _check_l2_against_exact(q, db, got, want):
     """The port's L2 within RTOL/ATOL of the exact root (stricter than the
     JAX comparison it replaces where JAX is off); JAX's result held to the
-    port only where JAX itself agrees with the exact root. One whole-suite
-    run once saw the two sides differ by up to 3e-4 relative, which side
-    being off unknown (ROADMAP queue 3): a failure here names the port's
-    error and JAX's, and the warning JAX's."""
+    port only where JAX itself agrees with the exact root. Whole-suite runs
+    have seen this fail, its cause not reproduced (ROADMAP queue 3): a
+    failure here names the port's error and JAX's, torch's process-wide
+    settings and whether the squares or the root moved."""
     exact = _exact_l2(q, db)
     port_err = float(np.abs(got - exact).max())
     jax_err = float(np.abs(want - exact).max())
     np.testing.assert_allclose(
         got, exact, rtol=RTOL, atol=ATOL,
         err_msg=f"the port's L2 is off the exact root by up to {port_err} "
-                f"(JAX's by {jax_err})")
+                f"(JAX's by {jax_err}); {_torch_state(q, db)}")
     if np.allclose(want, exact, rtol=RTOL, atol=ATOL):
-        np.testing.assert_allclose(got, want, rtol=RTOL, atol=ATOL)
+        np.testing.assert_allclose(
+            got, want, rtol=RTOL, atol=ATOL,
+            err_msg=f"both sides are near the exact root, the port off by "
+                    f"up to {port_err} and JAX by {jax_err}; "
+                    f"{_torch_state(q, db)}")
     else:
         warnings.warn(f"JAX's L2 is off the exact root by up to {jax_err} "
                       f"in this process (the port's by {port_err}); the "

@@ -1096,11 +1096,15 @@ def _fused_case(rng, n, d, b, dup=False):
     (200, 8, 5, 200, True),               # one split: no merge
     (50_000, 32, 8, 49_990, False),       # many sub-chunks per split
     (20, 4, 3, 6, False),                 # k > n_valid: (inf, -1) slots
+    (10_000, 64, 1, 10_000, False),       # B=1
+    (10_000, 64, 6400, 10_000, False),    # bench.py's B=6400
+    (50_000, 100, 37, 44_444, True),      # partial query tile, n_valid < N
+    (777, 13, 300, 700, True),            # D % 4 != 0: 4-byte copies
 ])
 def test_fused_bf_kernel_matches_twin(k, n, d, b, n_valid, dup):
     """Values within 1e-5 of the terms |q|^2 + |x|^2, ids equal away from
     ties, missing slots equal (``fused_bf.check_against_twin``); equal
-    values lowest row first."""
+    values lowest row first; the cluster kernel served the call."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     from scann_tpu_torch.ops import fused_bf as fb
@@ -1109,9 +1113,12 @@ def test_fused_bf_kernel_matches_twin(k, n, d, b, n_valid, dup):
     rng = np.random.default_rng(n + k)
     q, db, norms = _fused_case(rng, n, d, b, dup)
     before = fb.LAUNCHES
+    served = dict(fb.LAUNCHES_BY_KERNEL)
     vals, idx = fb.fused_bf_search(q, db, norms, n_valid, k)
     torch.cuda.synchronize()
     assert fb.LAUNCHES == before + 1
+    assert fb.LAUNCHES_BY_KERNEL["cluster"] == served["cluster"] + 1
+    assert fb.LAUNCHES_BY_KERNEL["scratch_merge"] == served["scratch_merge"]
     assert vals.shape == (b, k) and idx.dtype == torch.int32
     fb.check_against_twin(q, db, norms, n_valid, k, vals, idx)
     i = idx.cpu().numpy()
@@ -1123,6 +1130,152 @@ def test_fused_bf_kernel_matches_twin(k, n, d, b, n_valid, dup):
         assert list(i[0, :min(k, 3)]) == [3, 9, 20][:k]
         assert list(i[1, :min(k, 2)]) == [7, 8][:k]
         assert vals[0, 0] == 0.0 or bool(vals[0, 0] < 1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 10, 16])
+@pytest.mark.parametrize("q_tile,cluster,n,b,n_valid", [
+    (16, 1, 3_000, 16, 3_000),       # one CTA a tile: no merge
+    (16, 2, 3_000, 13, 2_900),       # a partial query tile
+    (16, 5, 10_000, 100, 9_999),     # a cluster width that is no power of 2
+    (32, 8, 10_000, 33, 10_000),     # the widest portable cluster
+    (16, 16, 50_000, 20, 50_000),    # past the portable 8; many sub-chunks
+    (32, 16, 40, 3, 37),             # ranges of 3 rows, k > the range
+    (32, 1, 6_000, 1, 6_000),        # B=1
+])
+def test_fused_bf_cluster_plans_match_twin(k, q_tile, cluster, n, b, n_valid):
+    """The cluster kernel under each plan shape, against the twin."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from scann_tpu_torch.ops import fused_bf as fb
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.default_rng(q_tile * cluster + k)
+    q, db, norms = _fused_case(rng, n, 24, b, dup=b > 1)
+    plan = fb.ClusterPlan(q_tile, cluster, -(-n_valid // cluster))
+    vals, idx = fb._launch(q, db, norms, n_valid, k, plan=plan)
+    torch.cuda.synchronize()
+    fb.check_against_twin(q, db, norms, n_valid, k, vals, idx)
+    assert (idx.cpu().numpy() < n_valid).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 10, 16])
+@pytest.mark.parametrize("scratch_merge", [False, True])
+def test_fused_bf_kernels_equal_twin_bit_for_bit_on_ties(k, scratch_merge):
+    """Integer-valued rows with many equal distances: every sum is exact,
+    so both kernels (the cluster kernel and the first port's, kept as a
+    yardstick) equal the twin in values and ids, ties lowest row first."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from scann_tpu_torch.ops import fused_bf as fb
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.default_rng(k)
+    db = rng.integers(0, 3, size=(20_000, 8)).astype(np.float32)
+    q = rng.integers(0, 3, size=(77, 8)).astype(np.float32)
+    db[9_000:9_005] = db[1]
+    q[0] = db[1]
+    norms = (db ** 2).sum(1).astype(np.float32)
+    q, db, norms = (torch.from_numpy(a).cuda() for a in (q, db, norms))
+    served = dict(fb.LAUNCHES_BY_KERNEL)
+    kernel = "scratch_merge" if scratch_merge else "cluster"
+    for plan in ([None] if scratch_merge else
+                 [None, fb.ClusterPlan(16, 16, 1_219),
+                  fb.ClusterPlan(32, 3, 6_500)]):
+        vals, idx = fb._launch(q, db, norms, 19_500, k,
+                               scratch_merge=scratch_merge, plan=plan)
+        want_v, want_i = fb.fused_bf_search_reference(q, db, norms, 19_500,
+                                                      k)
+        assert torch.equal(vals, want_v) and torch.equal(idx, want_i)
+    assert fb.LAUNCHES_BY_KERNEL[kernel] == served[kernel] + (
+        1 if scratch_merge else 3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 10, 16])
+def test_fused_bf_cluster_kernel_on_rows_sorted_by_falling_distance(k):
+    """Every sub-chunk beats the list the one before left, more than 64
+    candidates survive and the selection takes its rounds: still the
+    twin's result bit for bit (integer-valued rows, ties between
+    neighbours), with D not a multiple of 4 and one with more than a stage
+    of d."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from scann_tpu_torch.ops import fused_bf as fb
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    n, b = 3_000, 40       # every |q|^2 + |x|^2 below 2^24: exact sums
+    for d in (5, 200):
+        db = np.zeros((n, d), np.float32)
+        db[:, 0] = np.arange(n, 0, -1)
+        db[:, 1] = np.arange(n) % 2
+        q = np.zeros((b, d), np.float32)
+        q[:, 0] = np.arange(b) * 10
+        q[1::2, 1] = 1.0
+        norms = (db ** 2).sum(1).astype(np.float32)
+        q, db, norms = (torch.from_numpy(a).cuda() for a in (q, db, norms))
+        for plan in (None, fb.ClusterPlan(16, 1, n - 3),
+                     fb.ClusterPlan(32, 4, 750)):
+            vals, idx = fb._launch(q, db, norms, n - 3, k, plan=plan)
+            want_v, want_i = fb.fused_bf_search_reference(q, db, norms,
+                                                          n - 3, k)
+            assert torch.equal(vals, want_v) and torch.equal(idx, want_i)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 10, 16])
+def test_fused_bf_scratch_merge_kernel_matches_twin(k):
+    """The first port's kernel, kept as a yardstick, still holds to the
+    twin at the headline shape."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from scann_tpu_torch.ops import fused_bf as fb
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    q, db, norms = _fused_case(np.random.default_rng(k), 10_000, 64, 100)
+    vals, idx = fb._launch(q, db, norms, 10_000, k, scratch_merge=True)
+    torch.cuda.synchronize()
+    fb.check_against_twin(q, db, norms, 10_000, k, vals, idx)
+
+
+@pytest.mark.cuda
+def test_fused_bf_cluster_entry_rejects_bad_arguments():
+    """Plans that leave rows out or name a tile or width the kernel is not
+    built for raise before a launch; the C entry refuses the same."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import ctypes
+
+    from scann_tpu_torch.ops import fused_bf as fb
+
+    q, db, norms = _fused_case(np.random.default_rng(0), 100, 8, 4)
+    before = fb.LAUNCHES
+    for plan in (fb.ClusterPlan(16, 2, 49), fb.ClusterPlan(8, 1, 100),
+                 fb.ClusterPlan(16, 17, 6), fb.ClusterPlan(16, 1, 0)):
+        with pytest.raises(ValueError, match="does not cover"):
+            fb._launch(q, db, norms, 100, 5, plan=plan)
+    assert fb.LAUNCHES == before
+    search, cap, _ = fb._kernel_fns()
+    out_v = torch.empty(4, 5, device="cuda")
+    out_i = torch.empty(4, 5, dtype=torch.int32, device="cuda")
+    stream = torch.cuda.current_stream().cuda_stream
+    ptrs = (q.data_ptr(), db.data_ptr(), norms.data_ptr())
+    for n_valid, d, k, q_tile, cluster, rows, dk in (
+            (100, 8, 17, 16, 1, 100, 8), (100, 8, 5, 16, 2, 49, 8),
+            (100, 8, 5, 8, 1, 100, 8), (100, 8, 5, 16, 17, 6, 8),
+            (100, 0, 5, 16, 1, 100, 8), (-1, 8, 5, 16, 1, 100, 8),
+            (100, 8, 5, 16, 1, 100, 12), (100, 8, 5, 16, 1, 100, 96),
+            (100, 8, 5, 32, 1, 100, 0)):
+        assert search(*ptrs, n_valid, 4, d, k, q_tile, cluster, rows, dk,
+                      out_v.data_ptr(), out_i.data_ptr(), stream) != 0
+    assert torch.cuda.synchronize() is None
+    got = ctypes.c_int(-1)
+    assert cap(16, 17, 8, ctypes.byref(got)) != 0 and got.value == 0
+    assert cap(16, 2, 8, ctypes.byref(got)) == 0 and got.value >= 1
+    # a good call still launches after the refusals
+    vals, idx = fb.fused_bf_search(q, db, norms, 100, 5)
+    fb.check_against_twin(q, db, norms, 100, 5, vals, idx)
 
 
 @pytest.mark.cuda
