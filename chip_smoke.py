@@ -64,6 +64,18 @@ queries:
   stores, the id-embedded CSR store on the first tree-x-AH index, an
   allowlist of the even ids, and DOT_PRODUCT and COSINE indexes over the
   first 100,000 rows;
+- the ``Scann`` facade (phases 24-28): the JAX package's quick start
+  (``ScannBuilder().num_neighbors(10).tree(2000, 10).hash(50, 16)
+  .reorder(100)``) built on the 1.18M rows and served (recall@10 >= 0.9,
+  ids equal to its tree-x-AH searcher's, #1 launched a batch, timed beside
+  the searcher); ``Scann.partitioned(ds, 2000, 10)`` at full width
+  (recall@10 >= 0.9, exact distances, stages select, gather, score,
+  top-k); every facade mode on the first 100,000 rows (and brute force at
+  the headline shape), each with the JAX facade's mode and searcher class,
+  its searcher's ids and its kernel (#2, #5, #7, #9) launched;
+  ``save_index`` / ``load_index`` round trips on the card (bit-identical);
+  a two-level 256-leaf partitioned build and a DOT_PRODUCT tree-x-AH
+  build with and without AVQ (recall recorded, no floor);
 
 then times every kernel against its twin (L2 flushed) and the search stages
 with CUDA events (the grouped and per-pair SOAR paths also at twice the
@@ -568,6 +580,8 @@ def main() -> int:
                                   smi)
     records += soar_phases(ds, queries, db_dev, gt_np, cold_ms, turns, smi,
                            searcher)
+    del searcher
+    facade_phases(ds, queries, db_dev, gt_np, smi)
     print(json.dumps({"kernels": records}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
@@ -2142,6 +2156,306 @@ def soar_phases(ds, queries, db_dev, gt_np, cold_ms, turns, smi, base):
          "max_abs_err": err10, "ms": k10, "plain_ms": p10, "bound_ms": b10,
          "bound_by": by10, "library_ms": None},
     ]
+
+
+def facade_phases(ds, queries, db_dev, gt_np, smi):
+    """Phases 24-28: the ``Scann`` facade, the partitioned searcher, every
+    facade mode, ``save_index`` / ``load_index`` and the hierarchical and
+    AVQ builds. Each mode must pick the JAX facade's search mode and inner
+    searcher class (``scann_tpu/models/scann.py``'s routing) and return the
+    ids of its inner searcher searched with the parameters the facade
+    implies; each kernel on a mode's path must have launched there."""
+    import os
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from scann_tpu_torch import (
+        BruteForceConfig,
+        DenseDataset,
+        DistanceMeasure,
+        HashConfig,
+        PartitioningConfig,
+        Scann,
+        ScannBuilder,
+        ScannConfig,
+        SearchParameters,
+        load_index,
+        save_index,
+    )
+    from scann_tpu_torch.models import partitioned as pm
+    from scann_tpu_torch.ops import fused_bf as fb
+    from scann_tpu_torch.ops import scoring_kernels as sk
+    from scann_tpu_torch.ops import sweep as sw
+    from scann_tpu_torch.ops import tree_ah_grouped as tag
+    from scann_tpu_torch.ops.distances import gathered_distances
+    from scann_tpu_torch.utils.benchmarking import recall_at_k
+
+    t_phases = time.perf_counter()
+    dev = queries.device
+
+    def timed(build):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = build()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    def serve(search, qs, batch):
+        res = [search(qs[i:i + batch]) for i in range(0, len(qs), batch)]
+        return torch.cat([r[0] for r in res]), torch.cat([r[1] for r in res])
+
+    def same_ids(got, want, label):
+        if not torch.equal(got, want):
+            bad = int((got != want).any(1).sum())
+            raise AssertionError(f"{label}: the facade's ids differ from its "
+                                 f"searcher's on {bad} queries")
+
+    def routed(scann, mode, impl, label):
+        if scann.search_mode.value != mode or \
+                type(scann.impl).__name__ != impl:
+            raise AssertionError(
+                f"{label}: mode {scann.search_mode.value} / "
+                f"{type(scann.impl).__name__}, the JAX facade picks {mode} / "
+                f"{impl}")
+
+    # -- 24. the README's quick start at the cell's shape ---------------------
+    scann, build_s = timed(lambda: ScannBuilder().num_neighbors(K).tree(
+        2000, P).hash(num_blocks=50, num_buckets=16).reorder(PRE_K).build(
+            ds, device=dev))
+    routed(scann, "TreeAH", "TreeXHybridSearcher", "[24]")
+    impl = scann.impl
+    log(f"[24 facade tree-AH] ScannBuilder().num_neighbors({K}).tree(2000, "
+        f"{P}).hash(num_blocks=50, num_buckets=16).reorder({PRE_K}): "
+        f"{scann.describe()}; built in {build_s:.2f}s: partitions "
+        f"{impl.partitioner.num_partitions}, max size "
+        f"{impl.partitioner.tokenization.max_partition_size} (cap "
+        f"{impl.partitioner._cap_value(ds.size)}), pre_reorder_multiplier "
+        f"{impl.config.pre_reorder_multiplier}")
+    tag.LAUNCHES = 0
+    f_idx, f_dists = serve(scann.search_batched_tensors, queries, BATCH)
+    torch.cuda.synchronize()
+    f_launches = tag.LAUNCHES
+    tag.LAUNCHES = 0
+    d_idx, _ = serve(lambda qb: impl.search_batched_tensors(qb, K, None),
+                     queries, BATCH)
+    torch.cuda.synchronize()
+    d_launches = tag.LAUNCHES
+    same_ids(f_idx, d_idx, "[24]")
+    recall = recall_at_k(f_idx.cpu().numpy(), gt_np, K)
+    err = check_results(f_idx, f_dists, queries, db_dev, BATCH * BATCHES)
+    if recall < RECALL_FLOOR:
+        raise AssertionError(f"[24] recall@10 {recall} < {RECALL_FLOOR}")
+    if f_launches < BATCHES or f_launches != d_launches:
+        raise AssertionError(f"[24] tree_ah_grouped launches {f_launches} "
+                             f"through the facade, {d_launches} direct")
+    med = {}
+    for label, fn in (("direct", lambda qb: impl.search_batched_tensors(
+            qb, K, None)), ("facade", scann.search_batched_tensors)) * 2:
+        med.setdefault(label, []).append(
+            event_ms(fn, queries, BATCH, BATCHES))
+    log(f"[24 facade tree-AH] {BATCHES} x B={BATCH}: recall@10 {recall:.4f} "
+        f"(floor {RECALL_FLOOR}), ids equal to impl.search_batched_tensors("
+        f"q, {K}, None) (p={impl.config.partitions_to_search}, pre_k "
+        f"{int(np.ceil(K * impl.config.pre_reorder_multiplier))}), "
+        f"tree_ah_grouped (#1) launches {f_launches} (direct "
+        f"{d_launches}), distances vs recomputed max rel err {err:.3g}; per "
+        f"batch, direct / facade / direct / facade: " + ", ".join(
+            f"{m:.4f} (max {t:.4f})" for pair in zip(med["direct"],
+                                                     med["facade"])
+            for m, t in pair) + f" ms ({smi})")
+    del scann, impl
+
+    # -- 25. the partitioned searcher at full width ---------------------------
+    scann, build_s = timed(lambda: Scann.partitioned(ds, 2000, P, device=dev))
+    routed(scann, "Partitioned", "PartitionedSearcher", "[25]")
+    ps = scann.impl
+    leaves = ps.partitioner.tokenization.padded_leaves()
+    n_cand = P * leaves.shape[1]
+    step = pm.gather_chunk(n_cand, D)
+    log(f"[25 facade partitioned] Scann.partitioned(ds, 2000, {P}): built in "
+        f"{build_s:.2f}s: partitions {ps.partitioner.num_partitions}, leaf "
+        f"width L {leaves.shape[1]}, {n_cand} candidates a query, query "
+        f"chunks of {step} (largest chunk's rows {step * n_cand * D * 4} "
+        f"bytes)")
+    p_idx, p_dists = serve(scann.search_batched_tensors, queries, BATCH)
+    p_recall = recall_at_k(p_idx.cpu().numpy(), gt_np, K)
+    p_err = check_results(p_idx, p_dists, queries, db_dev, BATCH * BATCHES)
+    if p_recall < RECALL_FLOOR:
+        raise AssertionError(f"[25] recall@10 {p_recall} < {RECALL_FLOOR}")
+    p_med, p_top = event_ms(scann.search_batched_tensors, queries, BATCH,
+                            BATCHES)
+    db_p, norms_p = ps.device_state()
+    centers = ps.partitioner.centers_device()
+
+    def stages(qb):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        cand = pm.select_candidates(centers, leaves, qb,
+                                    measure=ps.distance_measure, p=P)
+        ev[1].record()
+        t = [0.0, 0.0, 0.0]
+        for lo in range(0, qb.shape[0], step):
+            qc, cc = qb[lo:lo + step], cand[lo:lo + step]
+            e = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+            e[0].record()
+            safe = cc.clamp_min(0)
+            rows = db_p[safe]
+            e[1].record()
+            dd = torch.where(cc >= 0, gathered_distances(
+                ps.distance_measure, qc, rows, norms_p[safe]),
+                float(pm.MASKED_DISTANCE))
+            e[2].record()
+            pm.select_results(dd, cc, K, multiplicity=1, eps=float("inf"))
+            e[3].record()
+            torch.cuda.synchronize()
+            for i in range(3):
+                t[i] += e[i].elapsed_time(e[i + 1])
+        torch.cuda.synchronize()
+        return [ev[0].elapsed_time(ev[1])] + t
+
+    stages(queries[:BATCH])
+    split = np.array([stages(queries[i * BATCH:(i + 1) * BATCH])
+                      for i in range(BATCHES)]).mean(0)
+    log(f"[25 facade partitioned] {BATCHES} x B={BATCH}, p={P}: recall@10 "
+        f"{p_recall:.4f} (floor {RECALL_FLOOR}), returned vs recomputed "
+        f"distances max rel err {p_err:.3g}; per batch median {p_med:.4f} "
+        f"ms, max {p_top:.4f} ms -> {BATCH / p_med * 1e3:.0f} queries/s; "
+        f"stages select {split[0]:.4f}, gather {split[1]:.4f}, score "
+        f"{split[2]:.4f}, top-k {split[3]:.4f} ms ({smi})")
+    del scann, ps, db_p, norms_p
+
+    # -- 26. every facade mode, one batch each on SIDE_N rows -----------------
+    sub = DenseDataset(ds.numpy()[:SIDE_N])
+    q0 = queries[:BATCH]
+    rng = np.random.default_rng(42)
+    head = DenseDataset(rng.random((HEAD_N, HEAD_D), dtype=np.float32))
+    hq = torch.from_numpy(rng.random((HEAD_B, HEAD_D),
+                                     dtype=np.float32)).to(dev)
+    def exact_ids(db, qb):
+        """Exact squared-L2 top-k by a float32 matmul and ``torch.topk``."""
+        dd = ((qb * qb).sum(1)[:, None] + (db * db).sum(1)[None, :]
+              - 2.0 * (qb @ db.T))
+        return torch.topk(dd, K, dim=1, largest=False).indices.cpu().numpy()
+
+    sub_db = db_dev[:SIDE_N]
+    gt_sub = exact_ids(sub_db, q0)
+    modes = {
+        # label: (dataset, queries, build, JAX mode, JAX impl class,
+        #         the parameters the facade implies, counter, kernel)
+        "brute force": (sub, q0, lambda d: Scann(d, device=dev), "BruteForce",
+                        "BruteForceSearcher", None, None, None),
+        "block sweep": (sub, q0, lambda d: Scann(d, ScannConfig(
+            ).with_brute_force(BruteForceConfig().with_block_sweep()),
+            device=dev), "BruteForce", "BlockSweepSearcher", None,
+                        lambda: sw.COMPACT_LAUNCHES["block_min_compact"],
+                        "#5 block_min_compact"),
+        "scalar-quantized 8 bits": (
+            sub, q0, lambda d: Scann(d, ScannConfig().with_brute_force(
+                BruteForceConfig().with_scalar_quantization(8)), device=dev),
+            "BruteForce",
+            "ScalarQuantizedBruteForceSearcher", None,
+            lambda: sk.LAUNCHES["int8_dots"], "#9 int8_dots"),
+        "hashed": (sub, q0, lambda d: ScannBuilder().hash(
+            num_blocks=50, num_buckets=16).reorder(300).build(d, device=dev),
+            "Hashed", "AsymmetricHasher",
+            SearchParameters(pre_reordering_num_neighbors=300),
+            lambda: sk.LAUNCHES["lut16_fused_sweep"],
+            "#7 lut16_fused_sweep"),
+        "brute force, headline": (head, hq, lambda d: Scann.brute_force(
+            d, device=dev), "BruteForce", "BruteForceSearcher", None,
+            lambda: fb.LAUNCHES, "#2 fused_bf"),
+    }
+    built = {}
+    for label, (d, qb, build, mode, cls, params, count, kname) in \
+            modes.items():
+        scann, b_s = timed(lambda: build(d))
+        routed(scann, mode, cls, f"[26 {label}]")
+        fb.reset_launches()
+        sk.reset_launches()
+        sw.reset_launches()
+        torch.cuda.synchronize()
+        idx, dists = scann.search_batched_tensors(qb)
+        torch.cuda.synchronize()
+        moved = count() if count is not None else None
+        w_idx, _ = scann.impl.search_batched_tensors(qb, K, params)
+        same_ids(idx, w_idx, f"[26 {label}]")
+        if count is not None and not moved:
+            raise AssertionError(f"[26 {label}] {kname} never launched")
+        gt = gt_sub if d is sub else exact_ids(d.device_tensor(dev), qb)
+        rec = recall_at_k(idx.cpu().numpy(), gt, K)
+        med, top = event_ms(scann.search_batched_tensors, qb, qb.shape[0], 1)
+        built[label] = (scann, qb, params)
+        log(f"[26 facade modes/{label}] {d.size} x {d.dimensionality}, "
+            f"B={qb.shape[0]}: {scann.describe()['search_mode']} / "
+            f"{type(scann.impl).__name__} (as the JAX facade), built in "
+            f"{b_s:.2f}s, ids equal to the searcher's, "
+            + (f"{kname} launches {moved}, " if count is not None else "")
+            + f"recall@10 against exact {rec:.4f}, batch median "
+            f"{med:.4f} ms (max {top:.4f}) ({smi})")
+    scann, b_s = timed(lambda: Scann.partitioned(sub, 200, P, device=dev))
+    built["partitioned"] = (scann, q0, None)
+    p_ids = scann.search_batched_tensors(q0)[0].cpu().numpy()
+    log(f"[26 facade modes/partitioned] {SIDE_N} rows, 200 partitions: "
+        f"built in {b_s:.2f}s, recall@10 against exact "
+        f"{recall_at_k(p_ids, gt_sub, K):.4f}")
+
+    # -- 27. save_index / load_index round trips on the card ------------------
+    here = __file__.rsplit("/", 1)[0] if "/" in __file__ else "."
+    with tempfile.TemporaryDirectory(dir=here) as tmp:
+        for label, (scann, qb, params) in built.items():
+            path = f"{tmp}/{label.replace(' ', '_').replace(',', '')}.npz"
+            _, save_s = timed(lambda: save_index(path, scann))
+            back, load_s = timed(lambda: load_index(path, device=dev))
+            got = back.search_batched_tensors(qb, K, params)
+            want = scann.impl.search_batched_tensors(qb, K, params)
+            if not (torch.equal(got[0], want[0])
+                    and torch.equal(got[1], want[1])):
+                raise AssertionError(f"[27 io/{label}] the loaded index's "
+                                     f"results differ")
+            log(f"[27 io/{label}] save_index -> load_index(device={dev}) "
+                f"({type(back).__name__}): results bit-identical; file "
+                f"{os.path.getsize(path)} bytes, save {save_s:.2f}s, load "
+                f"{load_s:.2f}s")
+    del built, scann
+
+    # -- 28. hierarchical partitions and AVQ, recall recorded -----------------
+    scann, b_s = timed(lambda: Scann(sub, ScannConfig().with_partitioning(
+        PartitioningConfig(num_partitions=256, num_partitions_to_search=P,
+                           num_levels=2)), device=dev))
+    h_ids = serve(scann.search_batched_tensors, queries[:BATCH], BATCH)[0]
+    tree = scann.impl.partitioner.tree
+    log(f"[28 hierarchical] num_levels=2, 256 partitions over {SIDE_N} rows:"
+        f" fan-out {tree.config.num_children}, {tree.num_leaves} leaves, "
+        f"built in {b_s:.2f}s; p={P}: recall@10 against exact "
+        f"{recall_at_k(h_ids.cpu().numpy(), gt_sub, K):.4f} (no floor)")
+    del scann
+    gt_mips = torch.topk(q0 @ sub_db.T, K, dim=1).indices.cpu().numpy()
+    out = {}
+    for label, thr in (("plain PQ", None), ("AVQ T=0.2", 0.2)):
+        cfg = ScannConfig(distance_measure=DistanceMeasure.DOT_PRODUCT,
+                          num_neighbors=K).with_partitioning(
+            PartitioningConfig(num_partitions=200,
+                               num_partitions_to_search=P)).with_hashing(
+            HashConfig(num_blocks=50, num_buckets=16,
+                       anisotropic_threshold=thr)).with_reordering()
+        scann, b_s = timed(lambda: Scann(sub, cfg, device=dev))
+        ids = scann.search_batched_tensors(q0)[0].cpu().numpy()
+        # pre_k = k: the codes' own ranking picks the k that are re-ranked
+        codes_ids = scann.search_batched_tensors(q0, K, SearchParameters(
+            pre_reordering_num_neighbors=K))[0].cpu().numpy()
+        out[label] = (recall_at_k(ids, gt_mips, K),
+                      recall_at_k(codes_ids, gt_mips, K), b_s,
+                      scann.impl.codebook.eta)
+        del scann
+    log("[28 AVQ] DOT_PRODUCT tree-x-AH over " + f"{SIDE_N} rows (200 "
+        f"partitions, p={P}, S=50, C=16): " + "; ".join(
+            f"{label}: recall@10 against exact MIPS {r:.4f} with the "
+            f"re-rank of 100, {rc:.4f} with pre_k = k, built in {b:.2f}s, "
+            f"eta {e}" for label, (r, rc, b, e) in out.items())
+        + " (no floor)")
+    log(f"[24-28] wall {time.perf_counter() - t_phases:.2f}s")
 
 
 if __name__ == "__main__":

@@ -1,9 +1,12 @@
 """Product-quantization codebook (counterpart of
-``scann_tpu/hashes/codebook.py``, without AVQ).
+``scann_tpu/hashes/codebook.py``).
 
 One k-means per subspace with seed ``seed + s``; the codebook is one
 [S, C, d_sub] tensor. Encoding is a batched argmin over all subspaces at
-once, chunked over rows; lookup tables are one batched product.
+once, chunked over rows; lookup tables are one batched product. With
+``anisotropic_threshold`` set, the k-means centroids only start the
+training, which goes on for ``avq_iters`` rounds under the score-aware
+anisotropic loss (``hashes/avq.py``), and encoding minimizes that loss too.
 """
 
 from __future__ import annotations
@@ -14,6 +17,12 @@ from typing import Optional, Union
 import torch
 
 from scann_tpu_torch.errors import ScannError
+from scann_tpu_torch.hashes.avq import (
+    anisotropic_eta,
+    avq_encode,
+    avq_refine,
+    unit_directions,
+)
 from scann_tpu_torch.trees.kmeans import KMeans, KMeansConfig, KMeansInit
 from scann_tpu_torch.types import DEFAULT_DEVICE, require_device
 
@@ -25,7 +34,9 @@ class CodebookConfig:
     max_iterations: int = 25
     convergence_threshold: float = 1e-4
     seed: Optional[int] = None
+    # score-aware (AVQ) training and encoding, e.g. 0.2; None = plain PQ
     anisotropic_threshold: Optional[float] = None
+    avq_iters: int = 8
 
 
 def encode_kernel(data: torch.Tensor, centroids: torch.Tensor,
@@ -63,13 +74,14 @@ class Codebook:
         self.config = config or CodebookConfig()
         self.device = torch.device(device)
         self.centroids: Optional[torch.Tensor] = None   # [S, C, d_sub]
+        self.eta: Optional[float] = None   # anisotropic weight ratio (AVQ)
 
-    def train(self, data: torch.Tensor) -> "Codebook":
-        """Train on ``data`` [N, D] (moved to the codebook's device)."""
-        if self.config.anisotropic_threshold is not None:
-            raise NotImplementedError(
-                "anisotropic (AVQ) codebook training is not ported yet "
-                "(ROADMAP.md queue 1, item 8: AVQ)")
+    def train(self, data: torch.Tensor, directions=None) -> "Codebook":
+        """Train on ``data`` [N, D] (moved to the codebook's device).
+        ``directions`` (AVQ only): [N, D] rows of the original points, whose
+        unit directions weight the loss; for residual quantization
+        (tree-x-AH) these are the points, not the residuals. Default: the
+        rows of ``data``."""
         x = torch.as_tensor(data, dtype=torch.float32,
                             device=require_device(self.device))
         if x.shape[0] == 0:
@@ -93,6 +105,12 @@ class Codebook:
                 init_method=KMeansInit.KMEANS_PLUS_PLUS,
                 seed=seed + sub,
             ), device=self.device).fit(subs[:, sub, :].contiguous()).centers
+        if self.config.anisotropic_threshold is not None:
+            self.eta = anisotropic_eta(self.config.anisotropic_threshold, d)
+            h = unit_directions(x if directions is None else directions)
+            centroids, _, _ = avq_refine(
+                x, h.to(self.device), centroids, self.eta,
+                iters=int(self.config.avq_iters))
         self.centroids = centroids
         return self
 
@@ -109,9 +127,16 @@ class Codebook:
         self._check_trained()
         return self.centroids
 
-    def encode_dataset(self, data: torch.Tensor) -> torch.Tensor:
-        """[N, D] -> [N, S] uint8 codes, on the input's device."""
+    def encode_dataset(self, data: torch.Tensor,
+                       directions=None) -> torch.Tensor:
+        """[N, D] -> [N, S] uint8 codes, on the input's device. A codebook
+        trained with AVQ encodes by the anisotropic loss, weighted by the
+        unit rows of ``directions`` (default: of ``data``)."""
         self._check_trained()
+        if self.eta is not None:
+            h = unit_directions(data if directions is None else directions)
+            return avq_encode(data, h, self.centroids, self.eta).to(
+                torch.uint8)
         return encode_kernel(data, self.centroids).to(torch.uint8)
 
     def _check_trained(self) -> None:

@@ -24,8 +24,9 @@ plain twins):
 SQUARED_L2, COSINE (rows normalized at build, queries at search; the L2
 tables then rank as cosine) and DOT_PRODUCT / GENERAL_INNER_PRODUCT (-dot
 tables). The re-rank store is the float32 dataset, or for ``rerank_dtype``
-bfloat16 / int8 a low-precision store (``utils/reordering``). Anisotropic
-(AVQ) training raises ``NotImplementedError``.
+bfloat16 / int8 a low-precision store (``utils/reordering``). With
+``anisotropic_threshold`` set the codebook trains and encodes by the
+score-aware anisotropic loss (``hashes/avq.py``).
 """
 
 from __future__ import annotations
@@ -93,9 +94,8 @@ class AsymmetricHasherConfig:
     # COSINE normalizes rows at build and queries at search; DOT_PRODUCT and
     # GENERAL_INNER_PRODUCT use -dot tables
     distance_measure: DistanceMeasure = DistanceMeasure.SQUARED_L2
-    # score-aware (AVQ) training: not ported yet (ROADMAP.md queue 1,
-    # item 8b); builds raise when it is set. An index trained with it
-    # serves like any other.
+    # score-aware anisotropic (AVQ) codebook training, e.g. 0.2 for MIPS /
+    # cosine; None = plain reconstruction-loss PQ
     anisotropic_threshold: Optional[float] = None
     # dtype of the re-rank store: "float32", "bfloat16" or "int8" (the
     # per-dimension affine codec)

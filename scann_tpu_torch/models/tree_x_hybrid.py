@@ -67,7 +67,6 @@ from scann_tpu_torch.ops.tree_ah_leaf import tree_ah_leaf_scores
 from scann_tpu_torch.partitioning.tree_partitioner import (
     TreePartitioner,
     TreePartitionerConfig,
-    check_flat_partitioning,
 )
 from scann_tpu_torch.types import (
     DEFAULT_DEVICE,
@@ -152,8 +151,6 @@ class TreeXHybridConfig:
 
 
 def _check_config(cfg: TreeXHybridConfig) -> None:
-    check_flat_partitioning(TreePartitionerConfig(
-        num_levels=cfg.partition_num_levels))
     if cfg.rerank_dtype not in RERANK_DTYPES:
         raise ScannError.invalid_argument(
             f"rerank_dtype must be one of {RERANK_DTYPES}, got "
@@ -566,16 +563,20 @@ class TreeXHybridSearcher(Searcher):
             return rows - centers[row_tokens[lo:hi]] if cfg.use_residuals \
                 else rows
 
+        # AVQ weighs the residual's error along the ORIGINAL point's
+        # direction (the score it protects is <q, x>): the directions are
+        # the raw rows, not the residuals
+        avq = hc.anisotropic_threshold is not None
         if hc.training_sample_size < m:
             gen = torch.Generator(device=self.device)
             gen.manual_seed(seed)
             sel = torch.randperm(m, generator=gen, device=self.device)[
                 :hc.training_sample_size]
-            sample = data[pts[sel]]
-            if cfg.use_residuals:
-                sample = sample - centers[row_tokens[sel]]
         else:
-            sample = resid_rows(0, m)
+            sel = torch.arange(m, device=self.device)
+        raw = data[pts[sel]]
+        sample = (raw - centers[row_tokens[sel]] if cfg.use_residuals
+                  else raw)
 
         self.codebook = Codebook(CodebookConfig(
             num_codes=hc.num_codes,
@@ -583,7 +584,9 @@ class TreeXHybridSearcher(Searcher):
             max_iterations=hc.max_iterations,
             seed=hc.seed,
             anisotropic_threshold=hc.anisotropic_threshold,
-        ), device=self.device).train(sample)
+        ), device=self.device).train(sample,
+                                     directions=raw if avq else None)
+        del raw
 
         d = data.shape[1]
         chunk = max(min(m, _ENCODE_CHUNK_ELEMS // max(d, 1)), 8192)
@@ -591,7 +594,9 @@ class TreeXHybridSearcher(Searcher):
                             device=self.device)
         for lo in range(0, m, chunk):
             hi = min(lo + chunk, m)
-            codes[lo:hi] = self.codebook.encode_dataset(resid_rows(lo, hi))
+            codes[lo:hi] = self.codebook.encode_dataset(
+                resid_rows(lo, hi),
+                directions=data[pts[lo:hi]] if avq else None)
         self.codes = codes
         self._reset_caches()
         return self

@@ -3,16 +3,31 @@
 CSR layout: ``offsets [K+1]`` + ``point_indices [M]`` (assignments sorted by
 token, stable) + ``partition_sizes [K]``. With spilling a point is assigned
 to several partitions: ``extra_pairs`` rows (point, token) add assignments
-after the primary one, so M >= N.
+after the primary one, so M >= N. The search gathers from the padded
+leaves, ``[K, L_max]`` point ids with -1 padding (static shapes, masked
+scoring). ``PartitionResult`` is one query's partition selection.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+import dataclasses
+from typing import List, Optional
 
+import numpy as np
 import torch
 
 from scann_tpu_torch.errors import ScannError
+
+
+@dataclasses.dataclass
+class PartitionResult:
+    """One query's partition selection, as numpy."""
+
+    tokens: np.ndarray      # [p] int32 selected partition ids, nearest first
+    distances: np.ndarray   # [p] float32 centroid distances
+
+    def top_token(self) -> int:
+        return int(self.tokens[0])
 
 
 class DatabaseTokenization:
@@ -42,6 +57,7 @@ class DatabaseTokenization:
         self.point_indices = pts[torch.argsort(toks, stable=True)]
         self.partition_sizes = counts
         self._max_multiplicity: Optional[int] = None
+        self._padded_cache = None
 
     @classmethod
     def from_csr(cls, tokens: torch.Tensor, offsets: torch.Tensor,
@@ -57,6 +73,7 @@ class DatabaseTokenization:
         self.num_partitions = len(self.offsets) - 1
         self.partition_sizes = torch.diff(self.offsets)
         self._max_multiplicity = None
+        self._padded_cache = None
         return self
 
     @property
@@ -78,3 +95,26 @@ class DatabaseTokenization:
         """Point indices in one partition."""
         lo, hi = int(self.offsets[token]), int(self.offsets[token + 1])
         return self.point_indices[lo:hi]
+
+    def partition_lists(self) -> List[torch.Tensor]:
+        """Every partition's point indices, in token order."""
+        return [self.partition_indices(t) for t in range(self.num_partitions)]
+
+    def padded_leaves(self, pad_multiple: int = 8) -> torch.Tensor:
+        """[K, L_max] int64 point ids of each partition in CSR order, -1
+        past its size; L_max is the largest partition rounded up to
+        ``pad_multiple`` (at least one multiple). Cached per multiple."""
+        if self._padded_cache is None or self._padded_cache[0] != pad_multiple:
+            lmax = self.max_partition_size
+            lmax = max(-(-lmax // pad_multiple) * pad_multiple, pad_multiple)
+            dev = self.point_indices.device
+            out = torch.full((self.num_partitions, lmax), -1,
+                             dtype=torch.int64, device=dev)
+            rows = torch.repeat_interleave(
+                torch.arange(self.num_partitions, device=dev),
+                self.partition_sizes)
+            col = (torch.arange(len(self.point_indices), device=dev)
+                   - self.offsets[rows])
+            out[rows, col] = self.point_indices
+            self._padded_cache = (pad_multiple, out)
+        return self._padded_cache[1]

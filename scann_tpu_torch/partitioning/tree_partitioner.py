@@ -1,5 +1,5 @@
 """K-means tree partitioner (counterpart of
-``scann_tpu/partitioning/tree_partitioner.py``, flat build).
+``scann_tpu/partitioning/tree_partitioner.py``).
 
 Build = k-means over the dataset (or a seeded training sample of it), every
 row assigned to its nearest centroid, then optionally:
@@ -17,14 +17,19 @@ The LBG picks, the demote loop, the straggler split and the secondary cap
 run on the host in numpy with the JAX package's ``np.random.default_rng``
 draws, so on equal inputs they return its arrays exactly; the Lloyd steps,
 the tokenization and every top-r selection run on the device.
-Hierarchical trees (``num_levels > 1``) raise ``NotImplementedError``
-naming their ROADMAP.md item.
+
+k-means trains and tokenizes in squared L2 under every measure; the
+configured measure decides the cap's demotion choices, distance spilling
+and the query-side selection (``partition_batch``), as in the JAX package.
+``num_levels > 1`` builds a hierarchical k-means tree
+(``trees/kmeans_tree.py``) whose leaves become the partitions: fan-out
+ceil(k ** (1 / levels)), at least 2, no balancing or spilling.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple, Union
+from typing import List, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -32,7 +37,10 @@ import torch
 from scann_tpu_torch.errors import ScannError
 from scann_tpu_torch.ops.distances import DistanceMeasure, many_to_many
 from scann_tpu_torch.ops.topk import top_k_smallest
-from scann_tpu_torch.partitioning.partitioner import DatabaseTokenization
+from scann_tpu_torch.partitioning.partitioner import (
+    DatabaseTokenization,
+    PartitionResult,
+)
 from scann_tpu_torch.trees.kmeans import (
     KMeans,
     KMeansConfig,
@@ -71,18 +79,6 @@ class TreePartitionerConfig:
     cap_enforce_choices: int = 12
     # principal-axis split of partitions the demote rounds left oversized
     split_stragglers: bool = True
-
-
-def check_flat_partitioning(cfg: TreePartitionerConfig) -> None:
-    """Raise for the partitioner options the port has not ported."""
-    if cfg.num_levels != 1:
-        raise NotImplementedError(
-            "hierarchical partitioning is not ported yet (ROADMAP.md "
-            "queue 1, item 8: kmeans_tree)")
-    if cfg.distance_measure != DistanceMeasure.SQUARED_L2:
-        raise NotImplementedError(
-            f"partitioning under {cfg.distance_measure} is not ported yet "
-            f"(ROADMAP.md queue 1, item 8: partitioned searcher)")
 
 
 def select_partitions(centers: torch.Tensor, x: torch.Tensor, *,
@@ -182,6 +178,7 @@ class TreePartitioner:
         self.device = torch.device(device)
         self.centers: Optional[torch.Tensor] = None      # [K, D] float32
         self.tokenization: Optional[DatabaseTokenization] = None
+        self.tree = None                                 # num_levels > 1
 
     def build(self, data: torch.Tensor,
               host: Optional[np.ndarray] = None) -> "TreePartitioner":
@@ -190,12 +187,13 @@ class TreePartitioner:
         them; balancing reads members from the host copy (made here when
         not given)."""
         cfg = self.config
-        check_flat_partitioning(cfg)
-        data = data.to(require_device(self.device)).float()
+        data = torch.as_tensor(data).to(require_device(self.device)).float()
         n = data.shape[0]
         if n == 0:
             raise ScannError.invalid_argument("cannot partition empty dataset")
         k = min(cfg.num_partitions, n)
+        if cfg.num_levels > 1:
+            return self._build_hierarchical(data, k)
 
         train = data
         if cfg.training_sample_size is not None and cfg.training_sample_size < n:
@@ -232,6 +230,28 @@ class TreePartitioner:
                         data.device)
         self.tokenization = DatabaseTokenization(
             tokens, self.centers.shape[0], extra_pairs=extra)
+        return self
+
+    def _build_hierarchical(self, data: torch.Tensor,
+                            k: int) -> "TreePartitioner":
+        """num_levels > 1: a k-means tree with fan-out ceil(k ** (1 /
+        levels)), at least 2, whose leaves (in build order) are the
+        partitions."""
+        from scann_tpu_torch.trees.kmeans_tree import (
+            KMeansTree,
+            KMeansTreeConfig,
+        )
+
+        cfg = self.config
+        fan = max(int(np.ceil(k ** (1.0 / cfg.num_levels))), 2)
+        tree = KMeansTree(KMeansTreeConfig(
+            num_children=fan, max_depth=cfg.num_levels,
+            max_iterations=cfg.max_iterations, seed=cfg.seed,
+        ), device=data.device).build(data)
+        self.tree = tree
+        self.centers = tree.leaf_centers().float()
+        self.tokenization = DatabaseTokenization(
+            tree.leaf_assignments(data.shape[0]), tree.num_leaves)
         return self
 
     # -- balancing -------------------------------------------------------------
@@ -395,3 +415,49 @@ class TreePartitioner:
     @property
     def num_partitions(self) -> int:
         return 0 if self.centers is None else self.centers.shape[0]
+
+    def _check_built(self) -> None:
+        if self.centers is None:
+            raise ScannError.failed_precondition("partitioner not built")
+
+    def partition_centroid(self, token: int) -> torch.Tensor:
+        self._check_built()
+        return self.centers[token]
+
+    def partition_indices(self, token: int) -> torch.Tensor:
+        self._check_built()
+        return self.tokenization.partition_indices(token)
+
+    def partition_sizes(self) -> torch.Tensor:
+        self._check_built()
+        return self.tokenization.partition_sizes
+
+    def centers_device(self) -> torch.Tensor:
+        """The [K, D] centres, already on the partitioner's device."""
+        self._check_built()
+        return self.centers
+
+    def partition_batch(self, queries, num_to_search: int
+                        ) -> List[PartitionResult]:
+        """Each query's ``num_to_search`` nearest partitions in the
+        configured measure, nearest first (ties lower token first)."""
+        self._check_built()
+        p = min(int(num_to_search), self.num_partitions)
+        if p <= 0:
+            raise ScannError.invalid_argument(
+                "num_to_search must be positive")
+        q = torch.as_tensor(np.asarray(queries, np.float32)).to(
+            self.centers.device)
+        if q.dim() == 1:
+            q = q[None, :]
+        dists, toks = select_partitions(
+            self.centers, q, measure=self.config.distance_measure, p=p)
+        dists = dists.cpu().numpy().astype(np.float32)
+        toks = toks.cpu().numpy().astype(np.int32)
+        return [PartitionResult(tokens=t, distances=d)
+                for t, d in zip(toks, dists)]
+
+    def partition(self, query, num_to_search: int) -> PartitionResult:
+        """One query's selection (:meth:`partition_batch`)."""
+        return self.partition_batch(np.asarray(query)[None, :],
+                                    num_to_search)[0]

@@ -131,22 +131,45 @@ def test_partitioner_tokenization_is_csr_of_nearest_centers():
         assert np.all(np.diff(pts) > 0)            # stable sort by token
 
 
-@pytest.mark.parametrize("config,error", [
-    (dict(partition_num_levels=2), NotImplementedError),
-    (dict(partition_num_levels=3), NotImplementedError),
-    (dict(rerank_dtype="float16"), ScannError),
-    (dict(rerank_layout="rows"), ScannError),
-    (dict(spilling=True, spilling_mode="nearest"), ScannError),
-], ids=[f"config{i}" for i in range(5)])
-def test_unported_options_raise(config, error):
-    """What the port does not serve raises when the searcher is made:
-    hierarchical trees name their ROADMAP item; values the JAX package has
-    no meaning for are invalid arguments. (Balancing, spilling, the
-    low-precision stores and the csr layout are served: the tests of
-    ``test_torch_partitioning.py`` and ``test_torch_tree_x_hybrid.py``.)"""
-    with pytest.raises(error, match="ROADMAP" if error is
-                       NotImplementedError else "must be"):
+@pytest.mark.parametrize("config", [
+    dict(rerank_dtype="float16"),
+    dict(rerank_layout="rows"),
+    dict(spilling=True, spilling_mode="nearest"),
+], ids=[f"config{i}" for i in range(2, 5)])
+def test_unported_options_raise(config):
+    """Values the JAX package has no meaning for are invalid arguments when
+    the searcher is made. (Balancing, spilling, hierarchical trees, the
+    low-precision stores and the csr layout are served: the tests below and
+    those of ``test_torch_partitioning.py``, ``test_torch_partitioned.py``
+    and ``test_torch_tree_x_hybrid.py``.)"""
+    with pytest.raises(ScannError, match="must be"):
         TreeXHybridSearcher(TreeXHybridConfig(**config), device="cpu")
+
+
+@pytest.mark.parametrize("levels", [2, 3])
+def test_hierarchical_tree_x_ah_builds_and_searches(levels):
+    """``partition_num_levels`` > 1 partitions by a k-means tree (fan-out
+    ceil(K ** (1 / levels))): the build's partitions are the tree's leaves
+    and, with every partition searched and a deep re-rank, the search
+    returns the exact neighbours of most queries."""
+    x, rng = _clustered(6, n=1500, clusters=8)
+    q = x[rng.choice(len(x), 32, replace=False)] + 0.1
+    s = TreeXHybridSearcher(TreeXHybridConfig(
+        num_partitions=16, partitions_to_search=16, max_partition_size=None,
+        partition_num_levels=levels, partition_max_iterations=5,
+        hash_config=AsymmetricHasherConfig(num_codes=16, num_subspaces=8,
+                                           seed=3, max_iterations=5)),
+        device="cpu").build(DenseDataset(x))
+    tree = s.partitioner.tree
+    fan = max(int(np.ceil(16 ** (1.0 / levels))), 2)
+    assert tree.config.num_children == fan
+    assert s.partitioner.num_partitions == tree.num_leaves <= fan ** levels
+    assert int(s.partitioner.tokenization.partition_sizes.sum()) == len(x)
+    gt = np.argsort(((q[:, None] - x[None]) ** 2).sum(-1), axis=1)[:, :10]
+    idx, _ = s.search_batched_arrays(q, 10, SearchParameters(
+        num_leaves_to_search=tree.num_leaves,
+        pre_reordering_num_neighbors=200))
+    assert recall_at_k(idx, gt, 10) >= 0.95
 
 
 def test_build_recall_close_to_jax_build():

@@ -1337,3 +1337,89 @@ def test_brute_force_searchers_on_card():
         want_i, want_d = cpu.search_batched_arrays(q, 10)
         np.testing.assert_allclose(got_d, want_d, rtol=1e-5, atol=1e-4)
         assert (got_i == want_i).mean() > 0.99, storage
+
+
+def _facade_data():
+    rng = np.random.default_rng(3)
+    centers = rng.normal(size=(24, 32)).astype(np.float32) * 3
+    db = (centers[rng.integers(0, 24, 4000)]
+          + rng.normal(size=(4000, 32))).astype(np.float32)
+    q = (centers[rng.integers(0, 24, 64)]
+         + rng.normal(size=(64, 32))).astype(np.float32)
+    return db, q
+
+
+def _facade_config(mode):
+    from scann_tpu_torch import ScannConfig, PartitioningConfig, HashConfig
+
+    cfg = ScannConfig().with_partitioning(PartitioningConfig(
+        num_partitions=32, num_partitions_to_search=8))
+    if mode == "tree_ah":
+        cfg.with_hashing(HashConfig(num_blocks=16, num_buckets=16)) \
+            .with_reordering()
+    return cfg
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["tree_ah", "partitioned"])
+def test_facade_on_card_matches_the_cpu(mode, tmp_path):
+    """The facade's TREE_AH and PARTITIONED modes on the card against the
+    same searcher on the CPU (built there, carried to the card through
+    save_index / load_index): equal ids (#1 is bit-identical to its twin,
+    the selections tie-free), distances within 1e-5 relative; #1 launched
+    once a batch on the TREE_AH path."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from scann_tpu_torch import (DenseDataset, Scann, load_index,
+                                 save_index)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    db, q = _facade_data()
+    ds = DenseDataset(db)
+    cpu = Scann(ds, _facade_config(mode), device="cpu")
+    path = str(tmp_path / "facade.npz")
+    save_index(path, cpu)
+    card = Scann(ds, cpu.config, _impl=load_index(path),
+                 _mode=cpu.search_mode)
+    assert card.device.type == "cuda"
+    assert card.impl.device.type == "cuda"
+    before = tag.LAUNCHES
+    got_i, got_d = card.search_batched_arrays(q)
+    assert tag.LAUNCHES == before + (mode == "tree_ah")
+    want_i, want_d = cpu.search_batched_arrays(q)
+    np.testing.assert_array_equal(got_i, want_i)
+    np.testing.assert_allclose(got_d, want_d, rtol=1e-5, atol=1e-5)
+    ids, _ = card.search_batched_tensors(torch.from_numpy(q).cuda())
+    assert ids.is_cuda
+    np.testing.assert_array_equal(ids.cpu().numpy(), got_i)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["tree_ah", "partitioned", "hashed"])
+def test_facade_save_load_round_trip_on_card(mode, tmp_path):
+    """A facade built on the card (the default device) saves and loads back
+    onto the card with bit-identical results."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from scann_tpu_torch import (DenseDataset, HashConfig, Scann,
+                                 ScannConfig, SearchParameters, load_index,
+                                 save_index)
+
+    db, q = _facade_data()
+    cfg = (_facade_config(mode) if mode != "hashed" else
+           ScannConfig().with_hashing(HashConfig(num_blocks=16,
+                                                 num_buckets=16))
+           .with_reordering())
+    s = Scann(DenseDataset(db), cfg)
+    assert s.device.type == "cuda"
+    path = str(tmp_path / "facade.npz")
+    save_index(path, s)
+    back = load_index(path)
+    assert back.device.type == "cuda"
+    k, params = s.search_arguments()
+    if mode == "hashed":
+        assert params == SearchParameters(pre_reordering_num_neighbors=100)
+    got = back.search_batched_arrays(q, k, params)
+    want = s.search_batched_arrays(q)
+    np.testing.assert_array_equal(got[0], want[0])
+    np.testing.assert_array_equal(got[1], want[1])

@@ -439,16 +439,34 @@ def test_options_raise():
         T.AsymmetricHasher(T.AsymmetricHasherConfig(rerank_dtype="float16"),
                            device="cpu")
     x = np.random.default_rng(0).normal(size=(300, 8)).astype(np.float32)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        T.AsymmetricHasher(T.AsymmetricHasherConfig(
-            num_codes=16, num_subspaces=4, anisotropic_threshold=0.2),
-            device="cpu").build(T.DenseDataset(x))
     with pytest.raises(ScannError):
         T.AsymmetricHasher(T.AsymmetricHasherConfig(
             distance_measure=T.DistanceMeasure.L1),
             device="cpu").build(T.DenseDataset(x))
     with pytest.raises(ScannError):
         T.AsymmetricHasher(device="cpu").search_batched_arrays(x[:2], 3)
+
+
+def test_anisotropic_build_serves():
+    """``anisotropic_threshold`` trains and encodes the codebook by the
+    score-aware loss (``hashes/avq.py``; parity in ``test_torch_avq.py``):
+    the codebook carries eta, the codes are its anisotropic encoding, and
+    the build serves the re-rank path."""
+    x = np.random.default_rng(0).normal(size=(300, 32)).astype(np.float32)
+    h = T.AsymmetricHasher(T.AsymmetricHasherConfig(
+        num_codes=16, num_subspaces=8, anisotropic_threshold=0.2,
+        max_iterations=5, distance_measure=T.DistanceMeasure.DOT_PRODUCT),
+        device="cpu").build(T.DenseDataset(x))
+    assert h.codebook.eta == pytest.approx(31 * 0.04 / 0.96)
+    np.testing.assert_array_equal(
+        h.codes.numpy(),
+        h.codebook.encode_dataset(torch.from_numpy(x)).numpy())
+    idx, dists = h.search_batched_arrays(x[:4], 5, T.SearchParameters(
+        pre_reordering_num_neighbors=300))
+    want = np.argsort(-(x[:4] @ x.T), axis=1, kind="stable")[:, :5]
+    np.testing.assert_array_equal(idx, want)
+    np.testing.assert_allclose(dists, -np.take_along_axis(
+        x[:4] @ x.T, want, axis=1), rtol=1e-5, atol=1e-5)
 
 
 def test_unstored_dataset_serves_approximate_only():

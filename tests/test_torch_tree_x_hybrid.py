@@ -164,17 +164,28 @@ def test_post_epsilon_masks_far_results(index):
     assert np.all(e_idx[~keep] == -1) and np.all(np.isinf(e_dists[~keep]))
 
 
-def test_loader_rejects_unported_state(index):
-    """What the port cannot serve yet still raises naming its ROADMAP
-    item; other measures, low-precision stores, spilled CSR tables and
-    restricts load and serve."""
+def test_loader_rejects_unported_state(index, tmp_path):
+    """What the port cannot serve yet (a sharded serving layout) still
+    raises naming its ROADMAP item; the index's state read as a
+    partitioned index, other measures, low-precision stores, spilled CSR
+    tables and restricts load and serve."""
     path, q = index
     with np.load(path, allow_pickle=False) as z:
         meta = json.loads(bytes(z["__meta__"]).decode())
         arrays = {k: z[k] for k in z.files if k != "__meta__"}
+    sharded = str(tmp_path / "sharded.npz")
+    np.savez_compressed(sharded, __meta__=np.frombuffer(json.dumps(
+        dict(meta, sharded_kind="tree_ah")).encode(), dtype=np.uint8),
+        **arrays)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tio.from_numpy_state(arrays, dict(meta, kind="partitioned"),
-                             device="cpu")
+        tio.load_index(sharded, device="cpu")
+    part = tio.from_numpy_state(arrays, dict(meta, kind="partitioned", p=P),
+                                device="cpu")
+    idx, dists = part.search_batched_arrays(q, K)
+    db = arrays["data"]
+    exact = ((q[:, None] - db[idx]) ** 2).sum(-1)
+    np.testing.assert_allclose(dists, exact, rtol=1e-4, atol=1e-4)
+    assert (idx >= 0).all()
     for m in (dict(measure="DotProduct"), dict(rerank_dtype="int8")):
         s = tio.from_numpy_state(arrays, dict(meta, **m), device="cpu")
         assert s.search_batched_arrays(q, K)[0].shape == (B, K)
