@@ -76,6 +76,31 @@ queries:
   ``save_index`` / ``load_index`` round trips on the card (bit-identical);
   a two-level 256-leaf partitioned build and a DOT_PRODUCT tree-x-AH
   build with and without AVQ (recall recorded, no floor);
+- dynamic serving (phase 29): a ``DynamicSearcher`` over phase 4's
+  tree-x-AH configuration on the 1.18M rows, its rows in the C++ host
+  core (required), takes 8,192 adds from the same clusters, 2,048 updates
+  to fresh points and 2,048 removes (the exact top-1 of the first 256
+  queries among them) and serves the 10 batches (p=10, pre_k=100):
+  recall@10 >= 0.9 against exact ground truth over the live rows with
+  their current values, no removed id, every distance equal to the exact
+  one to the row's current value (1e-3 relative), 1,024 added rows each
+  found first by its own vector, #1 launched in every batch; times beside
+  the main index searched directly at the same fetch and the stages (main
+  fetch, delta slab, merge); then ``force_rebuild()`` and the same checks;
+- restricts, crowding and docids (phases 30-32): an allowlist of the even
+  ids without [0, 1000) through ``search_batched_with_filter`` on phase
+  4's tree-x-AH index (the mask on the card, #1; recall@10 >= 0.9 against
+  the filtered exact top-10), on the block sweep (#5 with the allowlist
+  penalty, >= 0.99) and the hasher (host over-fetch, #7, >= 0.9) of phase
+  26 on the first 100,000 rows, every id allowed, each beside its
+  unfiltered time; ``search_with_crowding`` on tree-x-AH with two
+  attributes, each row's generating cluster (a query's candidates mostly
+  share one) and a hash of its id into 16 groups (they mix within every
+  query's candidates; every query must keep 10 results and some must
+  change), at most 2 an attribute, equal to ``apply_batch`` and to a plain
+  greedy pass over the same candidates, with as many results as those
+  candidates' groups allow; docids ``doc<i>`` through
+  ``Scann.brute_force`` and the quick-start tree-x-AH facade;
 
 then times every kernel against its twin (L2 flushed) and the search stages
 with CUDA events (the grouped and per-pair SOAR paths also at twice the
@@ -119,6 +144,13 @@ BF_RECALL_FLOOR, SQ_RECALL_FLOOR = 0.999, 0.9
 HEAD_N, HEAD_D, HEAD_B, HEAD_B_SAT = 10_000, 64, 100, 6400
 SOAR_P, SOAR_PRE_K, SOAR_FLOOR, SOAR_INT8_FLOOR = 30, 300, 0.95, 0.9
 SIDE_N = 100_000
+# [29]: mutations of the dynamic searcher, above them its rebuild threshold;
+# the added rows queried by their own vectors
+DYN_ADDS, DYN_UPDATES, DYN_REMOVES, DYN_SELF = 8192, 2048, 2048, 1024
+DYN_REBUILD = 100_000
+# [31]: results an attribute may place in one query's top-k; the groups of
+# the attribute that mixes within a query's candidates
+CROWD_LIMIT, CROWD_GROUPS = 2, 16
 KERNEL_SOURCES = ("tree_ah_grouped", "block_min_sweep", "block_min_compact",
                   "lut16_scoring", "int8_dots", "fused_bf", "tree_ah_leaf")
 # published H100 SXM peaks (dense): bf16 tensor cores, int8 tensor cores,
@@ -371,7 +403,8 @@ def main() -> int:
     t0 = time.perf_counter()
     rng = np.random.default_rng(SEED)
     centers = rng.standard_normal((CLUSTERS, D), dtype=np.float32) * SPREAD
-    db = centers[rng.integers(0, CLUSTERS, N)]
+    labels = rng.integers(0, CLUSTERS, N)      # each row's cluster ([31])
+    db = centers[labels]
     db += rng.standard_normal((N, D), dtype=np.float32)
     q_np = centers[rng.integers(0, CLUSTERS, BATCH * BATCHES)]
     q_np += rng.standard_normal(q_np.shape, dtype=np.float32)
@@ -458,14 +491,7 @@ def main() -> int:
     idx = torch.cat([r[0] for r in results])
     dists = torch.cat([r[1] for r in results])
 
-    gt = []
-    x_sq = (db_dev * db_dev).sum(1)
-    for i in range(0, len(queries), 256):
-        qb = queries[i:i + 256]
-        dd = (qb * qb).sum(1)[:, None] + x_sq[None, :] - 2.0 * (qb @ db_dev.T)
-        gt.append(torch.topk(dd, K, dim=1, largest=False).indices)
-    gt = torch.cat(gt)
-    gt_np = gt.cpu().numpy()
+    gt_np = exact_top_k(queries, db_dev)
     recall = recall_at_k(idx.cpu().numpy(), gt_np, K)
     dist_err = check_results(idx, dists, queries, db_dev, BATCH * BATCHES)
     log(f"[6 search] {BATCHES} x B={BATCH}, p={P}, pre_k={PRE_K}, k={K}: "
@@ -580,8 +606,10 @@ def main() -> int:
                                   smi)
     records += soar_phases(ds, queries, db_dev, gt_np, cold_ms, turns, smi,
                            searcher)
-    del searcher
     facade_phases(ds, queries, db_dev, gt_np, smi)
+    dynamic_phase(ds, queries, q_np, gt_np, smi, cfg, centers)
+    restrict_phases(ds, queries, q_np, db_dev, smi, searcher, labels)
+    del searcher
     print(json.dumps({"kernels": records}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
@@ -2333,14 +2361,8 @@ def facade_phases(ds, queries, db_dev, gt_np, smi):
     head = DenseDataset(rng.random((HEAD_N, HEAD_D), dtype=np.float32))
     hq = torch.from_numpy(rng.random((HEAD_B, HEAD_D),
                                      dtype=np.float32)).to(dev)
-    def exact_ids(db, qb):
-        """Exact squared-L2 top-k by a float32 matmul and ``torch.topk``."""
-        dd = ((qb * qb).sum(1)[:, None] + (db * db).sum(1)[None, :]
-              - 2.0 * (qb @ db.T))
-        return torch.topk(dd, K, dim=1, largest=False).indices.cpu().numpy()
-
     sub_db = db_dev[:SIDE_N]
-    gt_sub = exact_ids(sub_db, q0)
+    gt_sub = exact_top_k(q0, sub_db)
     modes = {
         # label: (dataset, queries, build, JAX mode, JAX impl class,
         #         the parameters the facade implies, counter, kernel)
@@ -2383,7 +2405,7 @@ def facade_phases(ds, queries, db_dev, gt_np, smi):
         same_ids(idx, w_idx, f"[26 {label}]")
         if count is not None and not moved:
             raise AssertionError(f"[26 {label}] {kname} never launched")
-        gt = gt_sub if d is sub else exact_ids(d.device_tensor(dev), qb)
+        gt = gt_sub if d is sub else exact_top_k(qb, d.device_tensor(dev))
         rec = recall_at_k(idx.cpu().numpy(), gt, K)
         med, top = event_ms(scann.search_batched_tensors, qb, qb.shape[0], 1)
         built[label] = (scann, qb, params)
@@ -2456,6 +2478,454 @@ def facade_phases(ds, queries, db_dev, gt_np, smi):
             f"eta {e}" for label, (r, rc, b, e) in out.items())
         + " (no floor)")
     log(f"[24-28] wall {time.perf_counter() - t_phases:.2f}s")
+
+
+def exact_top_k(queries, rows, allowed=None, chunk=256):
+    """Exact squared-L2 top-K ids ([B, K] numpy) of ``queries`` over
+    ``rows`` on the card, rows where ``allowed`` is False left out."""
+    import torch
+
+    x_sq = (rows * rows).sum(1)
+    if allowed is not None:
+        x_sq = torch.where(allowed, x_sq, float("inf"))
+    out = []
+    for i in range(0, len(queries), chunk):
+        qb = queries[i:i + chunk]
+        dd = (qb * qb).sum(1)[:, None] + x_sq[None, :] - 2.0 * (qb @ rows.T)
+        out.append(torch.topk(dd, K, dim=1, largest=False).indices)
+    return torch.cat(out).cpu().numpy()
+
+
+def host_batches(search, q_np, batch, batches):
+    """(outputs, seconds of each call): host clock around each numpy call,
+    started after a synchronize."""
+    import torch
+
+    outs, secs = [], []
+    for i in range(batches):
+        qb = q_np[i * batch:(i + 1) * batch]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        outs.append(search(qb))
+        secs.append(time.perf_counter() - t0)
+    return outs, secs
+
+
+def crowd_reference(cand_i, attributes, limit, k):
+    """The plain greedy crowding pass over [B, M] candidates in order: a
+    candidate is kept while fewer than ``limit`` earlier ones share its
+    attribute. The first k kept ids a query (-1 padded), and how many of
+    its candidates the limit would keep."""
+    import numpy as np
+
+    valid = cand_i >= 0
+    attr = np.where(valid, attributes[np.clip(cand_i, 0, None)], -1)
+    m = cand_i.shape[1]
+    earlier = np.tril(np.ones((m, m), dtype=bool), -1)
+    before = ((attr[:, :, None] == attr[:, None, :]) & valid[:, None, :]
+              & earlier).sum(-1)
+    keep = valid & (before < limit)
+    cols = np.argsort(~keep, axis=1, kind="stable")[:, :k]
+    ids = np.where(np.take_along_axis(keep, cols, axis=1),
+                   np.take_along_axis(cand_i, cols, axis=1), -1)
+    return ids, keep.sum(1)
+
+
+def ms_line(secs):
+    import numpy as np
+
+    return (f"median {np.median(secs) * 1e3:.4f} ms, max "
+            f"{np.max(secs) * 1e3:.4f} ms")
+
+
+def dynamic_phase(ds, queries, q_np, gt_np, smi, cfg, centers):
+    """Phase 29: ``DynamicSearcher`` over phase 4's tree-x-AH configuration
+    at full width, on the C++ host core: adds, updates and removes, then
+    the batches served against exact ground truth over the live rows with
+    their current values, before and after ``force_rebuild()``; #1 must
+    launch in every batch."""
+    import numpy as np
+    import torch
+
+    from scann_tpu_torch import DistanceMeasure, SearchParameters
+    from scann_tpu_torch import TreeXHybridSearcher
+    from scann_tpu_torch.mutator import (
+        DynamicSearcher,
+        MutableDataset,
+        dynamic_merge,
+    )
+    from scann_tpu_torch.ops import tree_ah_grouped as tag
+    from scann_tpu_torch.utils.benchmarking import recall_at_k
+
+    t_phase = time.perf_counter()
+    dev = queries.device
+    t0 = time.perf_counter()
+    probe = MutableDataset.from_dataset(ds)
+    from_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    probe.snapshot()
+    snap_s = time.perf_counter() - t0
+    del probe
+    builds = []
+
+    def factory(d):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        s = TreeXHybridSearcher(cfg, device=dev).build(d)
+        torch.cuda.synchronize()
+        builds.append(time.perf_counter() - t0)
+        return s
+
+    t0 = time.perf_counter()
+    dyn = DynamicSearcher(ds, factory, rebuild_threshold=DYN_REBUILD,
+                          distance_measure=DistanceMeasure.SQUARED_L2,
+                          device=dev)
+    ctor_s = time.perf_counter() - t0
+    if not dyn._mutable.native:
+        raise AssertionError("[29] the mutable rows are not in the C++ core")
+    log(f"[29 dynamic tree-AH] DynamicSearcher over phase 4's tree-x-AH "
+        f"({N} x {D}), C++ host core {dyn._mutable.native}: from_dataset "
+        f"{from_s:.3f}s, snapshot {snap_s:.3f}s (each alone), build "
+        f"{builds[0]:.2f}s, constructor {ctor_s:.2f}s in all ({smi})")
+
+    # -- mutations: adds from the clusters, updates to fresh points, removes
+    # that include the exact top-1 of the first 256 queries
+    rng = np.random.default_rng(SEED + 29)
+
+    def fresh(n):
+        return (centers[rng.integers(0, CLUSTERS, n)] + rng.standard_normal(
+            (n, D), dtype=np.float32)).astype(np.float32)
+
+    adds = fresh(DYN_ADDS)
+    top1 = np.unique(gt_np[:256, 0])
+    if len(top1) > DYN_REMOVES:
+        raise AssertionError("[29] more top-1 rows than removes")
+    others = rng.permutation(N)
+    others = others[~np.isin(others, top1)]
+    n_more = DYN_REMOVES - len(top1)
+    removes = np.concatenate([top1, others[:n_more]])
+    updates = others[n_more:n_more + DYN_UPDATES]
+    new_rows = fresh(DYN_UPDATES)
+    t0 = time.perf_counter()
+    added = [dyn.add(v) for v in adds]
+    for i, v in zip(updates, new_rows):
+        dyn.update(int(i), v)
+    for i in removes:
+        dyn.remove(int(i))
+    mut_s = time.perf_counter() - t0
+    if added != list(range(N, N + DYN_ADDS)):
+        raise AssertionError("[29] added rows got unexpected ids")
+    data, deleted = dyn._mutable.snapshot()
+    cur = torch.from_numpy(data).to(dev)
+    live = torch.from_numpy(deleted == 0).to(dev)
+    gt_live = exact_top_k(queries, cur, live)
+    log(f"[29 dynamic tree-AH] {DYN_ADDS} adds, {DYN_UPDATES} updates, "
+        f"{DYN_REMOVES} removes ({len(top1)} of them the exact top-1 of the "
+        f"first 256 queries) in {mut_s:.3f}s; live rows {dyn.size}, rows "
+        f"{len(data)}, no rebuild (threshold {DYN_REBUILD}) ({smi})")
+
+    params = SearchParameters(num_leaves_to_search=P,
+                              pre_reordering_num_neighbors=PRE_K)
+    fetches = []
+
+    def count_fetches():
+        main = dyn._main
+        plain = main.search_batched_arrays
+
+        def counted(*args, **kw):
+            fetches.append(args[1])
+            return plain(*args, **kw)
+
+        main.search_batched_arrays = counted
+        return plain
+
+    def serve_and_check(label):
+        fetches.clear()
+        tag.LAUNCHES = 0
+        outs, secs = host_batches(
+            lambda qb: dyn.search_batched_arrays(qb, K, params), q_np,
+            BATCH, BATCHES)
+        launches = tag.LAUNCHES
+        idx = np.concatenate([o[0] for o in outs])
+        dists = np.concatenate([o[1] for o in outs])
+        recall = recall_at_k(idx, gt_live, K)
+        if recall < RECALL_FLOOR:
+            raise AssertionError(f"[29 {label}] recall@10 {recall} < "
+                                 f"{RECALL_FLOOR}")
+        if np.isin(idx, removes).any():
+            raise AssertionError(f"[29 {label}] a removed row was returned")
+        err = check_results(torch.from_numpy(idx).to(dev),
+                            torch.from_numpy(dists).to(dev), queries, cur,
+                            BATCH * BATCHES)
+        if launches < BATCHES:
+            raise AssertionError(f"[29 {label}] tree_ah_grouped launched "
+                                 f"{launches} times in {BATCHES} batches")
+        return secs, recall, err, launches, len(fetches) - BATCHES
+
+    plain_main = count_fetches()
+    secs, recall, err, launches, refetch = serve_and_check("served")
+    own_i, own_d = dyn.search_batched_arrays(adds[:DYN_SELF], K, params)
+    first = own_i[:, 0]
+    not_self = np.nonzero(first != np.arange(N, N + DYN_SELF))[0]
+    if (own_d[:, 0] > 1e-3).any() or any(
+            not np.array_equal(data[first[j]], adds[j]) for j in not_self):
+        raise AssertionError("[29] an added row, queried by its own vector, "
+                             "did not come back first")
+    log(f"[29 dynamic tree-AH] {BATCHES} x B={BATCH}, p={P}, pre_k={PRE_K}, "
+        f"k={K}: recall@10 {recall:.4f} against exact over the live rows "
+        f"(floor {RECALL_FLOOR}), no removed id, returned vs current rows' "
+        f"distances max rel err {err:.3g}, tree_ah_grouped (#1) launches "
+        f"{launches}, re-fetches {refetch}; {DYN_SELF} added rows queried by "
+        f"their own vectors: first at distance <= {float(own_d[:, 0].max()):.3g}"
+        f" ({len(not_self)} ties with an equal row); per batch {ms_line(secs)}"
+        f" ({smi})")
+
+    # -- the stages, and the main index searched directly at the same fetch
+    fetch = min(max(2 * K, K + 8), dyn._snapshot_rows)
+    main_secs = host_batches(
+        lambda qb: plain_main(qb, fetch, params), q_np, BATCH, BATCHES)[1]
+    slab_secs = []
+    for _ in range(3):
+        dyn._extra_cache = None
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        slab = dyn._extra_slab(D)
+        torch.cuda.synchronize()
+        slab_secs.append(time.perf_counter() - t0)
+    snap_db = dyn._snapshot_ds.device(dev)[0]
+    merge_ms = []
+    for i in range(BATCHES):
+        qb = q_np[i * BATCH:(i + 1) * BATCH]
+        ci, _ = plain_main(qb, fetch, params)
+        ci = np.asarray(ci, np.int64)
+        ok = (ci >= 0) & ~dyn._cand_invalid[np.clip(ci, 0, None)]
+        cand = torch.from_numpy(np.where(ok, ci, -1)).to(dev)
+        qd = torch.from_numpy(qb).to(dev)
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        dynamic_merge(qd, snap_db, cand, *slab[:3], float("inf"), k=K,
+                      measure=DistanceMeasure.SQUARED_L2)
+        b.record()
+        torch.cuda.synchronize()
+        merge_ms.append(a.elapsed_time(b))
+    log(f"[29 dynamic tree-AH] main index searched directly at fetch "
+        f"{fetch}: {ms_line(main_secs)}; stages: main fetch (the same), "
+        f"delta slab of {len(slab[3])} rows {ms_line(slab_secs)} (built "
+        f"once a mutation epoch), merge (CUDA events) median "
+        f"{np.median(merge_ms):.4f} ms, max {np.max(merge_ms):.4f} ms "
+        f"({smi})")
+
+    # -- force_rebuild folds the delta in
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    dyn.force_rebuild()
+    torch.cuda.synchronize()
+    rebuild_s = time.perf_counter() - t0
+    count_fetches()
+    secs, recall, err, launches, refetch = serve_and_check("rebuilt")
+    log(f"[29 dynamic tree-AH] force_rebuild() {rebuild_s:.2f}s (build "
+        f"{builds[-1]:.2f}s over {dyn._snapshot_rows} rows): recall@10 "
+        f"{recall:.4f} (floor {RECALL_FLOOR}), no removed id, distances max "
+        f"rel err {err:.3g}, #1 launches {launches}, re-fetches {refetch}; "
+        f"per batch {ms_line(secs)} ({smi})")
+    log(f"[29] wall {time.perf_counter() - t_phase:.2f}s ({smi})")
+
+
+def restrict_phases(ds, queries, q_np, db_dev, smi, searcher, labels):
+    """Phases 30-32: filtered search (tree-x-AH with the mask on the card at
+    full width; the block sweep's allowlist penalty and the hasher's host
+    over-fetch on the first SIDE_N rows), crowded search on tree-x-AH, and
+    docids through the facade."""
+    import numpy as np
+    import torch
+
+    from scann_tpu_torch import (
+        BruteForceConfig,
+        DenseDataset,
+        Scann,
+        ScannBuilder,
+        ScannConfig,
+        SearchParameters,
+    )
+    from scann_tpu_torch.ops import scoring_kernels as sk
+    from scann_tpu_torch.ops import sweep as sw
+    from scann_tpu_torch.ops import tree_ah_grouped as tag
+    from scann_tpu_torch.restricts import (
+        AllowlistFilter,
+        AndFilter,
+        CrowdingConfig,
+        CrowdingConstraint,
+        NotFilter,
+        RangeFilter,
+        RestrictAllowlist,
+    )
+    from scann_tpu_torch.utils.benchmarking import recall_at_k
+
+    t_phases = time.perf_counter()
+    dev = queries.device
+    params = SearchParameters(num_leaves_to_search=P,
+                              pre_reordering_num_neighbors=PRE_K)
+
+    def ids_of(results, label):
+        if any(len(r) != K for r in results):
+            raise AssertionError(f"{label}: a query got fewer than {K} "
+                                 f"results")
+        return np.array([r.indices() for r in results])
+
+    # -- 30. restricts --------------------------------------------------------
+    filt = AndFilter([AllowlistFilter(RestrictAllowlist.from_indices(
+        range(0, N, 2), N)), NotFilter(RangeFilter(0, 1000))])
+    allowed = torch.from_numpy(filt.to_mask(N)).to(dev)
+    gt_f = exact_top_k(queries, db_dev, allowed)
+    tag.LAUNCHES = 0
+    outs, f_secs = host_batches(
+        lambda qb: searcher.search_batched_with_filter(qb, K, filt, params),
+        q_np, BATCH, BATCHES)
+    launches = tag.LAUNCHES
+    idx = ids_of([r for o in outs for r in o], "[30 tree-AH]")
+    recall = recall_at_k(idx, gt_f, K)
+    if recall < RECALL_FLOOR:
+        raise AssertionError(f"[30 tree-AH] recall@10 {recall} < "
+                             f"{RECALL_FLOOR}")
+    if not all(filt.is_allowed(int(i)) for i in idx.ravel()):
+        raise AssertionError("[30 tree-AH] a returned id fails the filter")
+    if launches < BATCHES:
+        raise AssertionError(f"[30 tree-AH] #1 launched {launches} times")
+    u_secs = host_batches(lambda qb: searcher.search_batched(qb, K, params),
+                          q_np, BATCH, BATCHES)[1]
+    log(f"[30 restricts/tree-AH] AndFilter([even ids, not [0, 1000)]) "
+        f"({int(allowed.sum())} of {N} rows allowed), the mask on the card: "
+        f"{BATCHES} x B={BATCH}: recall@10 {recall:.4f} against the filtered "
+        f"exact top-10 (floor {RECALL_FLOOR}), every id allowed, #1 launches "
+        f"{launches}; search_batched_with_filter {ms_line(f_secs)}, "
+        f"unfiltered search_batched {ms_line(u_secs)} ({smi})")
+
+    sub = DenseDataset(ds.numpy()[:SIDE_N])
+    q0_np = q_np[:BATCH]
+    gt_sub = exact_top_k(queries[:BATCH], db_dev[:SIDE_N],
+                         torch.from_numpy(filt.to_mask(SIDE_N)).to(dev))
+    block = Scann(sub, ScannConfig().with_brute_force(
+        BruteForceConfig().with_block_sweep()), device=dev).impl
+    hashed = ScannBuilder().hash(num_blocks=50, num_buckets=16).reorder(
+        300).build(sub, device=dev).impl
+    cases = (
+        ("block sweep", block, None, SWEEP_RECALL_FLOOR, True,
+         lambda: sw.COMPACT_LAUNCHES["block_min_compact"],
+         "#5 block_min_compact with the allowlist penalty"),
+        ("hasher", hashed, SearchParameters(pre_reordering_num_neighbors=300),
+         RECALL_FLOOR, False, lambda: sk.LAUNCHES["lut16_fused_sweep"],
+         "#7 lut16_fused_sweep"),
+    )
+    for label, s, p, floor, takes_mask, count, kname in cases:
+        if s.supports_allow_mask() != takes_mask:
+            raise AssertionError(f"[30 {label}] allow-mask support "
+                                 f"{s.supports_allow_mask()}")
+        sw.reset_launches()
+        sk.reset_launches()
+        res = s.search_batched_with_filter(q0_np, K, filt, p)
+        torch.cuda.synchronize()
+        moved = count()
+        ids = ids_of(res, f"[30 {label}]")
+        rec = recall_at_k(ids, gt_sub, K)
+        if rec < floor:
+            raise AssertionError(f"[30 {label}] recall@10 {rec} < {floor}")
+        if not all(filt.is_allowed(int(i)) for i in ids.ravel()):
+            raise AssertionError(f"[30 {label}] a returned id fails the "
+                                 f"filter")
+        if not moved:
+            raise AssertionError(f"[30 {label}] {kname} never launched")
+        fs = host_batches(lambda qb: s.search_batched_with_filter(
+            qb, K, filt, p), np.tile(q0_np, (5, 1)), BATCH, 5)[1]
+        us = host_batches(lambda qb: s.search_batched(qb, K, p),
+                          np.tile(q0_np, (5, 1)), BATCH, 5)[1]
+        log(f"[30 restricts/{label}] {SIDE_N} rows (phase 26's facade "
+            f"configuration), B={BATCH}, "
+            + ("the mask on the card" if takes_mask else
+               f"host over-fetch of {min(max(4 * K, K + 32), SIDE_N)}")
+            + f": recall@10 {rec:.4f} against the filtered exact top-10 "
+            f"(floor {floor}), every id allowed, {kname} launches {moved}; "
+            f"filtered {ms_line(fs)}, unfiltered {ms_line(us)} ({smi})")
+    del block, hashed
+
+    # -- 31. crowding -----------------------------------------------------------
+    # two attributes: the generating cluster (a query's candidates mostly
+    # share one), and a hash of the row id into CROWD_GROUPS groups (they
+    # mix within every query's candidates)
+    row_ids = np.arange(N, dtype=np.uint64)
+    attributes = (("the generating cluster", labels),
+                  (f"a hash of the row id into {CROWD_GROUPS} groups",
+                   ((row_ids * np.uint64(2654435761) % np.uint64(2 ** 32)
+                     * np.uint64(CROWD_GROUPS)) >> np.uint64(32)
+                    ).astype(np.int64)))
+    crowds = [CrowdingConstraint(attr, CrowdingConfig(
+        per_crowd_limit=CROWD_LIMIT, enabled=True)) for _, attr in attributes]
+    c_secs = [[] for _ in attributes]
+    crowded, kept, full = ([0] * len(attributes) for _ in range(3))
+    for i in range(BATCHES):
+        qb = q_np[i * BATCH:(i + 1) * BATCH]
+        cand_i, cand_d = searcher.search_batched_arrays(qb, 4 * K, params)
+        plain = cand_i[:, :K]
+        for a, ((name, attr), crowd) in enumerate(zip(attributes, crowds)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = searcher.search_with_crowding(qb, K, crowd, params)
+            c_secs[a].append(time.perf_counter() - t0)
+            want_i, _ = crowd.apply_batch(cand_i.astype(np.int64), cand_d, K)
+            got = [r.indices() for r in res]
+            if got != [[int(j) for j in row if j >= 0] for row in want_i]:
+                raise AssertionError(f"[31 {name}] crowded results differ "
+                                     f"from apply_batch over the same "
+                                     f"candidates")
+            ref_i, can_keep = crowd_reference(cand_i, attr, CROWD_LIMIT, K)
+            if got != [[int(j) for j in row if j >= 0] for row in ref_i]:
+                raise AssertionError(f"[31 {name}] crowded results differ "
+                                     f"from the plain greedy pass")
+            counts = np.array([len(r) for r in got])
+            if not np.array_equal(counts, np.minimum(K, can_keep)):
+                raise AssertionError(f"[31 {name}] a query got fewer "
+                                     f"results than its candidates' groups "
+                                     f"allow")
+            for r in got:
+                if r and np.bincount(attr[r]).max() > CROWD_LIMIT:
+                    raise AssertionError(f"[31 {name}] a query has more "
+                                         f"than {CROWD_LIMIT} ids of one "
+                                         f"attribute")
+            kept[a] += int(counts.sum())
+            full[a] += int((counts == K).sum())
+            crowded[a] += int(sum(r != plain[j].tolist()
+                                  for j, r in enumerate(got)))
+    if not crowded[1] or full[1] != BATCH * BATCHES:
+        raise AssertionError(f"[31] the mixed attribute changed "
+                             f"{crowded[1]} queries, {full[1]} got {K} "
+                             f"results")
+    for a, (name, _) in enumerate(attributes):
+        log(f"[31 crowding] tree-x-AH, per-attribute limit {CROWD_LIMIT}, "
+            f"attribute {name}, {BATCHES} x B={BATCH}, over-fetch {4 * K}: "
+            f"no query over the limit, results equal apply_batch and the "
+            f"plain greedy pass over the same candidates, {crowded[a]} of "
+            f"{BATCH * BATCHES} queries changed by crowding, {full[a]} with "
+            f"{K} results, {kept[a] / (BATCH * BATCHES):.2f} results a "
+            f"query; search_with_crowding {ms_line(c_secs[a])} ({smi})")
+
+    # -- 32. docids through the facade -------------------------------------------
+    docs = DenseDataset(ds.numpy()[:SIDE_N],
+                        docids=[f"doc{i}" for i in range(SIDE_N)])
+    for label, build in (
+            ("Scann.brute_force", lambda: Scann.brute_force(docs,
+                                                             device=dev)),
+            ("quick-start tree-x-AH", lambda: ScannBuilder().num_neighbors(
+                K).tree(2000, P).hash(num_blocks=50, num_buckets=16).reorder(
+                    PRE_K).build(docs, device=dev))):
+        res = build().search_batched(q0_np, K)
+        ids_of(res, f"[32 {label}]")
+        if not all(nb.docid == f"doc{nb.index}" for r in res for nb in r):
+            raise AssertionError(f"[32 {label}] a docid differs from "
+                                 f"doc<index>")
+        log(f"[32 docids/{label}] {SIDE_N} rows with docids doc0..doc"
+            f"{SIDE_N - 1}, B={BATCH}: every NNResult.docid equals "
+            f"f\"doc{{index}}\" ({BATCH * K} results)")
+    log(f"[30-32] wall {time.perf_counter() - t_phases:.2f}s ({smi})")
 
 
 if __name__ == "__main__":

@@ -18,7 +18,9 @@ re-rank; plain or anisotropic codebooks), exact brute force (every dense
 measure; one fused kernel for small databases) and brute force over int8,
 int4, bf16 or fp8 copies of the rows (the int8-dots kernel for the integer
 codes). ``save_index`` and ``load_index`` write and read the JAX package's
-index files.
+index files. Datasets carry docids into every result; ``mutator``
+serves a dataset under adds, updates and removes, ``restricts`` filters
+and crowds results (both imported by module path, as in the JAX package).
 """
 
 from scann_tpu_torch.config import (
@@ -30,6 +32,7 @@ from scann_tpu_torch.config import (
     ScannConfig,
 )
 from scann_tpu_torch.data.dataset import DenseDataset
+from scann_tpu_torch.data.docid import DocIdCollection
 from scann_tpu_torch.errors import ErrorCode, ScannError
 from scann_tpu_torch.hashes.hasher import (
     AsymmetricHasher,
@@ -77,6 +80,7 @@ __all__ = [
     "BruteForceSearcher",
     "DenseDataset",
     "DistanceMeasure",
+    "DocIdCollection",
     "ErrorCode",
     "ExactReorderingConfig",
     "HashConfig",

@@ -274,7 +274,8 @@ class AsymmetricHasher(Searcher):
             raw = dataset.numpy()
             nr = np.sqrt(np.einsum("nd,nd->n", raw, raw))
             dataset = DenseDataset(
-                (raw / np.maximum(nr, 1e-30)[:, None]).astype(np.float32))
+                (raw / np.maximum(nr, 1e-30)[:, None]).astype(np.float32),
+                docids=dataset.docids)
         data = dataset.numpy()
         self._n, self._dim = data.shape
         train = data
@@ -325,6 +326,9 @@ class AsymmetricHasher(Searcher):
 
     def dimensionality(self) -> int:
         return self._dim
+
+    def _docids(self):
+        return self._dataset.docids if self._dataset is not None else None
 
     def memory_usage(self) -> int:
         """Code bytes: packed, ceil(S/2) per row, when the codes are 4-bit."""

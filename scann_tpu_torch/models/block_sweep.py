@@ -125,6 +125,9 @@ class BlockSweepSearcher(Searcher):
     def dimensionality(self) -> int:
         return self._dataset.dimensionality
 
+    def _docids(self):
+        return self._dataset.docids
+
     def memory_usage(self) -> int:
         """Device bytes beyond the raw dataset: the augmented sweep copy plus
         a low-precision re-rank store (the float32 re-rank rows are the

@@ -113,6 +113,9 @@ class BruteForceSearcher(Searcher):
     def dimensionality(self) -> int:
         return self._dataset.dimensionality
 
+    def _docids(self):
+        return self._dataset.docids
+
     def _device_state(self) -> Tuple[torch.Tensor, torch.Tensor, int]:
         """(rows [N, D] float32, their squared norms [N], N) on the
         device; the norms are computed once per uploaded tensor."""

@@ -163,6 +163,9 @@ class PartitionedSearcher(Searcher):
     def dimensionality(self) -> int:
         return self._dataset.dimensionality
 
+    def _docids(self):
+        return self._dataset.docids
+
     def device_state(self) -> Tuple[torch.Tensor, torch.Tensor]:
         """(rows [N, D] float32, their squared norms [N]) on the device; the
         norms are computed once per uploaded tensor."""

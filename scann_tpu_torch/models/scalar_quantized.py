@@ -58,6 +58,7 @@ class ScalarQuantizedBruteForceSearcher(Searcher):
         self._config = cfg
         self._measure = cfg.distance_measure
         self._dim = dataset.dimensionality
+        self._docid_table = dataset.docids
         storage = cfg.storage
         if storage in ("int8", "int4"):
             qcfg = dataclasses.replace(cfg.quantizer_config)
@@ -91,6 +92,7 @@ class ScalarQuantizedBruteForceSearcher(Searcher):
             distance_measure=distance_measure)
         self._measure = distance_measure
         self._dim = quantized.dimensionality
+        self._docid_table = None
         self._quantized = quantized
         self._scale = float(quantized.quantizer.scale)
         self._offset = float(quantized.quantizer.min_value)
@@ -106,6 +108,9 @@ class ScalarQuantizedBruteForceSearcher(Searcher):
 
     def dimensionality(self) -> int:
         return self._dim
+
+    def _docids(self):
+        return self._docid_table
 
     def memory_usage(self) -> int:
         """Stored codes plus one float32 norm per row."""

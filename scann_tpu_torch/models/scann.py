@@ -296,6 +296,9 @@ class Scann(Searcher):
     def dimensionality(self) -> int:
         return self._dataset.dimensionality
 
+    def _docids(self):
+        return self._dataset.docids
+
     def search_arguments(self, k: Optional[int] = None,
                          params: Optional[SearchParameters] = None,
                          query_config=None

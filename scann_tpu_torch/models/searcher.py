@@ -23,8 +23,8 @@ class SearchParameters:
     pre_reordering_epsilon: Optional[float] = None
     post_reordering_epsilon: Optional[float] = None
     num_leaves_to_search: Optional[int] = None
-    # crowding is not ported yet: a search with it set raises rather than
-    # return uncrowded results (ROADMAP.md queue 1, item 8d)
+    # accepted and not read, as in the JAX package: crowding is
+    # ``Searcher.search_with_crowding`` with a ``CrowdingConstraint``
     crowding_enabled: Optional[bool] = None
 
     def with_num_neighbors(self, k: int) -> "SearchParameters":
@@ -43,18 +43,10 @@ class SearchParameters:
         self.pre_reordering_epsilon = epsilon
         return self
 
-    def check_ported(self) -> None:
-        """Raise for a setting the port cannot serve yet."""
-        if self.crowding_enabled:
-            raise NotImplementedError(
-                "crowding is not ported yet (ROADMAP.md queue 1, item 8d: "
-                "restricts and crowding)")
-
     def effective_epsilon(self) -> float:
         """Distance threshold of a single-stage search: with no separate
         re-ranking pass the search is both the "pre" and the "post" stage,
         so the tighter of the two thresholds applies (inf when unset)."""
-        self.check_ported()
         eps = float("inf")
         if self.pre_reordering_epsilon is not None:
             eps = min(eps, float(self.pre_reordering_epsilon))
@@ -67,7 +59,6 @@ def epsilons(params: Optional[SearchParameters]):
     """(pre, post) per-query distance thresholds, inf when unset."""
     pre = post = np.inf
     if params is not None:
-        params.check_ported()
         if params.pre_reordering_epsilon is not None:
             pre = float(params.pre_reordering_epsilon)
         if params.post_reordering_epsilon is not None:
@@ -129,9 +120,8 @@ class Searcher:
         raise NotImplementedError
 
     def _docids(self):
-        """Document ids by index. None: the port has no docid collection
-        until ``data/docid.py`` is ported (ROADMAP.md queue 1, item 8), so
-        results carry ``docid=None``."""
+        """Document ids by index (a ``DocIdCollection``), or None: the
+        dataset had none, and results carry ``docid=None``."""
         return None
 
     def search_batched_arrays(self, queries: np.ndarray, k: int,
@@ -220,3 +210,53 @@ class Searcher:
                 self.search_batched_arrays).parameters
         except (TypeError, ValueError):
             return False
+
+    def search_with_filter(self, query, k: int, restrict_filter,
+                           params: Optional[SearchParameters] = None
+                           ) -> SearchResult:
+        """One query, restricted to the rows ``restrict_filter`` allows."""
+        return self.search_batched_with_filter(
+            np.asarray(query)[None, :], k, restrict_filter, params)[0]
+
+    def search_batched_with_filter(self, queries, k: int, restrict_filter,
+                                   params: Optional[SearchParameters] = None
+                                   ) -> List[SearchResult]:
+        """Queries [B, D], restricted to the rows ``restrict_filter``
+        allows. A searcher that takes an ``allow_mask`` gets the filter's
+        mask and applies it on the device; the others over-fetch
+        min(max(4k, k + 32), N) and filter on the host."""
+        q = self._validate_queries(np.asarray(queries))
+        n = self.dataset_size()
+        mask = restrict_filter.to_mask(n)
+        if self.supports_allow_mask():
+            idx, dist = self.search_batched_arrays(q, k, params,
+                                                   allow_mask=mask)
+            return self._to_results(idx, dist)
+        fetch = min(max(4 * k, k + 32), n)
+        idx, dist = self.search_batched_arrays(q, fetch, params)
+        # the columns actually returned: a searcher's candidate ceiling may
+        # cap them below the fetch. Each row keeps its first k allowed
+        # candidates in their order (a stable sort puts them in front).
+        keep = (idx >= 0) & mask[np.clip(idx, 0, max(n - 1, 0))]
+        cols = np.argsort(~keep, axis=1, kind="stable")[:, :k]
+        kept = np.take_along_axis(keep, cols, axis=1)
+        out_i = np.full((len(q), k), -1, dtype=np.int64)
+        out_d = np.full((len(q), k), np.inf, dtype=np.float32)
+        w = cols.shape[1]
+        out_i[:, :w] = np.where(kept, np.take_along_axis(idx, cols, axis=1),
+                                -1)
+        out_d[:, :w] = np.where(kept, np.take_along_axis(dist, cols, axis=1),
+                                np.inf)
+        return self._to_results(out_i, out_d)
+
+    def search_with_crowding(self, queries, k: int, crowding,
+                             params: Optional[SearchParameters] = None,
+                             over_fetch: int = 4) -> List[SearchResult]:
+        """Queries [B, D] under a ``CrowdingConstraint``: over-fetch
+        k * over_fetch candidates, then the per-group cap
+        (``crowding.apply_batch``)."""
+        q = self._validate_queries(np.asarray(queries))
+        fetch = min(k * over_fetch, self.dataset_size())
+        idx, dist = self.search_batched_arrays(q, fetch, params)
+        out_i, out_d = crowding.apply_batch(idx.astype(np.int64), dist, k)
+        return self._to_results(out_i, out_d)

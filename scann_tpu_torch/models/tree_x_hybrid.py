@@ -529,7 +529,8 @@ class TreeXHybridSearcher(Searcher):
             raw = dataset.numpy()
             norms = np.sqrt(np.einsum("nd,nd->n", raw, raw))
             dataset = DenseDataset(
-                (raw / np.maximum(norms, 1e-30)[:, None]).astype(np.float32))
+                (raw / np.maximum(norms, 1e-30)[:, None]).astype(np.float32),
+                docids=dataset.docids)
         hc = cfg.hash_config
         seed = hc.seed if hc.seed is not None else 42
         self._dataset = dataset
@@ -607,6 +608,9 @@ class TreeXHybridSearcher(Searcher):
 
     def dimensionality(self) -> int:
         return 0 if self._dataset is None else self._dataset.dimensionality
+
+    def _docids(self):
+        return self._dataset.docids if self._dataset is not None else None
 
     def memory_usage(self) -> int:
         """Bytes of the serving CSR code slab, its row table, the partition

@@ -67,18 +67,29 @@ def test_search_parameter_setters_match_jax(name, arg):
     assert dataclasses.asdict(port) == dataclasses.asdict(ref)
 
 
-def test_crowding_enabled_raises_until_ported():
-    """The field exists as in JAX; a search with it set names the ROADMAP
-    item that brings crowding."""
+def test_crowding_enabled_matches_jax():
+    """The field is accepted and not read, as in the JAX package: results
+    with it set equal results without it, on both packages, and the two
+    packages agree."""
     db, q = _data()
-    s = T.BruteForceSearcher(T.DenseDataset(db), device="cpu")
-    params = T.SearchParameters(num_neighbors=K, crowding_enabled=True)
-    with pytest.raises(NotImplementedError, match="8d"):
-        s.search_with_params(q[0], params)
-    with pytest.raises(NotImplementedError, match="8d"):
-        s.search_batched_tensors(torch.from_numpy(q), K, params)
-    s.search_with_params(q[0], T.SearchParameters(num_neighbors=K,
-                                                  crowding_enabled=False))
+    port = T.BruteForceSearcher(T.DenseDataset(db), device="cpu")
+    ref = JaxBF(JaxDataset(db))
+    for with_flag in (True, False):
+        got = port.search_batched(q, K, T.SearchParameters(
+            num_neighbors=K, crowding_enabled=with_flag))
+        want = ref.search_batched(q, K, JaxParams(
+            num_neighbors=K, crowding_enabled=with_flag))
+        _same_results(got, want)
+    flagged = T.SearchParameters(num_neighbors=K, crowding_enabled=True)
+    _same_results(port.search_batched(q, K, flagged),
+                  port.search_batched(q, K, T.SearchParameters(
+                      num_neighbors=K)))
+    _same_results(ref.search_batched(q, K, JaxParams(
+        num_neighbors=K, crowding_enabled=True)),
+        ref.search_batched(q, K, JaxParams(num_neighbors=K)))
+    got = port.search_batched_tensors(torch.from_numpy(q), K, flagged)
+    want = port.search_batched_tensors(torch.from_numpy(q), K)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
 def _same_results(got, want):

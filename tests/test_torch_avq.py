@@ -38,6 +38,7 @@ import scann_tpu_torch as T
 from scann_tpu_torch import io as tio
 from scann_tpu_torch.hashes import avq as pavq
 from scann_tpu_torch.hashes.codebook import Codebook, CodebookConfig
+from torch_threads import one_torch_thread  # noqa: F401
 
 N, D, S, C = 4000, 32, 16, 16
 

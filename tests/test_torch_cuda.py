@@ -1423,3 +1423,111 @@ def test_facade_save_load_round_trip_on_card(mode, tmp_path):
     want = s.search_batched_arrays(q)
     np.testing.assert_array_equal(got[0], want[0])
     np.testing.assert_array_equal(got[1], want[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("measure", ["SQUARED_L2", "L2", "DOT_PRODUCT"])
+def test_dynamic_merge_on_card_matches_the_cpu(measure):
+    """The dynamic searcher's merge on the card against the same merge on
+    the CPU, on equal inputs (duplicates between the candidates and the
+    delta slab, invalid slots, an epsilon): equal ids, distances within
+    1e-5 relative."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from scann_tpu_torch.mutator import dynamic_merge
+    from scann_tpu_torch.ops.distances import DistanceMeasure
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.default_rng(29)
+    b, f, e, d, n = 64, 40, 300, 32, 5000
+    snap = torch.from_numpy(rng.normal(size=(n, d)).astype(np.float32))
+    q = torch.from_numpy(rng.normal(size=(b, d)).astype(np.float32))
+    cand = torch.from_numpy(rng.integers(-1, n, size=(b, f)))
+    extra_ids = torch.from_numpy(np.concatenate([
+        rng.choice(n, 100, replace=False), np.arange(n, n + e - 100)]))
+    extra = torch.from_numpy(rng.normal(size=(e, d)).astype(np.float32))
+    valid = torch.from_numpy(rng.random(e) < 0.8)
+    m = DistanceMeasure[measure]
+    for eps in (float("inf"), 60.0):
+        want = dynamic_merge(q, snap, cand, extra, extra_ids, valid, eps,
+                             k=10, measure=m)
+        got = dynamic_merge(*(t.cuda() for t in (q, snap, cand, extra,
+                                                 extra_ids, valid)),
+                            eps, k=10, measure=m)
+        assert got[0].is_cuda and got[1].is_cuda
+        np.testing.assert_array_equal(got[1].cpu().numpy(),
+                                      want[1].numpy())
+        np.testing.assert_allclose(
+            got[0].cpu().numpy(), want[0].numpy(), rtol=1e-5, atol=1e-5,
+            err_msg=_merge_sides(q, snap, extra, extra_ids, valid, want[1],
+                                 want[0], got[0].cpu(), measure))
+
+
+def _merge_sides(q, snap, extra, extra_ids, valid, ids, cpu, card, measure):
+    """Which side of a merge comparison moved: each one's largest relative
+    error against float64 distances to the returned ids (the slab's copy
+    where it holds one), beside torch's CPU settings."""
+    rows = np.concatenate([snap.numpy(), np.zeros(
+        (int(extra_ids.max()) + 1 - len(snap), snap.shape[1]), np.float32)])
+    rows[extra_ids.numpy()[valid.numpy()]] = extra.numpy()[valid.numpy()]
+    ids = ids.numpy()
+    x = rows.astype(np.float64)[np.clip(ids, 0, None)]
+    q64 = q.numpy().astype(np.float64)[:, None, :]
+    exact = {"SQUARED_L2": ((q64 - x) ** 2).sum(-1),
+             "L2": np.sqrt(((q64 - x) ** 2).sum(-1)),
+             "DOT_PRODUCT": -(q64 * x).sum(-1)}[measure]
+    live = ids >= 0
+
+    def rel(v):
+        v = v.numpy().astype(np.float64)[live]
+        return float((np.abs(v - exact[live]) / np.maximum(
+            np.abs(exact[live]), 1e-30)).max(initial=0.0))
+    return (f"against float64: card max rel {rel(card):.3g}, CPU max rel "
+            f"{rel(cpu):.3g}; torch CPU threads {torch.get_num_threads()}, "
+            f"capability {torch.backends.cpu.get_cpu_capability()}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["tree_ah", "block_sweep"])
+def test_filtered_search_on_card_matches_the_cpu(kind, tmp_path):
+    """``search_batched_with_filter`` on the card (the mask applied there:
+    #1 for tree-x-AH, the block-min sweep with the allowlist penalty)
+    against the same searcher on the CPU: equal ids, distances within 1e-5
+    relative, every id allowed, a kernel launched."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from scann_tpu_torch import (BlockSweepConfig, BlockSweepSearcher,
+                                 DenseDataset, Scann, load_index, save_index)
+    from scann_tpu_torch.ops import sweep as sw
+    from scann_tpu_torch.restricts import (AllowlistFilter, AndFilter,
+                                           NotFilter, RangeFilter,
+                                           RestrictAllowlist)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    db, q = _facade_data()
+    n = len(db)
+    filt = AndFilter([AllowlistFilter(RestrictAllowlist.from_indices(
+        range(0, n, 2), n)), NotFilter(RangeFilter(0, 300))])
+    if kind == "tree_ah":
+        cpu = Scann(DenseDataset(db), _facade_config("tree_ah"),
+                    device="cpu").impl
+        path = str(tmp_path / "tree.npz")
+        save_index(path, cpu)
+        card = load_index(path)
+        count = lambda: tag.LAUNCHES          # noqa: E731
+    else:
+        cfg = BlockSweepConfig(block_r=32, pre_reorder_k=64)
+        cpu = BlockSweepSearcher(DenseDataset(db), cfg, device="cpu")
+        card = BlockSweepSearcher(DenseDataset(db), cfg)
+        count = lambda: sum(sw.LAUNCHES.values())  # noqa: E731
+    assert card.device.type == "cuda" and card.supports_allow_mask()
+    before = count()
+    got = card.search_batched_with_filter(q, 10, filt)
+    torch.cuda.synchronize()
+    assert count() > before
+    want = cpu.search_batched_with_filter(q, 10, filt)
+    assert [r.indices() for r in got] == [r.indices() for r in want]
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.distances(), w.distances(), rtol=1e-5,
+                                   atol=1e-5)
+        assert all(filt.is_allowed(i) for i in g.indices())

@@ -29,6 +29,7 @@ from scann_tpu.models.scann import ScannBuilder as JaxBuilder
 import scann_tpu_torch as T
 import scann_tpu_torch.config as pcfg
 from scann_tpu_torch.errors import ScannError
+from torch_threads import one_torch_thread  # noqa: F401
 
 RTOL = 1e-5
 

@@ -55,6 +55,7 @@ from scann_tpu.partitioning.tree_partitioner import (
 import scann_tpu_torch as T
 from scann_tpu_torch.errors import ScannError
 from scann_tpu_torch.partitioning.tree_partitioner import TreePartitionerConfig
+from torch_threads import one_torch_thread  # noqa: F401
 
 N, D, B, K = 1024, 16, 16, 5
 RTOL = 1e-5

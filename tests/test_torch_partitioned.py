@@ -41,6 +41,7 @@ from scann_tpu_torch.trees.kmeans_tree import (
     KMeansTreeNode,
 )
 from scann_tpu_torch.utils.benchmarking import recall_at_k
+from torch_threads import one_torch_thread  # noqa: F401
 
 N, D, B, K, NP, P = 3000, 32, 32, 10, 32, 4
 # every measure the exact gathered scoring serves (HAMMING, LIMITED_INNER_
