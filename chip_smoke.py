@@ -101,6 +101,24 @@ queries:
   greedy pass over the same candidates, with as many results as those
   candidates' groups allow; docids ``doc<i>`` through
   ``Scann.brute_force`` and the quick-start tree-x-AH facade;
+- sparse search (phase 33): 74,962 synthetic sets over 27,983 items (the
+  shape of ANN-Benchmarks kosarak-jaccard) with signed values, a
+  ``SparseBruteForceSearcher`` for each of the five measures, 500 queries
+  a batch: the four set measures through ``search_batched_arrays``
+  (distances bit-equal to a host ``scipy.sparse`` count with the same
+  float32 formula, ids equal, ties lower index first), WEIGHTED_JACCARD
+  through it and ``search_sparse`` (distances within 1e-5 of a float64
+  host reference, ids equal where the 10th and 11th differ by more); build
+  s, bytes on the card, per-batch CUDA-event ms, the score and select
+  stages beside ``torch.topk`` and the rows the selection sent to its key;
+- projections and helpers (phase 34) on the 1.18M rows: ``fit_pca`` to 64
+  dimensions (rows orthonormal), random orthogonal (orthonormal, distances
+  kept on 1,000 pairs) and Gaussian (norms within the JL spread)
+  projections, OPQ with 10 subspaces and 10 iterations (a rotation),
+  truncation and chunking shapes, a 16-component diagonal Gaussian mixture
+  (finite log-likelihood, not below its start's) and a two-level stacked
+  quantizer of 50 x 16 codes trained on 100,000 rows and encoding all (the
+  second level lowers the error);
 
 then times every kernel against its twin (L2 flushed) and the search stages
 with CUDA events (the grouped and per-pair SOAR paths also at twice the
@@ -151,6 +169,18 @@ DYN_REBUILD = 100_000
 # [31]: results an attribute may place in one query's top-k; the groups of
 # the attribute that mixes within a query's candidates
 CROWD_LIMIT, CROWD_GROUPS = 2, 16
+# [33]: sets with the shape of ANN-Benchmarks kosarak-jaccard (74,962 sets
+# over 27,983 items; its file is not in the repo): items of Zipf popularity
+# (weight 1 / rank), sizes 20 plus a Pareto(1.5) tail of scale 20 drawn with
+# repeats and capped at kosarak's largest set, 2,498; 500 queries a batch,
+# timed SP_REPS times; weighted distances within SP_TOL of float64
+SP_N, SP_D, SP_B, SP_MIN, SP_MAX, SP_TAIL = 74_962, 27_983, 500, 20, 2498, 1.5
+SP_REPS, SP_TOL = 5, 1e-5
+SP_MEASURES = ("JACCARD", "DICE", "NON_ZERO_INTERSECT", "OVERLAP",
+               "WEIGHTED_JACCARD")
+# [34]: PCA width, mixture components, stacked quantizer levels and its
+# training sample
+PCA_OUT, GMM_K, SQ_LEVELS, SQ_SAMPLE = 64, 16, 2, 100_000
 KERNEL_SOURCES = ("tree_ah_grouped", "block_min_sweep", "block_min_compact",
                   "lut16_scoring", "int8_dots", "fused_bf", "tree_ah_leaf")
 # published H100 SXM peaks (dense): bf16 tensor cores, int8 tensor cores,
@@ -610,6 +640,8 @@ def main() -> int:
     dynamic_phase(ds, queries, q_np, gt_np, smi, cfg, centers)
     restrict_phases(ds, queries, q_np, db_dev, smi, searcher, labels)
     del searcher
+    sparse_phase(dev, smi)
+    projection_phases(db_dev, smi)
     print(json.dumps({"kernels": records}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
@@ -2926,6 +2958,373 @@ def restrict_phases(ds, queries, q_np, db_dev, smi, searcher, labels):
             f"{SIDE_N - 1}, B={BATCH}: every NNResult.docid equals "
             f"f\"doc{{index}}\" ({BATCH * K} results)")
     log(f"[30-32] wall {time.perf_counter() - t_phases:.2f}s ({smi})")
+
+
+def sparse_sets(rng, sizes):
+    """(indptr [n + 1], items) of ``len(sizes)`` sets of distinct items,
+    sorted within a set: ``sizes[i]`` draws with repeats from the Zipf
+    popularity (weight 1 / rank), and sets that repeats leave below SP_MIN
+    items topped up from the same popularity."""
+    import numpy as np
+
+    def unique(key):
+        # sort-based: numpy 2.3's np.unique hashes integers, ten times
+        # slower at these sizes
+        key = np.sort(key)
+        return key[np.concatenate([[True], key[1:] != key[:-1]])]
+
+    pop = 1.0 / np.arange(1, SP_D + 1)
+    pop /= pop.sum()
+    n = len(sizes)
+    key = unique(np.repeat(np.arange(n), sizes) * SP_D
+                 + rng.choice(SP_D, int(sizes.sum()), p=pop))
+    while True:
+        count = np.bincount(key // SP_D, minlength=n)
+        short = np.flatnonzero(count < SP_MIN)
+        if not len(short):
+            break
+        extra = np.repeat(short, SP_MIN - count[short])
+        key = unique(np.concatenate(
+            [key, extra * SP_D + rng.choice(SP_D, len(extra), p=pop)]))
+    indptr = np.zeros(n + 1, np.int64)
+    np.cumsum(np.bincount(key // SP_D, minlength=n), out=indptr[1:])
+    return indptr, key % SP_D
+
+
+def host_top_k(d, k):
+    """(ids [B, k], values) of the k smallest of each row of ``d`` on the
+    host, equal values lower index first."""
+    import numpy as np
+
+    kth = np.partition(d, k - 1, axis=1)[:, k - 1]
+    ids = np.empty((len(d), k), np.int64)
+    for r in range(len(d)):
+        cand = np.flatnonzero(d[r] <= kth[r])
+        ids[r] = cand[np.argsort(d[r, cand], kind="stable")[:k]]
+    return ids, np.take_along_axis(d, ids, axis=1)
+
+
+def host_set_distances(inter, a, b, name):
+    """The JAX package's float32 set-measure formulas on the host: [B, N]
+    from intersections, set sizes a [1, N] and query sizes b [B, 1]."""
+    import numpy as np
+
+    one, zero = np.float32(1), np.float32(0)
+    if name == "JACCARD":
+        union = a + b - inter
+        return np.where(union > 0, one - inter / np.maximum(union, one), zero)
+    if name == "DICE":
+        total = a + b
+        return np.where(total > 0, one - np.float32(2) * inter
+                        / np.maximum(total, one), zero)
+    if name == "NON_ZERO_INTERSECT":
+        return -inter
+    m = np.minimum(a, b)
+    return np.where(m > 0, one - inter / np.maximum(m, one), one)
+
+
+def check_weighted(label, ids, dists, d64, ref_ids, ref_d):
+    """Weighted-Jaccard results against the float64 reference: distances
+    within SP_TOL of the float64 distance of the same id, and the ids equal
+    as a set where the reference's 10th and 11th distances differ by more
+    than SP_TOL. Returns (max error, rows checked for ids)."""
+    import numpy as np
+
+    if ids.shape != (SP_B, K) or (ids < 0).any():
+        raise AssertionError(f"{label}: bad ids, shape {ids.shape}")
+    err = float(np.abs(dists - np.take_along_axis(d64, ids, 1)).max())
+    if err > SP_TOL:
+        raise AssertionError(f"{label}: distances off float64 by {err}")
+    clear = ref_d[:, K] - ref_d[:, K - 1] > SP_TOL
+    for r in np.flatnonzero(clear):
+        if set(ids[r]) != set(ref_ids[r, :K]):
+            raise AssertionError(f"{label}: query {r} ids differ from the "
+                                 f"float64 reference")
+    return err, int(clear.sum())
+
+
+def sparse_phase(dev, smi):
+    """Phase 33: sparse search at kosarak width, every measure against a
+    host reference written apart from the port (``scipy.sparse`` counts
+    with the JAX float32 formulas; float64 sums of minima)."""
+    import numpy as np
+    import scipy.sparse as sp
+    import torch
+
+    from scann_tpu_torch import (
+        DistanceMeasure,
+        SparseBruteForceSearcher,
+        SparseDataset,
+    )
+    from scann_tpu_torch.ops import topk
+
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(SEED)
+
+    def sizes(n):
+        return np.minimum(
+            SP_MIN + (rng.pareto(SP_TAIL, n) * SP_MIN).astype(np.int64),
+            SP_MAX)
+
+    indptr, items = sparse_sets(rng, sizes(SP_N))
+    values = rng.standard_normal(len(items), dtype=np.float32)
+    q_ptr, q_items = sparse_sets(rng, sizes(SP_B))
+    q_vals = rng.standard_normal(len(q_items), dtype=np.float32)
+    q_dense = np.zeros((SP_B, SP_D), np.float32)
+    q_dense[np.repeat(np.arange(SP_B), np.diff(q_ptr)), q_items] = q_vals
+    sets_s = time.perf_counter() - t_phase
+    ds = SparseDataset(SP_D)
+    for i in range(SP_N):
+        ds.append(items[indptr[i]:indptr[i + 1]],
+                  values[indptr[i]:indptr[i + 1]])
+    lens, q_lens = np.diff(indptr), np.diff(q_ptr)
+    log(f"[33 sparse data] {SP_N} sets over {SP_D} items (kosarak-jaccard's "
+        f"shape; Zipf popularity, sizes {SP_MIN} + Pareto({SP_TAIL}) x "
+        f"{SP_MIN} drawn with repeats, cap {SP_MAX}, seed {SEED}), signed "
+        f"N(0, 1) values: set size mean {lens.mean():.2f}, largest "
+        f"{lens.max()}, smallest {lens.min()}, {len(items)} nonzeros; "
+        f"{SP_B} queries, size mean {q_lens.mean():.2f}, largest "
+        f"{q_lens.max()}; sets drawn in {sets_s:.2f}s, the SparseDataset "
+        f"appended in {time.perf_counter() - t_phase - sets_s:.2f}s")
+
+    # host references, written apart from the port
+    t0 = time.perf_counter()
+    inc = sp.csr_matrix((np.ones(len(items), np.float32), items, indptr),
+                        shape=(SP_N, SP_D))
+    inter = (sp.csr_matrix((q_dense != 0).astype(np.float32))
+             @ inc.T).toarray().astype(np.float32)
+    a = lens.astype(np.float32)[None, :]
+    b = (q_dense != 0).sum(1).astype(np.float32)[:, None]
+    absx = np.abs(values).astype(np.float64)
+    by_item = sp.csr_matrix((absx, items, indptr),
+                            shape=(SP_N, SP_D)).tocsc()
+    min_sum = np.empty((SP_B, SP_N))
+    for j in range(SP_B):
+        part = by_item[:, q_items[q_ptr[j]:q_ptr[j + 1]]]
+        part.data = np.minimum(part.data, np.repeat(
+            np.abs(q_vals[q_ptr[j]:q_ptr[j + 1]]).astype(np.float64),
+            np.diff(part.indptr)))
+        min_sum[j] = np.asarray(part.sum(axis=1)).ravel()
+    max_sum = (np.add.reduceat(np.abs(q_vals).astype(np.float64),
+                               q_ptr[:-1])[:, None]
+               + np.add.reduceat(absx, indptr[:-1])[None, :] - min_sum)
+    d64 = np.where(max_sum > 0, 1.0 - min_sum / max_sum, 0.0)
+    cand = np.argpartition(d64, K, axis=1)[:, :K + 1]
+    w_ids = np.take_along_axis(cand, np.argsort(
+        np.take_along_axis(d64, cand, 1), axis=1, kind="stable"), 1)
+    w_d = np.take_along_axis(d64, w_ids, 1)
+    log(f"[33 sparse reference] scipy.sparse intersections and float64 "
+        f"sums of minima for {SP_B} queries on the host: "
+        f"{time.perf_counter() - t0:.2f}s")
+
+    qd = torch.from_numpy(q_dense).to(dev)
+    for name in SP_MEASURES:
+        measure = DistanceMeasure[name]
+        torch.cuda.synchronize()
+        mem0 = torch.cuda.memory_allocated(dev)
+        t0 = time.perf_counter()
+        s = SparseBruteForceSearcher(ds, measure, device=dev)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        held = torch.cuda.memory_allocated(dev) - mem0
+        ids, dists = s.search_batched_arrays(q_dense, K)
+        if name == "WEIGHTED_JACCARD":
+            err, rows = check_weighted(f"[33 {name}]", ids, dists, d64,
+                                       w_ids, w_d)
+            t0 = time.perf_counter()
+            res = [s.search_sparse(q_items[q_ptr[j]:q_ptr[j + 1]], K,
+                                   values=q_vals[q_ptr[j]:q_ptr[j + 1]])
+                   for j in range(SP_B)]
+            one_s = (time.perf_counter() - t0) / SP_B
+            err1, _ = check_weighted(
+                f"[33 {name} search_sparse]",
+                np.array([r.indices() for r in res]),
+                np.array([r.distances() for r in res], np.float32), d64,
+                w_ids, w_d)
+            verdict = (f"distances within {max(err, err1):.3g} of float64 "
+                       f"(tolerance {SP_TOL}) through search_batched_arrays "
+                       f"and search_sparse, ids equal on the {rows} queries "
+                       f"whose 10th and 11th float64 distances differ by "
+                       f"more; search_sparse {one_s * 1e3:.4f} ms a query "
+                       f"(host clock)")
+        else:
+            ref_ids, ref_d = host_top_k(
+                host_set_distances(inter, a, b, name), K)
+            if not np.array_equal(ids, ref_ids):
+                raise AssertionError(f"[33 {name}] ids differ from the host "
+                                     f"reference")
+            if not np.array_equal(dists, ref_d):
+                raise AssertionError(f"[33 {name}] distances are not "
+                                     f"bit-equal to the host reference")
+            verdict = ("ids equal to the host reference (ties lower index "
+                       "first) and distances bit-equal")
+        key0 = topk.KEY_PATH_ROWS
+        med, top = event_ms(lambda qb: s.search_batched_tensors(qb, K), qd,
+                            SP_B, 1, reps=SP_REPS)
+        key_rows = (topk.KEY_PATH_ROWS - key0) / SP_REPS
+        # one query chunk's stages: the product and formula, the selection,
+        # and torch.topk on the same distances (no tie rule)
+        qc = qd[:s.query_chunk()]
+        qc = qc.abs() if name == "WEIGHTED_JACCARD" else (qc != 0).float()
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        dd = s._distances(qc)
+        stage_ms = []
+        for _ in range(SP_REPS):
+            ev[0].record()
+            dd = s._distances(qc)
+            ev[1].record()
+            topk.top_k_smallest(dd, K)
+            ev[2].record()
+            torch.topk(dd, K, dim=1, largest=False)
+            ev[3].record()
+            torch.cuda.synchronize()
+            stage_ms.append([ev[i].elapsed_time(ev[i + 1])
+                                      for i in range(3)])
+        score_ms, select_ms, plain_ms = np.median(stage_ms, 0)
+        log(f"[33 sparse/{name}] {SP_B} queries, k={K}: {verdict}; build "
+            f"{build_s:.3f}s, {held} bytes on the card; search_batched_"
+            f"tensors over {SP_REPS} batches of {SP_B}: median {med:.4f} ms, "
+            f"max {top:.4f} ms; a chunk of {len(qc)} queries: score "
+            f"{score_ms:.4f} ms, top_k_smallest {select_ms:.4f} ms against "
+            f"torch.topk {plain_ms:.4f} ms; {key_rows:.1f} of {SP_B} rows a "
+            f"batch sent to the int64 key ({smi})")
+        del s, dd
+    log(f"[33] wall {time.perf_counter() - t_phase:.2f}s ({smi})")
+
+
+def projection_phases(db_dev, smi):
+    """Phase 34: projections, PCA, OPQ, the Gaussian mixture and the stacked
+    quantizer on the 1.18M rows on the card."""
+    import numpy as np
+    import torch
+
+    from scann_tpu_torch.hashes.stacked import (
+        StackedQuantizer,
+        StackedQuantizerConfig,
+    )
+    from scann_tpu_torch.projection import (
+        ChunkingConfig,
+        ChunkingProjection,
+        OpqConfig,
+        OpqProjection,
+        RandomGaussianProjection,
+        RandomOrthogonalProjection,
+        TruncateProjection,
+    )
+    from scann_tpu_torch.utils.gmm import (
+        CovarianceType,
+        GaussianMixture,
+        GmmConfig,
+    )
+    from scann_tpu_torch.utils.linear_algebra import fit_pca
+
+    t_phase = time.perf_counter()
+    dev = db_dev.device
+    rng = np.random.default_rng(SEED)
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    def off_identity(m):
+        return float((m @ m.T - torch.eye(len(m), device=dev)).abs().max())
+
+    pca, pca_s = timed(lambda: fit_pca(db_dev, PCA_OUT, device=dev))
+    pca_orth = off_identity(pca.components)
+    if pca_orth > 1e-4:
+        raise AssertionError(f"[34 PCA] components off orthonormal by "
+                             f"{pca_orth}")
+    log(f"[34 PCA] fit_pca({N} x {D} -> {PCA_OUT}) on the card: "
+        f"{pca_s:.3f}s, explained variance ratio "
+        f"{float(pca.explained_variance_ratio.sum()):.4f}, rows orthonormal "
+        f"to {pca_orth:.3g} (limit 1e-4) ({smi})")
+
+    ro = RandomOrthogonalProjection(D, seed=SEED, device=dev)
+    ro_orth = off_identity(ro.matrix)
+    i, j = (torch.from_numpy(a).to(dev)
+            for a in rng.integers(0, N, (2, 1000)))
+    before = ((db_dev[i] - db_dev[j]) ** 2).sum(1)
+    after = ((ro.project(db_dev[i]) - ro.project(db_dev[j])) ** 2).sum(1)
+    kept = float(((after - before).abs() / before.clamp_min(1e-6)).max())
+    gp = RandomGaussianProjection(D, PCA_OUT, seed=SEED, device=dev)
+    ratio = (gp.project(db_dev) ** 2).sum(1) / (db_dev ** 2).sum(1)
+    sigma = (2 / PCA_OUT) ** 0.5
+    inside = float(((ratio - 1).abs() <= 3 * sigma).float().mean())
+    mean_ratio = float(ratio.mean())
+    if ro_orth > 1e-5 or kept > 1e-4:
+        raise AssertionError(f"[34 random orthogonal] off orthonormal by "
+                             f"{ro_orth}, distances by {kept}")
+    if abs(mean_ratio - 1) > 0.1 or inside < 0.98:
+        raise AssertionError(f"[34 random Gaussian] squared-norm ratio "
+                             f"mean {mean_ratio}, {inside} within 3 sigma")
+    log(f"[34 random] RandomOrthogonalProjection({D}): rows orthonormal to "
+        f"{ro_orth:.3g} (limit 1e-5), squared distances of 1,000 pairs kept "
+        f"to {kept:.3g} relative (limit 1e-4); RandomGaussianProjection({D}, "
+        f"{PCA_OUT}) over the {N} rows: squared-norm ratio mean "
+        f"{mean_ratio:.4f}, std {float(ratio.std()):.4f} (JL sigma "
+        f"{sigma:.4f}), {inside:.4f} within 3 sigma (limits: mean within "
+        f"0.1 of 1, 0.98 within)")
+
+    opq, opq_s = timed(lambda: OpqProjection(OpqConfig(
+        dim=D, num_subspaces=10, num_iterations=10, seed=SEED),
+        device=dev).train(db_dev))
+    opq_orth = off_identity(opq.rotation)
+    if opq_orth > 1e-4:
+        raise AssertionError(f"[34 OPQ] rotation off orthogonal by "
+                             f"{opq_orth}")
+    shapes = (TruncateProjection(D, PCA_OUT, offset=10,
+                                 device=dev).project(db_dev[:1000]).shape,
+              ChunkingProjection(ChunkingConfig(
+                  input_dim=D, num_chunks=10).with_projection(5),
+                  device=dev).project(db_dev[:1000]).shape)
+    if shapes != ((1000, PCA_OUT), (1000, 50)):
+        raise AssertionError(f"[34 truncate, chunking] shapes {shapes}")
+    log(f"[34 OPQ] OpqProjection(dim={D}, num_subspaces=10, "
+        f"num_iterations=10) on the {N} rows: {opq_s:.3f}s, rotation "
+        f"orthogonal to {opq_orth:.3g} (limit 1e-4); TruncateProjection({D}, "
+        f"{PCA_OUT}, offset=10) and ChunkingProjection(10 chunks, 5 each) of "
+        f"1,000 rows: shapes {[list(x) for x in shapes]} ({smi})")
+
+    def gmm(iters):
+        return GaussianMixture(GmmConfig(
+            num_components=GMM_K, covariance_type=CovarianceType.DIAGONAL,
+            max_iterations=iters, seed=SEED), device=dev).fit(db_dev)
+
+    start = gmm(1)
+    fit, gmm_s = timed(lambda: gmm(100))
+    ll, ll0 = fit._log_likelihood, start._log_likelihood
+    # EM does not lower the likelihood; at convergence two readings may
+    # differ by less than the convergence threshold (1e-4) either way
+    if not np.isfinite(ll) or ll < ll0 - 1e-4:
+        raise AssertionError(f"[34 GMM] log-likelihood {ll} (start {ll0})")
+    log(f"[34 GMM] GaussianMixture({GMM_K} components, DIAGONAL) on all "
+        f"{N} rows: {gmm_s:.3f}s, {fit.num_iterations} iterations, converged "
+        f"{fit.converged}, mean log-likelihood {ll:.6f} (start {ll0:.6f}) "
+        f"({smi})")
+
+    sample = db_dev[torch.from_numpy(
+        rng.choice(N, SQ_SAMPLE, replace=False)).to(dev)]
+    sq, sq_s = timed(lambda: StackedQuantizer(StackedQuantizerConfig(
+        num_levels=SQ_LEVELS, num_codes=16, num_subspaces=50, seed=SEED),
+        device=dev).train(sample))
+    codes, enc_s = timed(lambda: sq.encode(db_dev))
+    rec, errs = torch.zeros_like(db_dev), []
+    for li, cb in enumerate(sq.levels):
+        rec += cb.decode(codes[:, li])
+        errs.append(float(((db_dev - rec) ** 2).sum(1).mean()))
+    if not errs[1] < errs[0]:
+        raise AssertionError(f"[34 stacked] errors by level {errs}")
+    if not torch.allclose(sq.decode(codes), rec, atol=1e-5):
+        raise AssertionError("[34 stacked] decode differs from the levels' "
+                             "sum")
+    log(f"[34 stacked] StackedQuantizer({SQ_LEVELS} levels of 50 x 16) "
+        f"trained on {SQ_SAMPLE} sampled rows in {sq_s:.3f}s, all {N} rows "
+        f"encoded in {enc_s:.3f}s: mean squared error "
+        f"{errs[0]:.4f} after level 1, {errs[1]:.4f} after level 2 ({smi})")
+    log(f"[34] wall {time.perf_counter() - t_phase:.2f}s ({smi})")
 
 
 if __name__ == "__main__":

@@ -21,6 +21,10 @@ codes). ``save_index`` and ``load_index`` write and read the JAX package's
 index files. Datasets carry docids into every result; ``mutator``
 serves a dataset under adds, updates and removes, ``restricts`` filters
 and crowds results (both imported by module path, as in the JAX package).
+``SparseBruteForceSearcher`` serves the set measures and weighted Jaccard
+over a ``SparseDataset`` from its nonzeros; ``projection``, ``utils.gmm``
+and ``hashes.stacked`` hold the projections, the Gaussian mixture and the
+residual quantizers, and ``prelude`` re-exports the common names.
 """
 
 from scann_tpu_torch.config import (
@@ -31,7 +35,7 @@ from scann_tpu_torch.config import (
     QueryConfig,
     ScannConfig,
 )
-from scann_tpu_torch.data.dataset import DenseDataset
+from scann_tpu_torch.data.dataset import DenseDataset, SparseDataset
 from scann_tpu_torch.data.docid import DocIdCollection
 from scann_tpu_torch.errors import ErrorCode, ScannError
 from scann_tpu_torch.hashes.hasher import (
@@ -60,6 +64,7 @@ from scann_tpu_torch.models.searcher import (
     SearchParameters,
     SearchResult,
 )
+from scann_tpu_torch.models.sparse_brute_force import SparseBruteForceSearcher
 from scann_tpu_torch.models.tree_x_hybrid import (
     TreeXHybridConfig,
     TreeXHybridSearcher,
@@ -100,6 +105,8 @@ __all__ = [
     "SearchMode",
     "SearchParameters",
     "SearchResult",
+    "SparseBruteForceSearcher",
+    "SparseDataset",
     "TreeXHybridConfig",
     "TreeXHybridSearcher",
     "auto_config",

@@ -2,14 +2,14 @@
 
 ``DenseDataset`` is a host numpy copy, optional docids and one cached
 device tensor. ``Datapoint`` is the owned dense-or-sparse point type.
-``SparseDataset`` is not here yet: it comes with sparse search (ROADMAP.md
-queue 1, item 8e).
+``SparseDataset`` is a list of sparse datapoints, the input of
+``models/sparse_brute_force.SparseBruteForceSearcher``.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Iterable, Optional, Sequence, Tuple, Union
+from typing import Iterable, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -200,6 +200,64 @@ class DenseDataset:
     def memory_usage_bytes(self) -> int:
         """Bytes of the host copy."""
         return int(self._data.nbytes)
+
+
+class SparseDataset:
+    """Sparse datapoints over ``dimensionality`` columns, kept on the host
+    in append order."""
+
+    def __init__(self, dimensionality: int):
+        self._dim = dimensionality
+        self._points: List[Datapoint] = []
+
+    @property
+    def dimensionality(self) -> int:
+        return self._dim
+
+    @property
+    def size(self) -> int:
+        return len(self._points)
+
+    def __len__(self) -> int:
+        return len(self._points)
+
+    def append(self, indices, values) -> int:
+        """Append one point (its indices may repeat and come in any order;
+        ``Datapoint`` sorts them); its index."""
+        dp = Datapoint.sparse(indices, values, self._dim)
+        if len(dp.indices) and int(dp.indices.max()) >= self._dim:
+            raise ScannError.out_of_range("sparse index beyond dimensionality")
+        self._points.append(dp)
+        return len(self._points) - 1
+
+    def get(self, index: int) -> Datapoint:
+        return self._points[index]
+
+    def to_dense(self) -> DenseDataset:
+        """[N, D] float32 rows; a repeated index keeps its last value."""
+        out = np.zeros((len(self._points), self._dim), dtype=np.float32)
+        for i, p in enumerate(self._points):
+            out[i, p.indices] = p.values
+        return DenseDataset(out)
+
+    def to_padded_csr(self, max_nnz: Optional[int] = None,
+                      device: Union[str, torch.device] = DEFAULT_DEVICE
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(indices [N, max_nnz] int32 padded with -1, values [N, max_nnz]
+        float32 padded with 0) on ``device``; a point with more than
+        ``max_nnz`` entries keeps its first ``max_nnz``."""
+        if max_nnz is None:
+            max_nnz = max((len(p.values) for p in self._points), default=1)
+        n = len(self._points)
+        idx = np.full((n, max_nnz), -1, dtype=np.int32)
+        val = np.zeros((n, max_nnz), dtype=np.float32)
+        for i, p in enumerate(self._points):
+            m = min(len(p.values), max_nnz)
+            idx[i, :m] = p.indices[:m]
+            val[i, :m] = p.values[:m]
+        device = require_device(device)
+        return (torch.from_numpy(idx).to(device),
+                torch.from_numpy(val).to(device))
 
 
 def _canonical(device: torch.device) -> torch.device:

@@ -12,8 +12,11 @@ conventions follow the reference: dot-product distance is the negated dot.
 NON_ZERO_INTERSECT stream database chunks; JACCARD and DICE are squared L2
 on dense rows, as in the reference); ``gathered_distances`` (the exact
 re-rank) covers the measures the JAX package's does. WEIGHTED_JACCARD and
-OVERLAP are sparse-only and raise ``NotImplementedError`` (ROADMAP.md queue
-1, item 8).
+OVERLAP have no dense form: ``many_to_many`` raises ``NotImplementedError``
+for them, as the JAX package's does, and ``SparseBruteForceSearcher``
+(``models/sparse_brute_force.py``) serves them over sparse datasets. The
+five ``*_sparse`` functions at the end score one pair of sparse points on
+the host.
 """
 
 from __future__ import annotations
@@ -58,8 +61,7 @@ class DistanceMeasure(enum.Enum):
         )
 
 
-# measures with no dense form: the sparse searcher's (ROADMAP.md queue 1,
-# item 8)
+# measures with no dense form, served by SparseBruteForceSearcher
 _SPARSE_ONLY = (DistanceMeasure.WEIGHTED_JACCARD, DistanceMeasure.OVERLAP)
 # measures without a bilinear form, streamed over database chunks
 _ELEMENTWISE = (DistanceMeasure.L1, DistanceMeasure.HAMMING,
@@ -97,8 +99,8 @@ def many_to_many(measure: DistanceMeasure, queries: torch.Tensor,
     others are one float32 product plus a score transform."""
     if measure in _SPARSE_ONLY:
         raise NotImplementedError(
-            f"many_to_many for {measure} is not ported yet: it is a sparse "
-            f"measure (ROADMAP.md queue 1, item 8: sparse datasets)")
+            f"many_to_many for {measure}: a sparse measure with no dense "
+            f"form; search a SparseDataset with SparseBruteForceSearcher")
     queries = queries.float()
     db = db.float()
     if measure in _ELEMENTWISE:
@@ -200,3 +202,58 @@ def gathered_distances(measure: DistanceMeasure, queries: torch.Tensor,
     if measure == DistanceMeasure.L2:
         return d.sqrt()
     raise NotImplementedError(f"gathered_distances for {measure}")
+
+
+# ---------------------------------------------------------------------------
+# Sparse set distances of one pair of points (host)
+# ---------------------------------------------------------------------------
+
+
+def jaccard_distance_sparse(a_indices, b_indices) -> float:
+    """1 - |A∩B| / |A∪B| over sparse index sets; 0.0 when both are
+    empty."""
+    a, b = set(map(int, a_indices)), set(map(int, b_indices))
+    union = len(a | b)
+    if union == 0:
+        return 0.0
+    return 1.0 - len(a & b) / union
+
+
+def dice_distance_sparse(a_indices, b_indices) -> float:
+    """1 - 2|A∩B| / (|A|+|B|) over sparse index sets; 0.0 when both are
+    empty."""
+    a, b = set(map(int, a_indices)), set(map(int, b_indices))
+    total = len(a) + len(b)
+    if total == 0:
+        return 0.0
+    return 1.0 - 2.0 * len(a & b) / total
+
+
+def non_zero_intersect_sparse(a_indices, b_indices) -> float:
+    """-|A∩B| (more overlap = closer)."""
+    a, b = set(map(int, a_indices)), set(map(int, b_indices))
+    return -float(len(a & b))
+
+
+def weighted_jaccard_distance_sparse(a_values, a_indices,
+                                     b_values, b_indices) -> float:
+    """1 - Σ min(|aᵢ|,|bᵢ|) / Σ max(|aᵢ|,|bᵢ|) over weighted sparse vectors,
+    values taken by absolute value; 0.0 when both are empty. A repeated
+    index keeps its last value."""
+    av = {int(i): abs(float(v)) for i, v in zip(a_indices, a_values)}
+    bv = {int(i): abs(float(v)) for i, v in zip(b_indices, b_values)}
+    min_sum = sum(min(av[i], bv[i]) for i in av.keys() & bv.keys())
+    max_sum = sum(av.values()) + sum(bv.values()) - min_sum
+    if max_sum == 0.0:
+        return 0.0
+    return 1.0 - min_sum / max_sum
+
+
+def overlap_coefficient_sparse(a_indices, b_indices) -> float:
+    """|A∩B| / min(|A|,|B|) (Szymkiewicz–Simpson), a SIMILARITY in [0, 1];
+    0.0 when either set is empty. The searcher serves the distance
+    1 - overlap, so smaller is closer."""
+    a, b = set(map(int, a_indices)), set(map(int, b_indices))
+    if not a or not b:
+        return 0.0
+    return len(a & b) / min(len(a), len(b))

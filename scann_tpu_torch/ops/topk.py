@@ -21,6 +21,10 @@ _ORDER_BITS = {
 # top_k_smallest); narrower rows and bf16 take the tie-free key directly
 VALUE_SELECT_MIN_N = 1 << 15
 
+# rows that the selection by value sent back to the key (a tie across the k
+# boundary), counted for the record
+KEY_PATH_ROWS = 0
+
 
 def _ordered_bits(x: torch.Tensor) -> torch.Tensor:
     """Integers in ``x``'s value order (-0.0 before +0.0): the float bits,
@@ -80,6 +84,7 @@ def _top_k_by_value(dists: torch.Tensor, k: int
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Smallest-k of float32 rows by ``torch.topk`` on the values, ordered
     and tie-checked with the key (see :func:`top_k_smallest`)."""
+    global KEY_PATH_ROWS
     lead = dists.shape[:-1]
     rows = dists.reshape(-1, dists.shape[-1])
     vals, idx = torch.topk(rows, k + 1, dim=-1, largest=False, sorted=True)
@@ -89,6 +94,7 @@ def _top_k_by_value(dists: torch.Tensor, k: int
     vals, idx = vals.gather(-1, order), idx.gather(-1, order)
     if bool(tied.any()):
         redo = tied.nonzero().squeeze(1)
+        KEY_PATH_ROWS += redo.numel()
         vals[redo], idx[redo] = _top_k_by_key(rows[redo], k)
     return vals.reshape(*lead, k), idx.reshape(*lead, k)
 

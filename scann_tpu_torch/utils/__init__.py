@@ -1,0 +1,2 @@
+"""Cross-cutting utilities: linear algebra, random sampling, bit ops,
+reordering, GMM, recall."""

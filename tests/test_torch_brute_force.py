@@ -252,7 +252,8 @@ def test_mask_padded_rows_and_sparse_measures(data):
     got = td.mask_padded_rows(torch.from_numpy(d), 4, 7.5)
     np.testing.assert_array_equal(got.numpy(), want)
     for name in ("WEIGHTED_JACCARD", "OVERLAP"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+        with pytest.raises(NotImplementedError,
+                           match="SparseBruteForceSearcher"):
             td.many_to_many(td.DistanceMeasure[name], torch.from_numpy(q),
                             torch.from_numpy(db))
 

@@ -1531,3 +1531,111 @@ def test_filtered_search_on_card_matches_the_cpu(kind, tmp_path):
         np.testing.assert_allclose(g.distances(), w.distances(), rtol=1e-5,
                                    atol=1e-5)
         assert all(filt.is_allowed(i) for i in g.indices())
+
+
+def _sparse_points(rng, n, d):
+    """Sets with repeated indices, explicit zeros, signed values and some
+    empty sets, at a width past ``VALUE_SELECT_MIN_N`` so that the
+    selection by value and its tie fallback both run."""
+    points = []
+    for i in range(n):
+        nnz = 0 if i % 97 == 5 else int(rng.integers(1, 24))
+        idx = rng.integers(0, d, nnz)
+        if nnz > 2:
+            idx[-1] = idx[0]
+        vals = rng.normal(size=nnz).astype(np.float32)
+        vals[rng.random(nnz) < 0.1] = 0.0
+        points.append((idx, vals))
+    return points
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["JACCARD", "DICE", "NON_ZERO_INTERSECT",
+                                  "OVERLAP", "WEIGHTED_JACCARD"])
+def test_sparse_searcher_on_card_matches_the_cpu(name):
+    """``SparseBruteForceSearcher`` on the card (cuSPARSE products over the
+    stored nonzeros) against the same searcher on the CPU: the set measures
+    equal bit for bit (integer counts, the same float32 formula), weighted
+    Jaccard within 1e-6 with equal ids away from ties; through both entry
+    points, and the same again on a second run (no order-dependent sums)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from scann_tpu_torch import (DistanceMeasure, SparseBruteForceSearcher,
+                                 SparseDataset)
+    from scann_tpu_torch.ops import topk
+
+    rng = np.random.default_rng(17)
+    d = 3000
+    ds = SparseDataset(d)
+    for idx, vals in _sparse_points(rng, topk.VALUE_SELECT_MIN_N + 700, d):
+        ds.append(idx, vals)
+    q = (rng.random((70, d)) < 0.004) * rng.normal(size=(70, d))
+    q = q.astype(np.float32)
+    card = SparseBruteForceSearcher(ds, DistanceMeasure[name])
+    cpu = SparseBruteForceSearcher(ds, DistanceMeasure[name], device="cpu")
+    assert card.device.type == "cuda"
+    gi, gd = card.search_batched_arrays(q, 10)
+    wi, wd = cpu.search_batched_arrays(q, 10)
+    again = card.search_batched_arrays(q, 10)
+    np.testing.assert_array_equal(again[0], gi)
+    np.testing.assert_array_equal(again[1], gd)
+    sparse_q = [np.flatnonzero(row) for row in q[:8]]
+    got = [card.search_sparse(i, 10, values=q[r, i])
+           for r, i in enumerate(sparse_q)]
+    want = [cpu.search_sparse(i, 10, values=q[r, i])
+            for r, i in enumerate(sparse_q)]
+    if name != "WEIGHTED_JACCARD":
+        np.testing.assert_array_equal(gi, wi)
+        np.testing.assert_array_equal(gd, wd)
+        for g, w in zip(got, want):
+            assert g.indices() == w.indices()
+            np.testing.assert_allclose(g.distances(), w.distances(),
+                                       rtol=0, atol=1e-6)
+        return
+    np.testing.assert_allclose(gd, wd, rtol=0, atol=1e-6)
+    for row_g, row_w, dist in zip(gi, wi, wd):
+        for pos in range(9):
+            if np.abs(np.delete(dist, pos) - dist[pos]).min() > 1e-6:
+                assert row_g[pos] == row_w[pos]
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.distances(), w.distances(), rtol=0,
+                                   atol=1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cov", ["FULL", "DIAGONAL", "SPHERICAL"])
+def test_gmm_on_card_matches_the_cpu(cov):
+    """``GaussianMixture`` fitted on the card from the host start the CPU
+    fit draws: parameters and log-likelihood within 1e-3 relative,
+    predictions equal away from near-ties, samples bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from scann_tpu_torch.utils.gmm import (CovarianceType, GaussianMixture,
+                                           GmmConfig)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.default_rng(4)
+    centers = rng.normal(size=(5, 6)) * 4.0
+    x = (centers[rng.integers(0, 5, 3000)]
+         + rng.normal(size=(3000, 6))).astype(np.float32)
+    cfg = GmmConfig(num_components=5, covariance_type=CovarianceType[cov],
+                    max_iterations=40, seed=3)
+    card = GaussianMixture(cfg).fit(x)
+    cpu = GaussianMixture(cfg, device="cpu").fit(x)
+    assert card.means.device.type == "cuda"
+    for g, w in ((card.weights, cpu.weights), (card.means, cpu.means),
+                 (card.covariances, cpu.covariances)):
+        np.testing.assert_allclose(g.cpu().numpy(), w.numpy(), rtol=1e-3,
+                                   atol=1e-3 * float(w.abs().max()))
+    assert card._log_likelihood == pytest.approx(cpu._log_likelihood,
+                                                 rel=1e-3)
+    proba = cpu.predict_proba(x).numpy()
+    top2 = np.sort(proba, axis=1)[:, -2:]
+    clear = top2[:, 1] - top2[:, 0] > 1e-2
+    np.testing.assert_array_equal(card.predict(x).cpu().numpy()[clear],
+                                  cpu.predict(x).numpy()[clear])
+    carried = GaussianMixture.from_numpy(
+        cpu.weights.numpy(), cpu.means.numpy(), cpu.covariances.numpy(),
+        config=cfg)
+    np.testing.assert_array_equal(carried.sample(200, seed=1).cpu().numpy(),
+                                  cpu.sample(200, seed=1).numpy())
