@@ -119,6 +119,24 @@ queries:
   (finite log-likelihood, not below its start's) and a two-level stacked
   quantizer of 50 x 16 codes trained on 100,000 rows and encoding all (the
   second level lowers the error);
+- tuning and the harness (phases 35-38): ``calibrate`` on the card (the
+  block sweep at 200,000 and 800,000 Gaussian rows and tree-x-AH at
+  800,000, device time through ``chained``; the profile saved, loaded
+  back equal and ``auto_config`` taking the branch it implies);
+  ``Scann.auto`` at full width under the default profile (its mode's
+  kernel launched, its floor), ``ScannBuilder().auto()`` the same mode,
+  ``Scann.auto(target_recall=0.9)`` meeting the target on the first 256
+  queries and >= 0.89 on all 10,240 with no explicit params, on the
+  default route and, under a profile that puts N past both the sweep and
+  the skew route's ceiling, the tree route (#1); ``autotune`` on phase
+  4's index (36 grid points, target 0.95) and ``autotune_block_sweep`` on
+  the first 100,000 rows (32 points, target 0.99 on 9,216 held-out
+  queries; #5, #6 and ``block_min_sweep.cu`` launched); the harness's
+  five algorithms on its default synthetic data (each recall floor; #2,
+  #5, #1 launched), tree-x-AH on the 1.18M rows with
+  ``--autotune-target 0.9``, a ``--save-index`` / ``--load-index`` round
+  trip, ``--pipeline 4``, ``--profile-dir`` and the CLI in a subprocess,
+  each report printed as JSON;
 
 then times every kernel against its twin (L2 flushed) and the search stages
 with CUDA events (the grouped and per-pair SOAR paths also at twice the
@@ -140,6 +158,7 @@ device JSON.
 
 from __future__ import annotations
 
+import dataclasses
 import functools
 import json
 import re
@@ -181,6 +200,30 @@ SP_MEASURES = ("JACCARD", "DICE", "NON_ZERO_INTERSECT", "OVERLAP",
 # [34]: PCA width, mixture components, stacked quantizer levels and its
 # training sample
 PCA_OUT, GMM_K, SQ_LEVELS, SQ_SAMPLE = 64, 16, 2, 100_000
+# [35]-[38]: calibrate's probe size; Scann.auto's recall target, its slack
+# (the JAX test's, tests/test_autotune.py:210) and its tuning queries; the
+# profile that sends auto to its tree route (sweep_max_n below N, and a
+# float32 budget whose skew-route ceiling, 0.5 * 3 * budget / 304 bytes a
+# row, is below N too); the autotuners' targets and the block-sweep
+# tuner's sample
+CAL_N, AUTO_TARGET, AUTO_SLACK, TUNE_Q = 200_000, 0.9, 0.01, 256
+AUTO_TREE_MAX_N, AUTO_TREE_F32_BYTES = 1_000_000, 200_000_000
+TREE_TUNE_TARGET, SWEEP_TUNE_TARGET, SWEEP_TUNE_Q = 0.95, 0.99, 1024
+# [38]: the harness on its default synthetic data (10,000 x 64 uniform,
+# seed 42, 200 queries, B=100): extra flags, recall@10 floor and the
+# kernels the run must launch. Uniform rows partition poorly: the floors
+# sit below what the port's harness reached on the CPU at this shape
+# (block sweep 0.9865, one survivor a 32-row block; partitioned at p=40 of
+# 100 0.8465; hashed with a re-rank of 100 0.9945; tree-x-AH at p=40 and
+# 16 PQ blocks 0.7065; two seeds within 0.02)
+HARNESS_RUNS = {
+    "brute-force": ((), BF_RECALL_FLOOR, ("#2",)),
+    "block-sweep": ((), 0.97, ("#5",)),
+    "partitioned": (("--partitions-to-search", "40"), 0.78, ()),
+    "hashed": (("--reorder", "100"), 0.98, ()),
+    "tree-ah": (("--partitions-to-search", "40", "--reorder", "100"), 0.65,
+                ("#1",)),
+}
 KERNEL_SOURCES = ("tree_ah_grouped", "block_min_sweep", "block_min_compact",
                   "lut16_scoring", "int8_dots", "fused_bf", "tree_ah_leaf")
 # published H100 SXM peaks (dense): bf16 tensor cores, int8 tensor cores,
@@ -639,9 +682,10 @@ def main() -> int:
     facade_phases(ds, queries, db_dev, gt_np, smi)
     dynamic_phase(ds, queries, q_np, gt_np, smi, cfg, centers)
     restrict_phases(ds, queries, q_np, db_dev, smi, searcher, labels)
-    del searcher
     sparse_phase(dev, smi)
     projection_phases(db_dev, smi)
+    tuning_phases(ds, queries, q_np, db_dev, gt_np, smi, searcher)
+    del searcher
     print(json.dumps({"kernels": records}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
@@ -3325,6 +3369,376 @@ def projection_phases(db_dev, smi):
         f"encoded in {enc_s:.3f}s: mean squared error "
         f"{errs[0]:.4f} after level 1, {errs[1]:.4f} after level 2 ({smi})")
     log(f"[34] wall {time.perf_counter() - t_phase:.2f}s ({smi})")
+
+
+def tuning_phases(ds, queries, q_np, db_dev, gt_np, smi, searcher):
+    """Phases 35-38: the chip profile, ``Scann.auto``, the autotuners and
+    the ANN-Benchmarks harness on the card. ``searcher`` is phase 4's
+    tree-x-AH index. Each phase counts the launches of the kernels its
+    path reaches from zero and fails if one of them never launched."""
+    import os
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from scann_tpu_torch import (
+        BlockSweepSearcher,
+        DenseDataset,
+        Scann,
+        ScannBuilder,
+        auto_config,
+        autotune,
+        autotune_block_sweep,
+    )
+    from scann_tpu_torch.harness import ann_benchmark as hb
+    from scann_tpu_torch.ops import fused_bf as fb
+    from scann_tpu_torch.ops import sweep as sw
+    from scann_tpu_torch.ops import tree_ah_grouped as tag
+    from scann_tpu_torch.utils import advisor as padv
+    from scann_tpu_torch.utils import autotune as at
+    from scann_tpu_torch.utils import chip_profile as cp
+    from scann_tpu_torch.utils.benchmarking import recall_at_k
+
+    dev = queries.device
+    here = os.path.dirname(os.path.abspath(__file__))
+
+    def reset():
+        tag.LAUNCHES = 0
+        fb.reset_launches()
+        sw.reset_launches()
+
+    def counts():
+        by = sw.LAUNCHES_BY_KERNEL
+        return {"#1": tag.LAUNCHES, "#2": fb.LAUNCHES_BY_KERNEL["cluster"],
+                "#5": by["block_min_qmajor_compact"]["block_min_compact"],
+                "#6": by["block_min2"]["block_min_compact"],
+                "block_min_sweep.cu": sum(v["block_min_sweep"]
+                                          for v in by.values())}
+
+    def require(label, got, kernels):
+        missing = [k for k in kernels if not got[k]]
+        if missing:
+            raise AssertionError(f"{label}: {', '.join(missing)} never "
+                                 f"launched ({got})")
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    def serve(search, qs):
+        res = [search(qs[i:i + BATCH]) for i in range(0, len(qs), BATCH)]
+        torch.cuda.synchronize()
+        return torch.cat([r[0] for r in res]), torch.cat([r[1] for r in res])
+
+    def with_profile(path, fn):
+        old = os.environ.get(cp.PROFILE_ENV)
+        os.environ[cp.PROFILE_ENV] = path
+        try:
+            return fn()
+        finally:
+            if old is None:
+                del os.environ[cp.PROFILE_ENV]
+            else:
+                os.environ[cp.PROFILE_ENV] = old
+
+    tune_s = []
+    real_autotune = at.autotune
+
+    def timed_autotune(*args, **kw):
+        out, secs = timed(lambda: real_autotune(*args, **kw))
+        tune_s.append(secs)
+        return out
+
+    # -- 35. chip profile --------------------------------------------------------
+    t_phase = time.perf_counter()
+    cal = cp.measure_calibration(n_probe=CAL_N, dim=D, batch=BATCH,
+                                 device=dev)
+    prof = cal.profile()
+    log(f"[35 chip profile] calibrate(n_probe={CAL_N}, dim={D}, B={BATCH}) "
+        f"on {cal.device_name}, block sweep (block_r=64, pre_k=100) and "
+        f"tree-x-AH ({cal.n_big // 600} partitions, p=10, pre_k=150) "
+        f"through chained: t({cal.n_probe}) {cal.t_small * 1e3:.4f} ms, "
+        f"t({cal.n_big}) {cal.t_big * 1e3:.4f} ms, a {cal.a * 1e3:.4f} ms, "
+        f"b {cal.b * 1e9:.4f} ns a row, t_tree {cal.t_tree * 1e3:.4f} ms; "
+        f"fit n {cal.n_fit}, HBM cap n {cal.n_hbm} ({cal.bytes_per_point} "
+        f"bytes a row of {cal.hbm_bytes}) -> sweep_max_n "
+        f"{prof.sweep_max_n}, f32_rerank_max_bytes "
+        f"{prof.f32_rerank_max_bytes} ({smi})")
+    default = cp.ChipProfile()
+    log(f"[35 chip profile] the port's defaults: sweep_max_n "
+        f"{default.sweep_max_n}, f32_rerank_max_bytes "
+        f"{default.f32_rerank_max_bytes}, source {default.source!r}")
+    with tempfile.TemporaryDirectory(dir=here) as tmp:
+        path = os.path.join(tmp, "profile.json")
+        cp.save_profile(prof, path)
+        back = cp.load_profile(path)
+        if back != prof:
+            raise AssertionError(f"[35] the saved profile loads back as "
+                                 f"{back}")
+        cfg = with_profile(path, lambda: auto_config(N, D))
+    sweep_branch = N <= prof.sweep_max_n
+    if (cfg.brute_force is not None) != sweep_branch:
+        raise AssertionError(f"[35] auto_config({N}, {D}) under the "
+                             f"calibrated profile took the other branch")
+    log(f"[35 chip profile] saved and loaded back equal; auto_config({N}, "
+        f"{D}) under it: {'block sweep' if sweep_branch else 'tree-x-AH'}, "
+        f"as N {'<=' if sweep_branch else '>'} sweep_max_n")
+    log(f"[35] wall {time.perf_counter() - t_phase:.2f}s ({smi})")
+
+    # -- 36. Scann.auto at full width --------------------------------------------
+    t_phase = time.perf_counter()
+    sweep_default = N <= default.sweep_max_n
+    want = (("BruteForce", "BlockSweepSearcher", "#5", SWEEP_RECALL_FLOOR)
+            if sweep_default else
+            ("TreeAH", "TreeXHybridSearcher", "#1", RECALL_FLOOR))
+    scann, b_s = timed(lambda: Scann.auto(ds, device=dev))
+    got_mode = (scann.search_mode.value, type(scann.impl).__name__)
+    if got_mode != want[:2]:
+        raise AssertionError(f"[36] Scann.auto picked {got_mode}, the "
+                             f"default profile implies {want[:2]}")
+    reset()
+    idx, dists = serve(scann.search_batched_tensors, queries)
+    moved = counts()
+    require("[36 auto]", moved, [want[2]])
+    recall = recall_at_k(idx.cpu().numpy(), gt_np, K)
+    check_results(idx, dists, queries, db_dev, BATCH * BATCHES)
+    if recall < want[3]:
+        raise AssertionError(f"[36] Scann.auto recall@10 {recall} < "
+                             f"{want[3]}")
+    med, top = event_ms(scann.search_batched_tensors, queries, BATCH,
+                        BATCHES)
+    log(f"[36 auto] Scann.auto(ds) under the default profile: "
+        f"{scann.describe()}, built in {b_s:.2f}s; {BATCHES} x B={BATCH}: "
+        f"recall@10 {recall:.4f} (floor {want[3]}), {want[2]} launches "
+        f"{moved[want[2]]}, batch median {med:.4f} ms (max {top:.4f}) "
+        f"({smi})")
+    del scann
+    built, b_s = timed(lambda: ScannBuilder().auto().build(ds, device=dev))
+    if (built.search_mode.value, type(built.impl).__name__) != want[:2]:
+        raise AssertionError("[36] ScannBuilder().auto() picked another "
+                             "mode than Scann.auto")
+    log(f"[36 auto] ScannBuilder().auto().build(ds): "
+        f"{built.search_mode.value} / {type(built.impl).__name__}, the same "
+        f"as Scann.auto, built in {b_s:.2f}s")
+    del built
+
+    def auto_target(label, kernel):
+        tune_s.clear()
+        at.autotune = timed_autotune
+        try:
+            scann, b_s = timed(lambda: Scann.auto(
+                ds, target_recall=AUTO_TARGET, tune_queries=q_np[:TUNE_Q],
+                device=dev))
+        finally:
+            at.autotune = real_autotune
+        res = scann.autotune_result
+        if not res.target_met:
+            raise AssertionError(f"[36 {label}] autotune missed "
+                                 f"{AUTO_TARGET}: {res.recall}")
+        reset()
+        idx, dists = serve(scann.search_batched_tensors, queries)
+        moved = counts()
+        require(f"[36 {label}]", moved, [kernel])
+        recall = recall_at_k(idx.cpu().numpy(), gt_np, K)
+        cfg = scann.config
+        # bfloat16 re-rank rows return bfloat16-rounded distances
+        check_results(idx, dists, queries, db_dev, BATCH * BATCHES,
+                      exact_check=cfg.exact_reordering is None
+                      or cfg.exact_reordering.rerank_dtype == "float32")
+        if recall < AUTO_TARGET - AUTO_SLACK:
+            raise AssertionError(f"[36 {label}] recall@10 {recall} < "
+                                 f"{AUTO_TARGET - AUTO_SLACK}")
+        med, top = event_ms(scann.search_batched_tensors, queries, BATCH,
+                            BATCHES)
+        knobs = (f"partitions {cfg.partitioning.num_partitions}, spilling "
+                 f"{cfg.partitioning.spilling}, re-rank "
+                 f"{cfg.exact_reordering.rerank_dtype}, l_cap "
+                 f"{scann.impl._csr_state()[-1]}, "
+                 if cfg.partitioning is not None else
+                 f"sweep {cfg.brute_force.block_sweep_dtype}, top2 "
+                 f"{cfg.brute_force.block_sweep_top2}, ")
+        log(f"[36 {label}] Scann.auto(ds, target_recall={AUTO_TARGET}, "
+            f"tune_queries=the first {TUNE_Q}): {scann.describe()}; "
+            f"{knobs}built and tuned in {b_s:.2f}s, of which autotune "
+            f"{sum(tune_s):.2f}s over {len(res.table)} grid points (sample "
+            f"recall {res.recall:.4f}); all {BATCHES * BATCH} queries with no "
+            f"explicit params: recall@10 {recall:.4f} (floor "
+            f"{AUTO_TARGET - AUTO_SLACK}), {kernel} launches {moved[kernel]}, "
+            f"batch median {med:.4f} ms (max {top:.4f}) ({smi})")
+
+    auto_target("auto target", want[2])
+    sample = ds.numpy()[np.random.default_rng(0).choice(N, min(N, 20_000),
+                                                        replace=False)]
+    stats = padv.dataset_stats(sample, device=dev)
+    log(f"[36 auto] the advisor's statistics of Scann.auto's 20,000-row "
+        f"sample (seed 0): {dataclasses.asdict(stats)}, skewed "
+        f"{stats.skewed}")
+    with tempfile.TemporaryDirectory(dir=here) as tmp:
+        path = os.path.join(tmp, "profile.json")
+        # below N both where the sweep stops and where the skew route's
+        # compact sweep copies stop fitting: the tree either way
+        cp.save_profile(dataclasses.replace(
+            default, sweep_max_n=AUTO_TREE_MAX_N,
+            f32_rerank_max_bytes=AUTO_TREE_F32_BYTES,
+            source="chip_smoke [36]: the tree route"), path)
+        with_profile(path, lambda: auto_target("auto tree route", "#1"))
+    log(f"[36] wall {time.perf_counter() - t_phase:.2f}s ({smi})")
+
+    # -- 37. autotune and autotune_block_sweep -------------------------------------
+    t_phase = time.perf_counter()
+    reset()
+    res, tune = timed(lambda: autotune(searcher, q_np[:TUNE_Q], k=K,
+                                       target_recall=TREE_TUNE_TARGET))
+    moved = counts()
+    require("[37 autotune]", moved, ["#1"])
+    if len(res.table) != 36 or not res.target_met:
+        raise AssertionError(f"[37 autotune] {len(res.table)} grid points, "
+                             f"target met {res.target_met}")
+    chosen = [e for e in res.table if e.params == res.params][0]
+    idx, _ = serve(lambda qb: searcher.search_batched_tensors(
+        qb, K, res.params), queries)
+    recall = recall_at_k(idx.cpu().numpy(), gt_np, K)
+    log(f"[37 autotune] phase 4's tree-x-AH index, the first {TUNE_Q} "
+        f"queries, target {TREE_TUNE_TARGET}: {len(res.table)} grid points "
+        f"in {tune:.2f}s (#1 launches {moved['#1']}); chosen p="
+        f"{res.params.num_leaves_to_search}, pre_k="
+        f"{res.params.pre_reordering_num_neighbors}, cost {chosen.cost:.0f}, "
+        f"sample recall {res.recall:.4f}; on all {BATCHES * BATCH} queries "
+        f"recall@10 {recall:.4f} ({smi})")
+    if recall < TREE_TUNE_TARGET - AUTO_SLACK:
+        raise AssertionError(f"[37 autotune] recall@10 {recall} on all "
+                             f"queries")
+    sub = DenseDataset(ds.numpy()[:SIDE_N])
+    reset()
+    sres, tune = timed(lambda: autotune_block_sweep(
+        sub, q_np[:SWEEP_TUNE_Q], k=K, target_recall=SWEEP_TUNE_TARGET,
+        device=dev))
+    moved = counts()
+    require("[37 autotune_block_sweep]", moved,
+            ["#5", "#6", "block_min_sweep.cu"])
+    if len(sres.table) != 32 or not sres.target_met:
+        raise AssertionError(f"[37 autotune_block_sweep] "
+                             f"{len(sres.table)} grid points, target met "
+                             f"{sres.target_met}")
+    held = queries[SWEEP_TUNE_Q:]
+    s = BlockSweepSearcher(sub, sres.config, device=dev)
+    idx, _ = serve(lambda qb: s.search_batched_tensors(qb, K, sres.params),
+                   held)
+    held_recall = recall_at_k(idx.cpu().numpy(),
+                              exact_top_k(held, db_dev[:SIDE_N]), K)
+    c = sres.config
+    log(f"[37 autotune_block_sweep] the first {SIDE_N} rows, the first "
+        f"{SWEEP_TUNE_Q} queries, target {SWEEP_TUNE_TARGET}: "
+        f"{len(sres.table)} grid points in {tune:.2f}s (#5 launches "
+        f"{moved['#5']}, #6 {moved['#6']}, block_min_sweep.cu "
+        f"{moved['block_min_sweep.cu']}); chosen block_r={c.block_r}, "
+        f"sweep_dtype={c.sweep_dtype}, top2={c.top2}, pre_k="
+        f"{c.pre_reorder_k}, sample recall {sres.recall:.4f}; held-out "
+        f"{len(held)} queries recall@10 {held_recall:.4f} (floor "
+        f"{SWEEP_TUNE_TARGET}) ({smi})")
+    if held_recall < SWEEP_TUNE_TARGET:
+        raise AssertionError(f"[37 autotune_block_sweep] held-out recall "
+                             f"{held_recall} < {SWEEP_TUNE_TARGET}")
+    del s, sub
+    log(f"[37] wall {time.perf_counter() - t_phase:.2f}s ({smi})")
+
+    # -- 38. the harness ---------------------------------------------------------
+    t_phase = time.perf_counter()
+
+    def bench(algorithm, data, *extra, kernels=()):
+        args = hb.make_parser().parse_args(
+            ["--device", str(dev), "--algorithm", algorithm, *extra])
+        reset()
+        report = hb.run_benchmark(algorithm, data, args)
+        moved = counts()
+        require(f"[38 {algorithm}]", moved, kernels)
+        print(json.dumps(dataclasses.asdict(report)), flush=True)
+        return report, moved
+
+    data = hb.generate_synthetic_dataset(device=dev)
+    for algorithm, (extra, floor, kernels) in HARNESS_RUNS.items():
+        report, moved = bench(algorithm, data, *extra, kernels=kernels)
+        log(f"[38 harness/{algorithm}] {data.source} {' '.join(extra)}: "
+            f"recall@{K} {report.recall_at_k:.4f} (floor {floor}), QPS "
+            f"{report.qps:.1f} at B={report.batch_size}, build "
+            f"{report.build_seconds:.3f}s, host round trip "
+            f"{report.host_roundtrip_seconds * 1e6:.1f} us"
+            + "".join(f", {k} launches {moved[k]}" for k in kernels)
+            + f" ({smi})")
+        if report.recall_at_k < floor:
+            raise AssertionError(f"[38 {algorithm}] recall "
+                                 f"{report.recall_at_k} < {floor}")
+    full = hb.BenchmarkData(ds.numpy(), q_np, gt_np.astype(np.int32),
+                            f"chip_smoke_clustered_n{N}_q{len(q_np)}_d{D}",
+                            D)
+    report, moved = bench(
+        "tree-ah", full, "--num-partitions", "2000", "--num-blocks", "50",
+        "--batch-size", str(BATCH), "--autotune-target", str(AUTO_TARGET),
+        kernels=["#1"])
+    log(f"[38 harness/tree-ah full] {N} x {D}, {len(q_np)} queries, 2000 "
+        f"partitions, 50 blocks, --autotune-target {AUTO_TARGET}: chosen p="
+        f"{report.autotuned_num_leaves_to_search}, pre_k="
+        f"{report.autotuned_pre_reordering_num_neighbors} (sample recall "
+        f"{report.autotune_sample_recall:.4f}, {report.autotune_seconds:.2f}"
+        f"s); recall@{K} {report.recall_at_k:.4f} (floor "
+        f"{AUTO_TARGET - AUTO_SLACK}), QPS {report.qps:.1f} at B={BATCH}, "
+        f"build {report.build_seconds:.2f}s, #1 launches {moved['#1']} "
+        f"({smi})")
+    if report.recall_at_k < AUTO_TARGET - AUTO_SLACK:
+        raise AssertionError(f"[38 tree-ah full] recall "
+                             f"{report.recall_at_k}")
+    del full
+    small = ("--num-partitions", "100", "--partitions-to-search", "40",
+             "--reorder", "100")
+    with tempfile.TemporaryDirectory(dir=here) as tmp:
+        path = os.path.join(tmp, "tree_ah.npz")
+        trace_dir = os.path.join(tmp, "trace")
+        built, _ = bench("tree-ah", data, *small, "--save-index", path,
+                         kernels=["#1"])
+        served, _ = bench("tree-ah", data, "--load-index", path,
+                          "--profile-dir", trace_dir, kernels=["#1"])
+        piped, _ = bench("tree-ah", data, "--load-index", path,
+                         "--pipeline", "4", kernels=["#1"])
+        trace = os.path.join(trace_dir, "search_trace.json")
+        trace_bytes = os.path.getsize(trace) if os.path.exists(trace) else 0
+        if served.recall_at_k != built.recall_at_k:
+            raise AssertionError(f"[38 io] loaded recall "
+                                 f"{served.recall_at_k}, built "
+                                 f"{built.recall_at_k}")
+        if piped.recall_at_k != served.recall_at_k:
+            raise AssertionError(f"[38 pipeline] --pipeline 4 recall "
+                                 f"{piped.recall_at_k}, serial "
+                                 f"{served.recall_at_k}")
+        if trace_bytes <= 0:
+            raise AssertionError("[38 profile] no trace written")
+        log(f"[38 harness/io, pipeline, profile] tree-ah {' '.join(small)}: "
+            f"--save-index then --load-index recall {served.recall_at_k:.4f}"
+            f" (built {built.recall_at_k:.4f}), load {served.build_seconds:.3f}"
+            f"s; --pipeline 4 recall {piped.recall_at_k:.4f}, QPS "
+            f"{piped.qps:.1f} (serial {served.qps:.1f}); --profile-dir wrote "
+            f"{trace_bytes} bytes")
+    t0 = time.perf_counter()
+    out = subprocess.run(
+        [sys.executable, "-m", "scann_tpu_torch.harness.ann_benchmark",
+         "--algorithm", "brute-force", "--device", str(dev)], cwd=here,
+        capture_output=True,
+        text=True, timeout=300)
+    if out.returncode != 0:
+        raise AssertionError(f"[38 cli] exit {out.returncode}: "
+                             f"{out.stderr[-2000:]}")
+    cli = json.loads(out.stdout)
+    if cli["recall_at_k"] < HARNESS_RUNS["brute-force"][1]:
+        raise AssertionError(f"[38 cli] recall {cli['recall_at_k']}")
+    print(json.dumps(cli), flush=True)
+    log(f"[38 harness/cli] python -m scann_tpu_torch.harness.ann_benchmark "
+        f"--algorithm brute-force --device {dev}: one JSON report, recall@{K} "
+        f"{cli['recall_at_k']:.4f}, QPS {cli['qps']:.1f}, in "
+        f"{time.perf_counter() - t0:.2f}s ({smi})")
+    log(f"[38] wall {time.perf_counter() - t_phase:.2f}s ({smi})")
 
 
 if __name__ == "__main__":

@@ -25,6 +25,10 @@ and crowds results (both imported by module path, as in the JAX package).
 over a ``SparseDataset`` from its nonzeros; ``projection``, ``utils.gmm``
 and ``hashes.stacked`` hold the projections, the Gaussian mixture and the
 residual quantizers, and ``prelude`` re-exports the common names.
+``Scann.auto`` chooses and tunes a config from the card's profile
+(``utils.chip_profile``), sample statistics (``utils.advisor``) and a
+recall target (``utils.autotune``); ``harness.ann_benchmark`` is the
+ANN-Benchmarks-style runner.
 """
 
 from scann_tpu_torch.config import (
@@ -75,14 +79,32 @@ from scann_tpu_torch.quantization.scalar import (
     ScalarQuantizer,
     ScalarQuantizerConfig,
 )
+from scann_tpu_torch.utils.advisor import (
+    advise_build,
+    advise_config,
+    dataset_stats,
+)
+from scann_tpu_torch.utils.autotune import (
+    AutotuneResult,
+    SweepAutotuneResult,
+    autotune,
+    autotune_block_sweep,
+)
+from scann_tpu_torch.utils.chip_profile import (
+    ChipProfile,
+    calibrate,
+    load_profile,
+)
 
 __all__ = [
     "AsymmetricHasher",
     "AsymmetricHasherConfig",
+    "AutotuneResult",
     "BlockSweepConfig",
     "BlockSweepSearcher",
     "BruteForceConfig",
     "BruteForceSearcher",
+    "ChipProfile",
     "DenseDataset",
     "DistanceMeasure",
     "DocIdCollection",
@@ -107,10 +129,18 @@ __all__ = [
     "SearchResult",
     "SparseBruteForceSearcher",
     "SparseDataset",
+    "SweepAutotuneResult",
     "TreeXHybridConfig",
     "TreeXHybridSearcher",
+    "advise_build",
+    "advise_config",
     "auto_config",
+    "autotune",
+    "autotune_block_sweep",
+    "calibrate",
+    "dataset_stats",
     "from_numpy_state",
     "load_index",
+    "load_profile",
     "save_index",
 ]

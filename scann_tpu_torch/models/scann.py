@@ -13,9 +13,11 @@ The config selects the searcher, as in the JAX package:
 each built on ``device`` (the current CUDA device unless the caller names
 another). The facade only routes: its searches are the inner searcher's
 with the parameters the config implies. ``auto_config``, ``Scann.auto`` and
-``ScannBuilder.auto()`` need the chip profile, the advisor and the
-autotuner, and a ``mesh`` needs the sharded searchers: they raise
-``NotImplementedError`` naming their ROADMAP.md items (10b, 11).
+``ScannBuilder.auto()`` choose the config from the dataset's scale, the
+card's profile (``utils/chip_profile``) and, given a recall target, sample
+statistics (``utils/advisor``) and tuned serving parameters
+(``utils/autotune``). A ``mesh`` needs the sharded searchers and raises
+``NotImplementedError`` naming its ROADMAP.md item (11).
 """
 
 from __future__ import annotations
@@ -61,13 +63,6 @@ class SearchMode(enum.Enum):
     PARTITIONED = "Partitioned"
     HASHED = "Hashed"
     TREE_AH = "TreeAH"
-
-
-def _auto_unported(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} needs the chip profile, the advisor and the autotuner, "
-        f"which are not ported yet (ROADMAP.md queue 1, item 10b: tuning "
-        f"and the harness)")
 
 
 def _mesh_unported() -> NotImplementedError:
@@ -156,9 +151,45 @@ def _partitioner_cfg_of(config: ScannConfig) -> TreePartitionerConfig:
 def auto_config(n: int, dim: int,
                 measure: DistanceMeasure = DistanceMeasure.SQUARED_L2,
                 force_tree: bool = False) -> ScannConfig:
-    """The JAX package picks an architecture from the dataset's scale and
-    its chip profile; the port has no profile yet."""
-    raise _auto_unported("auto_config")
+    """Pick an architecture from the dataset's scale (the reference always
+    requires an explicit mode), as the JAX package does
+    (``scann_tpu/models/scann.py:114-169``), with the crossovers of the
+    card's profile (``utils/chip_profile.load_profile``):
+
+    - up to ``sweep_max_n`` points, the bf16 block sweep with its exact
+      re-rank: it streams every row, so its recall does not depend on
+      cluster skew, and below the crossover its batch is the cheaper;
+    - past it, tree-x-AH with a partition every ``partition_density``
+      points (at least 256, at most 65,536, rounded to 256), p=10, LUT16
+      codes at about two dimensions a subspace (the divisor of ``dim``
+      closest to that: a prime ``dim`` gets one dimension a subspace, not
+      one whole-vector subspace, which would carry almost no information)
+      and a re-rank of 150, in bfloat16 once the float32 rows pass
+      ``f32_rerank_max_bytes``.
+    """
+    from scann_tpu_torch.utils.chip_profile import load_profile
+
+    prof = load_profile()
+    cfg = ScannConfig(distance_measure=measure)
+    if n <= prof.sweep_max_n and not force_tree:
+        cfg.with_brute_force()
+        cfg.brute_force.block_sweep = True
+        return cfg
+    dens = max(int(prof.partition_density), 1)
+    parts = int(min(max(256, round(n / dens / 256) * 256), 65536))
+    cfg.with_partitioning()
+    cfg.partitioning.num_partitions = parts
+    cfg.partitioning.num_partitions_to_search = 10
+    cfg.with_hashing()
+    cfg.hash.num_buckets = 16
+    blocks = min((s for s in range(1, dim + 1) if dim % s == 0),
+                 key=lambda s: (abs(dim / s - 2), -s), default=1)
+    cfg.hash.num_blocks = max(blocks, 1)
+    cfg.with_reordering()
+    cfg.exact_reordering.num_candidates = 150
+    if n * dim * 4 > prof.f32_rerank_max_bytes:
+        cfg.exact_reordering.rerank_dtype = "bfloat16"
+    return cfg
 
 
 class Scann(Searcher):
@@ -177,6 +208,11 @@ class Scann(Searcher):
         self.device = require_device(device)
         self._dataset = dataset
         self._config = config
+        # the mesh-aware auto() (ROADMAP.md item 11) records its decision
+        # here, as the JAX facade does; describe() reports it
+        self._auto_decision = None
+        self.default_params: Optional[SearchParameters] = None
+        self.autotune_result = None
         if _impl is not None:
             self._impl = _impl
             self.search_mode = _mode or SearchMode.TREE_AH
@@ -258,21 +294,66 @@ class Scann(Searcher):
              measure: DistanceMeasure = DistanceMeasure.SQUARED_L2,
              target_recall: Optional[float] = None,
              tune_queries: Optional[np.ndarray] = None,
-             seed: int = 0, mesh=None, device=DEFAULT_DEVICE) -> "Scann":
-        """The JAX package's scale-, profile- and recall-driven build."""
+             seed: int = 0, mesh=None,
+             device: Union[str, torch.device] = DEFAULT_DEVICE) -> "Scann":
+        """Architecture and build knobs from the dataset's scale, the card's
+        profile and, with a ``target_recall``, cheap sample statistics
+        (``utils/advisor.advise_config`` over 20,000 sampled rows: SOAR and
+        the balance cap turn on where the sample shows skewed cluster
+        mass), as the JAX package does (``scann_tpu/models/scann.py:
+        279-371``).
+
+        With ``target_recall`` set, the serving parameters are then tuned on
+        ``tune_queries`` (default: 256 sampled rows of the dataset) and
+        become the facade's defaults, so a search without explicit
+        parameters meets the target. The host draws are the JAX package's,
+        in its order, so both packages sample the same rows. A ``mesh``
+        raises: it needs the sharded searchers (ROADMAP.md item 11)."""
         if mesh is not None:
             raise _mesh_unported()
-        raise _auto_unported("Scann.auto")
+        n, dim = dataset.size, dataset.dimensionality
+        rng = np.random.default_rng(seed)
+        data = None
+        if target_recall is None:
+            cfg = auto_config(n, dim, measure)
+        else:
+            from scann_tpu_torch.utils.advisor import advise_config
+
+            data = dataset.numpy()
+            sample_idx = rng.choice(n, min(n, 20_000), replace=False)
+            cfg = advise_config(n, dim, data[sample_idx], measure,
+                                target_recall, seed=seed, device=device)
+            cfg.num_neighbors = 10
+        self = cls(dataset, cfg, device=device)
+        if target_recall is None:
+            return self
+        if data is None:
+            data = dataset.numpy()
+        if tune_queries is None:
+            tune_queries = data[rng.choice(n, min(n, 256), replace=False)]
+        from scann_tpu_torch.utils.autotune import autotune
+
+        res = autotune(self, np.asarray(tune_queries, np.float32),
+                       k=cfg.num_neighbors, target_recall=target_recall)
+        self.default_params = res.params
+        self.autotune_result = res
+        return self
 
     def describe(self) -> dict:
-        """The chosen mode, the inner searcher's class and the shape."""
-        return {
+        """The chosen mode, the inner searcher's class, the shape and, after
+        ``auto(target_recall=...)``, the tuned parameters."""
+        out = {
             "search_mode": self.search_mode.value,
             "impl": type(self._impl).__name__,
             "n": self.dataset_size(),
             "dim": self.dimensionality(),
             "distance_measure": self._config.distance_measure.value,
         }
+        if self._auto_decision:
+            out["auto"] = dict(self._auto_decision)
+        if self.autotune_result is not None:
+            out["autotuned_params"] = str(self.autotune_result.params)
+        return out
 
     # -- delegation -----------------------------------------------------------
     @property
@@ -305,7 +386,8 @@ class Scann(Searcher):
                          ) -> Tuple[int, Optional[SearchParameters]]:
         """(k, params) the facade passes to its searcher: ``query_config``
         (config.QueryConfig) fills what explicit ``k`` / ``params`` leave
-        unset; k defaults to the config's num_neighbors; HASHED mode with an
+        unset, then the parameters ``auto(target_recall=...)`` tuned; k
+        defaults to the config's num_neighbors; HASHED mode with an
         ExactReorderingConfig re-ranks its num_candidates unless the params
         set a depth."""
         if query_config is not None:
@@ -314,6 +396,8 @@ class Scann(Searcher):
                 k = qp.num_neighbors
             if params is None:
                 params = qp
+        if params is None:
+            params = self.default_params
         k = k if k is not None else self._config.num_neighbors
         if (self._config.exact_reordering is not None
                 and self.search_mode == SearchMode.HASHED):
@@ -385,12 +469,15 @@ class ScannBuilder:
 
     def auto(self) -> "ScannBuilder":
         """Defer the architecture to the dataset's scale at build time
-        (raises there: ROADMAP.md item 10b)."""
+        (:func:`auto_config`)."""
         self._auto = True
         return self
 
     def build(self, dataset: DenseDataset,
               device: Union[str, torch.device] = DEFAULT_DEVICE) -> Scann:
         if self._auto:
-            raise _auto_unported("ScannBuilder.auto().build")
+            cfg = auto_config(dataset.size, dataset.dimensionality,
+                              self._config.distance_measure)
+            cfg.num_neighbors = self._config.num_neighbors
+            return Scann(dataset, cfg, device=device)
         return Scann(dataset, self._config, device=device)

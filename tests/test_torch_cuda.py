@@ -1639,3 +1639,152 @@ def test_gmm_on_card_matches_the_cpu(cov):
         config=cfg)
     np.testing.assert_array_equal(carried.sample(200, seed=1).cpu().numpy(),
                                   cpu.sample(200, seed=1).numpy())
+
+
+def _tuning_data(n=4000, d=24, q=32, seed=7):
+    """``tests/test_autotune.py``'s clustered data: 32 centres, noise 0.4."""
+    rng = np.random.default_rng(seed)
+    centers = rng.normal(size=(32, d)).astype(np.float32) * 3.0
+    db = (centers[rng.integers(0, 32, size=n)]
+          + rng.normal(size=(n, d)) * 0.4).astype(np.float32)
+    qs = (centers[rng.integers(0, 32, size=q)]
+          + rng.normal(size=(q, d)) * 0.4).astype(np.float32)
+    return db, qs
+
+
+def _same_tables(card, cpu, tol):
+    """Equal (params, cost) entries in the same order, recalls within
+    ``tol``."""
+    assert [(e.params, e.cost) for e in card.table] == \
+        [(e.params, e.cost) for e in cpu.table]
+    for g, w in zip(card.table, cpu.table):
+        assert abs(g.recall - w.recall) <= tol, (g, w)
+
+
+@pytest.mark.cuda
+def test_autotune_on_card_matches_the_cpu(tmp_path):
+    """``autotune`` of a tree-x-AH index built on the CPU, saved and loaded
+    onto the card, against the same index on the CPU: the same grid and
+    costs, and recalls equal within one id of the sample (#1 equals its
+    twin bit for bit and the selections are tie-free, so the ids agree);
+    the same choice. #1 launches once a grid point."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from scann_tpu_torch import (AsymmetricHasherConfig, DenseDataset,
+                                 TreeXHybridConfig, TreeXHybridSearcher,
+                                 autotune, load_index, save_index)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    db, q = _tuning_data()
+    cpu = TreeXHybridSearcher(TreeXHybridConfig(
+        num_partitions=32, partitions_to_search=4,
+        hash_config=AsymmetricHasherConfig(num_codes=16, num_subspaces=8,
+                                           seed=1, max_iterations=5)),
+        device="cpu").build(DenseDataset(db))
+    path = str(tmp_path / "tree.npz")
+    save_index(path, cpu)
+    card = load_index(path)
+    assert card.device.type == "cuda"
+    grid = dict(p_grid=(2, 4, 8, 16), pre_k_grid=(20, 50, 100))
+    before = tag.LAUNCHES
+    got = autotune(card, q, k=10, target_recall=0.95, **grid)
+    assert tag.LAUNCHES - before == 12
+    want = autotune(cpu, q, k=10, target_recall=0.95, **grid)
+    _same_tables(got, want, 1 / (len(q) * 10) + 1e-12)
+    assert got.params == want.params and got.target_met == want.target_met
+
+
+@pytest.mark.cuda
+def test_scann_auto_on_card_matches_the_cpu():
+    """``Scann.auto(target_recall=0.95)`` on the card and on the CPU over
+    the same rows: the same config (the sample is uniform-mass, far from
+    the skew cut), the block sweep, the same tuning grid and costs, the
+    target met on both; the card's searches launch #5, and its tuned
+    defaults serve the sample at the target less 0.01. Per grid point the
+    recalls may differ at a small pre_k: the card's compact q-major sweep
+    (#5) keeps bf16 block minima, as the JAX package's compact kernel does,
+    where the CPU's row-major form keeps float32, so blocks that tie in
+    bf16 are selected differently (0.6438 against 0.7344 at pre_k=10 on
+    this sample); at the deepest pre_k the top blocks hold every neighbour
+    and the recalls agree within one id."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from scann_tpu_torch import BruteForceSearcher, DenseDataset, Scann
+    from scann_tpu_torch.ops import sweep as sw
+    from scann_tpu_torch.utils.benchmarking import recall_at_k
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    db, q = _tuning_data(n=8192)
+    ds = DenseDataset(db)
+    sw.reset_launches()
+    card = Scann.auto(ds, target_recall=0.95, tune_queries=q)
+    assert sw.COMPACT_LAUNCHES["block_min_compact"] > 0
+    cpu = Scann.auto(ds, target_recall=0.95, tune_queries=q, device="cpu")
+    assert card.config.to_dict() == cpu.config.to_dict()
+    assert type(card.impl).__name__ == "BlockSweepSearcher"
+    got, want = card.autotune_result, cpu.autotune_result
+    assert [(e.params, e.cost) for e in got.table] == \
+        [(e.params, e.cost) for e in want.table]
+    assert got.target_met and want.target_met
+    assert abs(got.table[-1].recall - want.table[-1].recall) <= \
+        1 / (len(q) * 10) + 1e-12
+    assert card.default_params == got.params
+    idx, _ = card.search_batched_arrays(q)
+    gt, _ = BruteForceSearcher(ds, device="cpu").search_batched_arrays(q, 10)
+    assert recall_at_k(idx, gt) >= 0.95 - 0.01
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dim", [24, 37, 100])
+def test_compact_sweep_row_bytes_equal_memory_usage_on_card(dim):
+    """The advisor's skew-route ceiling counts the bytes an int8 sweep with
+    bfloat16 re-rank rows takes on the card: ``memory_usage()`` is N times
+    ``compact_sweep_bytes_per_row(dim)`` for N a multiple of the sweep's
+    row padding (4096 rows at block_r=32)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from scann_tpu_torch import (BlockSweepConfig, BlockSweepSearcher,
+                                 DenseDataset)
+    from scann_tpu_torch.utils.advisor import compact_sweep_bytes_per_row
+
+    n = 8192
+    db = np.random.default_rng(dim).normal(size=(n, dim)).astype(np.float32)
+    s = BlockSweepSearcher(DenseDataset(db), BlockSweepConfig(
+        sweep_dtype="int8", rerank_dtype="bfloat16"))
+    aug, rows, _ = s.device_state()
+    assert aug.is_cuda and aug.shape[0] == n
+    assert s.memory_usage() == n * compact_sweep_bytes_per_row(dim)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("algorithm", ["brute-force", "block-sweep",
+                                       "tree-ah"])
+def test_harness_on_card_matches_the_cpu(algorithm, tmp_path):
+    """``run_benchmark`` on the card against the CPU on the same rows and
+    ground truth: the same recall (brute force exact; the block sweep's #5
+    and tree-x-AH's #1 equal their twins, the tree-x-AH index built on the
+    CPU and loaded on the card through --load-index) and the same report
+    keys."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import dataclasses
+
+    from scann_tpu_torch.harness import ann_benchmark as hb
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    db, q = _tuning_data(n=3000, d=16, q=40)
+    gt = hb.exact_ground_truth(db, q, 10, device="cpu")
+    data = hb.BenchmarkData(db, q, gt, "clustered", 16)
+    extra = ["--batch-size", "20"]
+    if algorithm == "tree-ah":
+        path = str(tmp_path / "tree.npz")
+        hb.run_benchmark(algorithm, data, hb.make_parser().parse_args(
+            ["--device", "cpu", "--num-partitions", "16", "--num-blocks",
+             "4", "--reorder", "50", "--save-index", path, *extra]))
+        extra += ["--load-index", path]
+    reports = [hb.run_benchmark(algorithm, data, hb.make_parser().parse_args(
+        ["--algorithm", algorithm, "--device", device, *extra]))
+        for device in ("cuda", "cpu")]
+    assert reports[0].recall_at_k == reports[1].recall_at_k
+    assert dataclasses.asdict(reports[0]).keys() == \
+        dataclasses.asdict(reports[1]).keys()

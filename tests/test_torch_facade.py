@@ -4,7 +4,7 @@ port against the JAX package on the CPU: the eleven facade cases of
 ``auto``, the same mode and inner searcher class for every config, the
 same results when the JAX facade's index state is carried across (its
 file, read by the port's ``load_index``), configs that serialize to the
-JAX package's very dict, and the parts that wait for other items raising.
+JAX package's very dict, and a mesh raising.
 
 Tolerance: results equal the JAX facade's, ids exactly and distances
 within 1e-5 relative (the same float32 arithmetic in another order). The
@@ -279,18 +279,15 @@ def test_block_sweep_honors_reordering_depth(small_db):
 # -- what waits for other items ---------------------------------------------
 
 
-def test_auto_and_mesh_raise_naming_their_items(small_db):
+def test_auto_with_a_mesh_raises_naming_item_11(small_db):
+    """``Scann.auto`` runs without a mesh (``test_torch_autotune.py``); a
+    mesh needs the sharded searchers and raises naming their ROADMAP item,
+    before anything is built."""
     ds = T.DenseDataset(small_db)
-    with pytest.raises(NotImplementedError, match="10b"):
-        T.Scann.auto(ds)
-    with pytest.raises(NotImplementedError, match="10b"):
-        T.Scann.auto(ds, target_recall=0.9)
-    with pytest.raises(NotImplementedError, match="10b"):
-        T.auto_config(10_000_000, 100)
-    with pytest.raises(NotImplementedError, match="10b"):
-        T.ScannBuilder().num_neighbors(7).auto().build(ds, device="cpu")
     with pytest.raises(NotImplementedError, match="11"):
         T.Scann.auto(ds, mesh=object())
+    with pytest.raises(NotImplementedError, match="11"):
+        T.Scann.auto(ds, target_recall=0.9, mesh=object(), device="cpu")
 
 
 @pytest.mark.skipif(torch.cuda.is_available(), reason="checks the CPU host")
