@@ -137,6 +137,24 @@ queries:
   ``--autotune-target 0.9``, a ``--save-index`` / ``--load-index`` round
   trip, ``--pipeline 4``, ``--profile-dir`` and the CLI in a subprocess,
   each report printed as JSON;
+- sharding (phases 39-43) on a mesh of 4 shards of the one card
+  (``make_mesh(devices=[cuda:0] * 4)``): phase 4's index served through
+  ``ShardedTreeXHybridSearcher`` (#1 bit for bit against its twin on shard
+  0's first batch, launched on every shard in every batch, recall@10 at
+  least the single device's less 0.02 and >= 0.9, exact distances, timed
+  beside the single-device searcher and at 1 and 2 shards, a
+  ``save_layout`` / ``load_layout`` round trip on the first 100,000 rows,
+  cut for time); ``ShardedTreeXHybridSearcher.build`` at full width
+  (>= 0.9, #1 on every shard); the block sweep (#5, >= 0.99) and the
+  hasher (#7, >= 0.9) sharded at full width, each with a filtered batch;
+  ``Scann.auto(mesh=...)`` under [36]'s 200 MB tree-route profile (the
+  sharded route, JAX's decision keys, >= 0.89 at target 0.9);
+  ``torch.distributed`` on NCCL at world size 1 (``initialize_multihost``,
+  ``global_mesh`` of 4 local shards, the sharded exact search's ids equal
+  to the single-device brute force's) and the harness's ``--shards 4``
+  raising as the JAX harness does on a one-card host. The kernels' JSON
+  records of #1, #5 and #7 list these launches under
+  ``sharded_launches``;
 
 then times every kernel against its twin (L2 flushed) and the search stages
 with CUDA events (the grouped and per-pair SOAR paths also at twice the
@@ -224,6 +242,9 @@ HARNESS_RUNS = {
     "tree-ah": (("--partitions-to-search", "40", "--reorder", "100"), 0.65,
                 ("#1",)),
 }
+# [39]-[43]: shards of one mesh, all on the one card (the host has one
+# GPU); the sharded block sweep's and hasher's filtered batch
+SHARDS = 4
 KERNEL_SOURCES = ("tree_ah_grouped", "block_min_sweep", "block_min_compact",
                   "lut16_scoring", "int8_dots", "fused_bf", "tree_ah_leaf")
 # published H100 SXM peaks (dense): bf16 tensor cores, int8 tensor cores,
@@ -685,7 +706,12 @@ def main() -> int:
     sparse_phase(dev, smi)
     projection_phases(db_dev, smi)
     tuning_phases(ds, queries, q_np, db_dev, gt_np, smi, searcher)
+    sharded = sharded_phases(ds, queries, q_np, db_dev, gt_np, smi,
+                             searcher, cfg)
     del searcher
+    for rec in records:
+        if rec["name"] in sharded:
+            rec["sharded_launches"] = sharded[rec["name"]]
     print(json.dumps({"kernels": records}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
@@ -3739,6 +3765,460 @@ def tuning_phases(ds, queries, q_np, db_dev, gt_np, smi, searcher):
         f"{cli['recall_at_k']:.4f}, QPS {cli['qps']:.1f}, in "
         f"{time.perf_counter() - t0:.2f}s ({smi})")
     log(f"[38] wall {time.perf_counter() - t_phase:.2f}s ({smi})")
+
+
+def device_ms(search, queries):
+    """(kernel ms, kernels) a batch of ``search`` on the card: the device
+    time of every kernel torch.profiler saw over BATCHES batches, summed,
+    and their count, each divided by BATCHES."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    search(queries[:BATCH])
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for i in range(BATCHES):
+            search(queries[i * BATCH:(i + 1) * BATCH])
+        torch.cuda.synchronize()
+    total_us, count = 0.0, 0
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total",
+                     getattr(e, "self_cuda_time_total", 0.0))
+        if us > 0:
+            total_us += us
+            count += e.count
+    return total_us / 1e3 / BATCHES, count / BATCHES
+
+
+def same_ids_or_tied(got, want, got_d, label, tol=1e-5):
+    """Ids equal except where two results of a row tie within ``tol``
+    relative (the two searches sum their float32 products in another
+    order); returns how many slots swapped within a tie."""
+    import numpy as np
+
+    swapped = 0
+    for b, j in zip(*np.nonzero(got != want)):
+        tied = np.abs(got_d[b] - got_d[b, j]) <= tol * abs(got_d[b, j])
+        if tied.sum() < 2 and j != got.shape[1] - 1:
+            raise AssertionError(f"{label}: query {b} slot {j} id "
+                                 f"{got[b, j]} against {want[b, j]}, no tie")
+        swapped += 1
+    return swapped
+
+
+def sharded_phases(ds, queries, q_np, db_dev, gt_np, smi, searcher, cfg):
+    """Phases 39-43: the sharded searchers on a mesh of ``SHARDS`` shards of
+    the one card (``make_mesh(devices=[cuda:0] * SHARDS)``), the sharded
+    build, ``Scann.auto`` over the mesh and ``torch.distributed`` at world
+    size 1. ``searcher`` and ``cfg`` are phase 4's index and config.
+    Returns {kernel record name: {phase: launches}} of the runs that must
+    launch #1, #5 and #7 on every shard in every batch."""
+    import os
+    import socket
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from scann_tpu_torch import (
+        AsymmetricHasher,
+        AsymmetricHasherConfig,
+        BlockSweepConfig,
+        BlockSweepSearcher,
+        BruteForceSearcher,
+        DenseDataset,
+        Scann,
+        ScannError,
+        SearchParameters,
+        TreeXHybridSearcher,
+    )
+    from scann_tpu_torch.harness import ann_benchmark as hb
+    from scann_tpu_torch.models import tree_x_hybrid as tx
+    from scann_tpu_torch.ops import scoring_kernels as sk
+    from scann_tpu_torch.ops import sweep as sw
+    from scann_tpu_torch.ops import tree_ah_grouped as tag
+    from scann_tpu_torch.parallel import (
+        ShardedAsymmetricHasher,
+        ShardedBlockSweepSearcher,
+        ShardedBruteForceSearcher,
+        ShardedTreeXHybridSearcher,
+        make_mesh,
+    )
+    from scann_tpu_torch.parallel import multihost as mh
+    from scann_tpu_torch.utils import chip_profile as cp
+    from scann_tpu_torch.utils.benchmarking import recall_at_k
+
+    dev = queries.device
+    here = os.path.dirname(os.path.abspath(__file__))
+    mesh = make_mesh(devices=[dev] * SHARDS)
+    params = SearchParameters(num_leaves_to_search=P,
+                              pre_reordering_num_neighbors=PRE_K)
+    out = {"tree_ah_grouped": {}, "block_min_qmajor_compact": {},
+           "lut16_fused_sweep": {}}
+    every = SHARDS * BATCHES
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        return res, time.perf_counter() - t0
+
+    def serve(search, qs=queries):
+        res = [search(qs[i:i + BATCH]) for i in range(0, len(qs), BATCH)]
+        torch.cuda.synchronize()
+        return torch.cat([r[0] for r in res]), torch.cat([r[1] for r in res])
+
+    def store_bytes(st):
+        ts = st if isinstance(st, tuple) else (st,)
+        return sum(t.numel() * t.element_size() for t in ts)
+
+    def tree_serve(label, sh, single_recall):
+        """#1 on every shard in every batch, recall, exact distances."""
+        tag.LAUNCHES = 0
+        idx, dists = serve(lambda qb: sh.search_batched_tensors(qb, K,
+                                                                params))
+        launches = tag.LAUNCHES
+        recall = recall_at_k(idx.cpu().numpy(), gt_np, K)
+        err = check_results(idx, dists, queries, db_dev, BATCH * BATCHES)
+        if launches != every:
+            raise AssertionError(f"{label}: #1 launched {launches} times, "
+                                 f"not once a shard a batch ({every})")
+        floor = max(RECALL_FLOOR, single_recall - 0.02)
+        if recall < floor:
+            raise AssertionError(f"{label}: recall@10 {recall} < {floor}")
+        return idx, dists, launches, recall, err
+
+    # -- 39. sharded tree-x-AH over phase 4's index -------------------------------
+    t_phase = time.perf_counter()
+    s_idx, _ = serve(lambda qb: searcher.search_batched_tensors(qb, K,
+                                                                params))
+    single_recall = recall_at_k(s_idx.cpu().numpy(), gt_np, K)
+    mem0 = torch.cuda.memory_allocated(dev)
+    sh, lay_s = timed(lambda: ShardedTreeXHybridSearcher(searcher, mesh))
+    mem1 = torch.cuda.memory_allocated(dev)
+    rows = [c.shape[1] for c in sh._codes]
+    per_shard = [c.numel() + p.numel() * 8 + store_bytes(d)
+                 + o.numel() * 8 for c, p, d, o in
+                 zip(sh._codes, sh._perm, sh._db, sh._offs)]
+    owned = [int((z > 0).sum()) for z in sh._sizes]
+    log(f"[39 sharded tree-AH] ShardedTreeXHybridSearcher(phase 4's index, "
+        f"make_mesh(devices=[{dev}] * {SHARDS})): layout and upload "
+        f"{lay_s:.2f}s; partitions a shard {owned}, CSR rows a shard {rows} "
+        f"(l_cap {sh._l_cap}), bytes a shard on the card (codes, perm, "
+        f"re-rank rows, offsets and sizes) {per_shard}, memory_allocated "
+        f"+{mem1 - mem0} bytes")
+
+    # #1 against its twin on shard 0's real first-batch inputs
+    q0 = queries[:BATCH]
+    cent, cb = sh._cent[dev], sh._cb[dev]
+    codes0, offs0, sizes0 = sh._codes[0], sh._offs[0], sh._sizes[0]
+    s_pad = 2 * codes0.shape[0] if sh._packed else codes0.shape[0]
+    q_cap = searcher.effective_q_cap(BATCH, P)
+    parts = tx._select_partitions(cent, q0, p=P)
+    luts = tx._residual_luts(q0, cent, parts, cb, s_pad=s_pad,
+                             use_residuals=True)
+    luts_g, grp_off, grp_size, _ = tx._group_luts(
+        luts, parts, offs0, sizes0, s_pad=s_pad, q_cap=q_cap,
+        packed=sh._packed)
+    kkw = dict(l_cap=sh._l_cap, l_tile=cfg.score_l_tile, q_cap=q_cap,
+               packed=sh._packed)
+    got = tag.tree_ah_grouped_scores(luts_g, codes0, grp_off, grp_size, **kkw)
+    torch.cuda.synchronize()
+    want = tag.tree_ah_grouped_scores_reference(luts_g, codes0, grp_off,
+                                                grp_size, **kkw)
+    live = int((grp_size > 0).sum())
+    if not torch.equal(got, want):
+        raise AssertionError("[39] #1 differs from its twin on shard 0")
+    log(f"[39 kernel check] #1 on shard 0's first-batch inputs: NG "
+        f"{len(grp_size)} ({live} with rows on the shard), q_cap {q_cap}, "
+        f"out {list(got.shape)} bf16: bit-identical to its twin (tolerance: "
+        f"bit for bit)")
+    del got, want, luts_g, luts
+
+    idx, dists, launches, recall, err = tree_serve("[39]", sh, single_recall)
+    out["tree_ah_grouped"]["[39] sharded tree-x-AH"] = launches
+    sh_med, sh_top = event_ms(lambda qb: sh.search_batched_tensors(
+        qb, K, params), queries, BATCH, BATCHES)
+    one_med, one_top = event_ms(lambda qb: searcher.search_batched_tensors(
+        qb, K, params), queries, BATCH, BATCHES)
+    log(f"[39 sharded tree-AH] {BATCHES} x B={BATCH}, p={P}, pre_k={PRE_K}: "
+        f"recall@10 {recall:.4f} (single device {single_recall:.4f}; floor "
+        f"max({RECALL_FLOOR}, single - 0.02)), distances vs recomputed max "
+        f"rel err {err:.3g}, #1 launches {launches} ({SHARDS} shards x "
+        f"{BATCHES} batches); batch median {sh_med:.4f} ms (max "
+        f"{sh_top:.4f}) against the single-device searcher's {one_med:.4f} "
+        f"ms (max {one_top:.4f}) ({smi})")
+    del sh, s_idx
+    # the shards of one card run one after another: the batch by shard
+    # count (1 and 2 shards of the same index beside [39]'s 4)
+    by_count = {SHARDS: sh_med}
+    for n_sh in (1, 2):
+        sub = ShardedTreeXHybridSearcher(searcher, make_mesh(
+            devices=[dev] * n_sh))
+        by_count[n_sh] = event_ms(lambda qb: sub.search_batched_tensors(
+            qb, K, params), queries, BATCH, BATCHES)[0]
+        if n_sh == 1:
+            one_shard = sub
+        else:
+            del sub
+    log(f"[39 aside] sharded tree-x-AH batch median by shard count on the "
+        f"one card: " + ", ".join(f"{n} -> {by_count[n]:.4f} ms"
+                                  for n in sorted(by_count))
+        + f"; the single-device searcher {one_med:.4f} ms ({smi})")
+    # one shard against the single-device searcher: batch medians in turns,
+    # and the card's own time a batch (torch.profiler's kernel time, summed)
+    turns_ms = [event_ms(lambda qb: s_.search_batched_tensors(qb, K, params),
+                         queries, BATCH, BATCHES)[0]
+                for s_ in (searcher, one_shard, one_shard, searcher)]
+    dev_ms = [device_ms(lambda qb: s_.search_batched_tensors(qb, K, params),
+                        queries) for s_ in (searcher, one_shard)]
+    log(f"[39 aside] in turns, single / 1 shard / 1 shard / single: "
+        + " / ".join(f"{t:.4f}" for t in turns_ms) + " ms a batch; kernel "
+        f"time a batch (torch.profiler, {BATCHES} batches): single "
+        f"{dev_ms[0][0]:.4f} ms in {dev_ms[0][1]:.0f} kernels, 1 shard "
+        f"{dev_ms[1][0]:.4f} ms in {dev_ms[1][1]:.0f} kernels ({smi})")
+    del one_shard
+    # the file round trip on the first SIDE_N rows, cut for time: a
+    # full-width layout is about 1 GB of compressed npz (the JAX package's
+    # format), some 60 s to write at numpy's zlib rate
+    side = TreeXHybridSearcher(dataclasses.replace(
+        cfg, num_partitions=round(2000 * SIDE_N / N)), device=dev).build(
+        DenseDataset(ds.numpy()[:SIDE_N]))
+    sh = ShardedTreeXHybridSearcher(side, mesh)
+    gt_side = exact_top_k(queries, db_dev[:SIDE_N])
+    idx, dists = serve(lambda qb: sh.search_batched_tensors(qb, K, params))
+    side_recall = recall_at_k(idx.cpu().numpy(), gt_side, K)
+    with tempfile.TemporaryDirectory(dir=here) as tmp:
+        path = os.path.join(tmp, "layout.npz")
+        _, save_s = timed(lambda: sh.save_layout(path))
+        back, load_s = timed(lambda: ShardedTreeXHybridSearcher.load_layout(
+            path, mesh))
+        size = os.path.getsize(path)
+    b_idx, b_dists = serve(lambda qb: back.search_batched_tensors(qb, K,
+                                                                  params))
+    if not (torch.equal(b_idx, idx) and torch.equal(b_dists, dists)):
+        raise AssertionError("[39] the loaded layout serves other results")
+    log(f"[39 sharded tree-AH io] the first {SIDE_N} rows (cut for time), "
+        f"{side.partitioner.num_partitions} partitions, {SHARDS} shards, "
+        f"recall@10 {side_recall:.4f}: save_layout {save_s:.2f}s ({size} "
+        f"bytes), load_layout {load_s:.2f}s, the {BATCHES} batches "
+        f"bit-identical")
+    del sh, back, b_idx, b_dists, side
+    torch.cuda.empty_cache()
+    log(f"[39] wall {time.perf_counter() - t_phase:.2f}s ({smi})")
+
+    # -- 40. the sharded build at full width ----------------------------------------
+    t_phase = time.perf_counter()
+    built, b_s = timed(lambda: ShardedTreeXHybridSearcher.build(ds, cfg,
+                                                                mesh))
+    tk = built._inner.partitioner.tokenization
+    _, _, launches, recall, err = tree_serve("[40]", built, RECALL_FLOOR)
+    out["tree_ah_grouped"]["[40] sharded build"] = launches
+    med, top = event_ms(lambda qb: built.search_batched_tensors(
+        qb, K, params), queries, BATCH, BATCHES)
+    log(f"[40 sharded build] ShardedTreeXHybridSearcher.build(the {N} rows, "
+        f"phase 4's config, {SHARDS} shards): {b_s:.2f}s, partitions "
+        f"{tk.num_partitions}, max size {tk.max_partition_size}; "
+        f"{BATCHES} x B={BATCH}: recall@10 {recall:.4f} (floor "
+        f"{RECALL_FLOOR}), distances max rel err {err:.3g}, #1 launches "
+        f"{launches}, batch median {med:.4f} ms (max {top:.4f}) ({smi})")
+    del built, tk
+    torch.cuda.empty_cache()
+    log(f"[40] wall {time.perf_counter() - t_phase:.2f}s ({smi})")
+
+    # -- 41. sharded block sweep and sharded hasher at full width --------------------
+    t_phase = time.perf_counter()
+    allow = np.zeros(N, dtype=bool)
+    allow[::2] = True
+    allow[:1000] = False
+    gt_f = exact_top_k(queries[:BATCH], db_dev,
+                       torch.from_numpy(allow).to(dev))
+
+    def filtered(label, s, p, floor):
+        f_idx, f_dists = s.search_batched_tensors(queries[:BATCH], K, p,
+                                                  allow_mask=allow)
+        ids = f_idx.cpu().numpy()
+        if not allow[ids[ids >= 0]].all() or (ids < 0).any():
+            raise AssertionError(f"{label}: a filtered result is denied or "
+                                 f"missing")
+        f_recall = recall_at_k(ids, gt_f, K)
+        if f_recall < floor:
+            raise AssertionError(f"{label}: filtered recall@10 {f_recall} "
+                                 f"< {floor}")
+        return f_recall
+
+    sweep = BlockSweepSearcher(ds, BlockSweepConfig(
+        block_r=SWEEP_R, pre_reorder_k=SWEEP_PRE_K), device=dev)
+    ssw, lay_s = timed(lambda: ShardedBlockSweepSearcher(sweep, mesh))
+    sw.reset_launches()
+    idx, dists = serve(lambda qb: ssw.search_batched_tensors(qb, K))
+    c5 = sw.COMPACT_LAUNCHES["block_min_compact"]
+    recall = recall_at_k(idx.cpu().numpy(), gt_np, K)
+    err = check_results(idx, dists, queries, db_dev, BATCH * BATCHES)
+    if c5 != every:
+        raise AssertionError(f"[41 block sweep] #5 launched {c5} times, not "
+                             f"once a shard a batch ({every})")
+    if recall < SWEEP_RECALL_FLOOR:
+        raise AssertionError(f"[41 block sweep] recall@10 {recall}")
+    out["block_min_qmajor_compact"]["[41] sharded block sweep"] = c5
+    med, top = event_ms(lambda qb: ssw.search_batched_tensors(qb, K),
+                        queries, BATCH, BATCHES)
+    f_recall = filtered("[41 block sweep]", ssw, None, SWEEP_RECALL_FLOOR)
+    log(f"[41 sharded block sweep] block_r={SWEEP_R}, pre_k={SWEEP_PRE_K}, "
+        f"{SHARDS} shards of {ssw._blk} rows (aug "
+        f"{[a.numel() * a.element_size() for a in ssw._aug]} bytes, re-rank "
+        f"{[store_bytes(r) for r in ssw._rdb]} bytes), layout {lay_s:.2f}s; "
+        f"{BATCHES} x B={BATCH}: recall@10 {recall:.4f} (floor "
+        f"{SWEEP_RECALL_FLOOR}), distances max rel err {err:.3g}, #5 "
+        f"launches {c5}, batch median {med:.4f} ms (max {top:.4f}); one "
+        f"filtered batch (even ids without [0, 1000), the penalty stream): "
+        f"recall@10 {f_recall:.4f} against the filtered exact top-10, every "
+        f"id allowed ({smi})")
+    del ssw, sweep
+    torch.cuda.empty_cache()
+
+    hasher, h_s = timed(lambda: AsymmetricHasher(AsymmetricHasherConfig(
+        num_codes=AH_C, num_subspaces=AH_S, seed=42, max_iterations=12,
+        training_sample_size=100_000), device=dev).build(ds))
+    shh, lay_s = timed(lambda: ShardedAsymmetricHasher(hasher, mesh))
+    hp = SearchParameters(pre_reordering_num_neighbors=AH_PRE_K)
+    sk.reset_launches()
+    idx, dists = serve(lambda qb: shh.search_batched_tensors(qb, K, hp))
+    c7 = sk.LAUNCHES["lut16_fused_sweep"]
+    recall = recall_at_k(idx.cpu().numpy(), gt_np, K)
+    err = check_results(idx, dists, queries, db_dev, BATCH * BATCHES)
+    if c7 != every:
+        raise AssertionError(f"[41 hasher] #7 launched {c7} times, not once "
+                             f"a shard a batch ({every})")
+    if recall < AH_RECALL_FLOOR:
+        raise AssertionError(f"[41 hasher] recall@10 {recall}")
+    out["lut16_fused_sweep"]["[41] sharded hasher"] = c7
+    med, top = event_ms(lambda qb: shh.search_batched_tensors(qb, K, hp),
+                        queries, BATCH, BATCHES)
+    f_recall, f_s = timed(lambda: filtered("[41 hasher]", shh, hp,
+                                           AH_RECALL_FLOOR))
+    log(f"[41 sharded hasher] S={AH_S}, C={AH_C}, pre_k={AH_PRE_K}, built "
+        f"in {h_s:.2f}s, {SHARDS} shards of {shh._blk} rows (packed codes "
+        f"{[c.numel() for c in shh._codes_packed]} bytes), layout "
+        f"{lay_s:.2f}s; {BATCHES} x B={BATCH}: recall@10 {recall:.4f} (floor "
+        f"{AH_RECALL_FLOOR}), distances max rel err {err:.3g}, #7 launches "
+        f"{c7}, batch median {med:.4f} ms (max {top:.4f}); one filtered batch "
+        f"through the plain score path (the only one that takes a mask): "
+        f"recall@10 {f_recall:.4f}, every id allowed, {f_s:.2f}s ({smi})")
+    del shh, hasher
+    torch.cuda.empty_cache()
+    log(f"[41] wall {time.perf_counter() - t_phase:.2f}s ({smi})")
+
+    # -- 42. Scann.auto over the mesh under [36]'s tree-route profile ---------------
+    t_phase = time.perf_counter()
+    old = os.environ.get(cp.PROFILE_ENV)
+    with tempfile.TemporaryDirectory(dir=here) as tmp:
+        path = os.path.join(tmp, "profile.json")
+        cp.save_profile(dataclasses.replace(
+            cp.ChipProfile(), sweep_max_n=AUTO_TREE_MAX_N,
+            f32_rerank_max_bytes=AUTO_TREE_F32_BYTES,
+            source="chip_smoke [42]: the tree route over a mesh"), path)
+        os.environ[cp.PROFILE_ENV] = path
+        try:
+            scann, a_s = timed(lambda: Scann.auto(
+                ds, target_recall=AUTO_TARGET, tune_queries=q_np[:TUNE_Q],
+                mesh=mesh, device=dev))
+        finally:
+            if old is None:
+                del os.environ[cp.PROFILE_ENV]
+            else:
+                os.environ[cp.PROFILE_ENV] = old
+    dec = scann.describe()["auto"]
+    keys = {"sharded", "shards", "shards_needed", "serving_bytes",
+            "per_chip_budget", "reason"}
+    if not isinstance(scann.impl, ShardedTreeXHybridSearcher) or \
+            set(dec) != keys or not dec["sharded"] or \
+            not 1 < dec["shards_needed"] <= SHARDS:
+        raise AssertionError(f"[42] Scann.auto over the mesh: "
+                             f"{type(scann.impl).__name__}, {dec}")
+    tag.LAUNCHES = 0
+    idx, dists = serve(scann.search_batched_tensors)
+    launches = tag.LAUNCHES
+    recall = recall_at_k(idx.cpu().numpy(), gt_np, K)
+    check_results(idx, dists, queries, db_dev, BATCH * BATCHES,
+                  exact_check=scann.config.exact_reordering.rerank_dtype
+                  == "float32")
+    if recall < AUTO_TARGET - AUTO_SLACK or launches < every:
+        raise AssertionError(f"[42] recall@10 {recall}, #1 launches "
+                             f"{launches}")
+    out["tree_ah_grouped"]["[42] Scann.auto over the mesh"] = launches
+    pc = scann.config.partitioning
+    log(f"[42 auto over the mesh] Scann.auto(ds, target_recall="
+        f"{AUTO_TARGET}, mesh of {SHARDS}) under sweep_max_n "
+        f"{AUTO_TREE_MAX_N}, f32_rerank_max_bytes {AUTO_TREE_F32_BYTES}: "
+        f"{dec}; partitions {pc.num_partitions}, spilling {pc.spilling}, "
+        f"re-rank {scann.config.exact_reordering.rerank_dtype}; built and "
+        f"tuned in {a_s:.2f}s (sample recall "
+        f"{scann.autotune_result.recall:.4f}, p="
+        f"{scann.default_params.num_leaves_to_search}, pre_k="
+        f"{scann.default_params.pre_reordering_num_neighbors}); all "
+        f"{BATCHES * BATCH} queries with no explicit params: recall@10 "
+        f"{recall:.4f} (floor {AUTO_TARGET - AUTO_SLACK}), #1 launches "
+        f"{launches} ({smi})")
+    del scann
+    torch.cuda.empty_cache()
+    log(f"[42] wall {time.perf_counter() - t_phase:.2f}s ({smi})")
+
+    # -- 43. torch.distributed at world size 1 ---------------------------------------
+    t_phase = time.perf_counter()
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    rank = mh.initialize_multihost(f"127.0.0.1:{port}", 1, 0, device=dev)
+    try:
+        backend = torch.distributed.get_backend()
+        gmesh = mh.global_mesh(local_devices=[dev] * SHARDS)
+        if rank != 0 or backend != "nccl" or gmesh.devices.size != SHARDS \
+                or sum(gmesh.axis_local()) != SHARDS:
+            raise AssertionError(f"[43] rank {rank}, backend {backend}, "
+                                 f"mesh {gmesh}")
+        sbf, lay_s = timed(lambda: ShardedBruteForceSearcher(ds, mesh=gmesh))
+        # the first batch also sets up NCCL's communicator (its first
+        # collective); the second is the search alone
+        _, first_s = timed(lambda: sbf.search_batched_tensors(q0, K))
+        (g_idx, g_d), q_s = timed(lambda: sbf.search_batched_tensors(q0, K))
+        w_idx, _ = BruteForceSearcher(ds, device=dev).search_batched_tensors(
+            q0, K)
+        swapped = same_ids_or_tied(g_idx.cpu().numpy(), w_idx.cpu().numpy(),
+                                   g_d.cpu().numpy(), "[43]")
+        lo, hi = mh.process_local_rows(N)
+        log(f"[43 torch.distributed] initialize_multihost('127.0.0.1:"
+            f"{port}', 1, 0) on {backend}: rank {rank}; global_mesh: "
+            f"{gmesh.devices.size} local shards, process_local_rows({N}) = "
+            f"[{lo}, {hi}); ShardedBruteForceSearcher over it "
+            f"(all_gather on {backend} in the merge) in {lay_s:.2f}s, one "
+            f"batch of {BATCH} in {first_s:.3f}s the first time (NCCL's "
+            f"set-up in it), {q_s:.3f}s the second: ids equal to the "
+            f"single-device brute "
+            f"force's ({swapped} slots swapped within a float32 tie) ({smi})")
+        del sbf
+    finally:
+        torch.distributed.destroy_process_group()
+    data = hb.generate_synthetic_dataset(device=dev)
+    args = hb.make_parser().parse_args(
+        ["--device", str(dev), "--algorithm", "brute-force", "--shards",
+         str(SHARDS)])
+    try:
+        hb.run_benchmark("brute-force", data, args)
+    except ScannError as e:
+        want = f"requested {SHARDS} devices, only " \
+            f"{torch.cuda.device_count()} available"
+        if want not in str(e):
+            raise AssertionError(f"[43] harness --shards: {e}") from e
+        log(f"[43 harness] --shards {SHARDS} on this {torch.cuda.device_count()}"
+            f"-card host raises as the JAX harness does: {e}")
+    else:
+        if torch.cuda.device_count() < SHARDS:
+            raise AssertionError(f"[43] harness --shards {SHARDS} ran on "
+                                 f"{torch.cuda.device_count()} cards")
+    log(f"[43] wall {time.perf_counter() - t_phase:.2f}s ({smi})")
+    return out
 
 
 if __name__ == "__main__":

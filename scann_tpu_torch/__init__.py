@@ -28,7 +28,10 @@ residual quantizers, and ``prelude`` re-exports the common names.
 ``Scann.auto`` chooses and tunes a config from the card's profile
 (``utils.chip_profile``), sample statistics (``utils.advisor``) and a
 recall target (``utils.autotune``); ``harness.ann_benchmark`` is the
-ANN-Benchmarks-style runner.
+ANN-Benchmarks-style runner. ``parallel`` shards the exact search, the
+hasher, tree-x-AH (and its build) and the block sweep over a mesh of
+devices, across processes on ``torch.distributed``; ``save_sharded_layout``
+and ``load_sharded_layout`` keep their per-shard layouts.
 """
 
 from scann_tpu_torch.config import (
@@ -46,7 +49,13 @@ from scann_tpu_torch.hashes.hasher import (
     AsymmetricHasher,
     AsymmetricHasherConfig,
 )
-from scann_tpu_torch.io import from_numpy_state, load_index, save_index
+from scann_tpu_torch.io import (
+    from_numpy_state,
+    load_index,
+    load_sharded_layout,
+    save_index,
+    save_sharded_layout,
+)
 from scann_tpu_torch.models.block_sweep import (
     BlockSweepConfig,
     BlockSweepSearcher,
@@ -142,5 +151,7 @@ __all__ = [
     "from_numpy_state",
     "load_index",
     "load_profile",
+    "load_sharded_layout",
     "save_index",
+    "save_sharded_layout",
 ]

@@ -72,7 +72,8 @@ class BenchmarkReport:
     autotune_seconds: Optional[float] = None
     autotuned_num_leaves_to_search: Optional[int] = None
     autotuned_pre_reordering_num_neighbors: Optional[int] = None
-    # --shards: kept for the JAX report's keys; one card serves unsharded
+    # --shards N: served through the database-sharded wrappers on an
+    # N-device mesh (None/1 = single device)
     shards: Optional[int] = None
     # --save-index / --load-index provenance: when loaded, build_seconds is
     # the load time, not a training run
@@ -359,18 +360,44 @@ def _algorithm_of(index) -> str:
                                   type(index).__name__)
 
 
+def _shard_index(index, n_shards: int, device: torch.device):
+    """Re-serve a built index through the database-sharded wrappers on an
+    n-device mesh: the visible CUDA devices (more shards than devices
+    raises, as in the JAX harness), or on the CPU ``n_shards`` shards of
+    the CPU (the JAX package's virtual CPU devices)."""
+    from scann_tpu_torch.models.block_sweep import BlockSweepSearcher
+    from scann_tpu_torch.models.brute_force import BruteForceSearcher
+    from scann_tpu_torch.models.tree_x_hybrid import TreeXHybridSearcher
+    from scann_tpu_torch.parallel.mesh import make_mesh
+    from scann_tpu_torch.parallel.sharded import ShardedBruteForceSearcher
+    from scann_tpu_torch.parallel.sharded_flagship import (
+        ShardedBlockSweepSearcher,
+        ShardedTreeXHybridSearcher,
+    )
+
+    impl = getattr(index, "impl", index)
+    mesh = make_mesh(n_shards, axis_names=("db",),
+                     devices=([device] * n_shards if device.type == "cpu"
+                              else None))
+    if isinstance(impl, TreeXHybridSearcher):
+        return ShardedTreeXHybridSearcher(impl, mesh)
+    if isinstance(impl, BlockSweepSearcher):
+        return ShardedBlockSweepSearcher(impl, mesh)
+    if isinstance(impl, BruteForceSearcher):
+        return ShardedBruteForceSearcher(impl.dataset,
+                                         impl.distance_measure, mesh)
+    raise ValueError(
+        f"--shards supports brute-force / block-sweep / tree-ah indexes, "
+        f"not {type(impl).__name__}")
+
+
 def run_benchmark(algorithm: str, data: BenchmarkData,
                   args) -> BenchmarkReport:
     """Build (or ``--load-index``) the index on ``args.device``, optionally
     ``--save-index`` and ``--autotune-target``, search ``data.test`` in
     batches of ``args.batch_size`` (``--pipeline`` batches in flight) and
-    report. ``--shards`` > 1 raises: the sharded searchers are not ported
-    (ROADMAP.md item 11)."""
-    n_shards = max(1, int(getattr(args, "shards", 1) or 1))
-    if n_shards > 1:
-        raise NotImplementedError(
-            "--shards needs the sharded searchers, which are not ported yet "
-            "(ROADMAP.md queue 1, item 11: multiple GPUs)")
+    report. ``--shards`` > 1 serves the index through the database-sharded
+    wrappers (:func:`_shard_index`)."""
     device = require_device(getattr(args, "device", DEFAULT_DEVICE))
     rss0 = current_rss_bytes()
     t0 = time.perf_counter()
@@ -408,6 +435,12 @@ def run_benchmark(algorithm: str, data: BenchmarkData,
         t_sv = time.perf_counter()
         save_index(saved_to, index)
         save_s = time.perf_counter() - t_sv
+
+    # shard AFTER saving: the .npz holds the single-device index (the
+    # sharded wrappers lay it out anew on any mesh at load)
+    n_shards = max(1, int(getattr(args, "shards", 1) or 1))
+    if n_shards > 1:
+        index = _shard_index(index, n_shards, device)
 
     batch = args.batch_size
     # warm-up (kernel builds, device state), outside the timed region
@@ -507,7 +540,7 @@ def run_benchmark(algorithm: str, data: BenchmarkData,
         batch_size=batch,
         timing_mode=(f"wall_clock_pipelined_x{pipeline}" if pipeline > 1
                      else "wall_clock_per_batch_dispatch"),
-        shards=None,
+        shards=n_shards if n_shards > 1 else None,
         host_roundtrip_seconds=rtt,
         dispatch_bound_fraction=dispatch_frac,
         index_loaded_from=loaded_from,
@@ -591,8 +624,9 @@ def make_parser() -> argparse.ArgumentParser:
                         "(utils/chip_profile.calibrate), save the JSON to "
                         "PATH and use it for the rest of the run")
     p.add_argument("--shards", type=int, default=1,
-                   help="database shards; > 1 needs the multi-GPU searchers, "
-                        "which are not ported (raises)")
+                   help="serve through the database-sharded wrappers on an "
+                        "N-device mesh (brute-force/block-sweep/tree-ah; on "
+                        "the CPU N shards of the CPU)")
     p.add_argument("--device", default=DEFAULT_DEVICE,
                    help="torch device to build and search on (default "
                         "cuda; cpu where there is no CUDA device)")

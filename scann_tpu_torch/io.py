@@ -365,11 +365,146 @@ def load_index(path: str, device: Union[str, torch.device] = DEFAULT_DEVICE):
             raise ScannError.failed_precondition(
                 f"unsupported index format {meta.get('format_version')}")
         if "sharded_kind" in meta:
-            raise NotImplementedError(
-                "sharded serving layouts are not ported yet (ROADMAP.md "
-                "queue 1, item 11: multiple GPUs)")
+            raise ScannError.failed_precondition(
+                "this file is a sharded serving layout (kind "
+                f"{meta['sharded_kind']!r}); load it with "
+                "io.load_sharded_layout / <Sharded*Searcher>.load_layout")
         if "kind" not in meta:
             raise ScannError.failed_precondition(
                 "not a save_index file: missing index kind")
         arrays = {k: z[k] for k in z.files if k != "__meta__"}
     return from_numpy_state(arrays, meta, device)
+
+
+# ---------------------------------------------------------------------------
+# sharded serving layouts (warm start)
+# ---------------------------------------------------------------------------
+
+
+def _dtype_safe_store(arr) -> Tuple[np.ndarray, str]:
+    """(storable array, dtype tag): npz holds no bfloat16, so a bf16
+    tensor travels as its uint16 bit view tagged "bfloat16", as the JAX
+    package stores its ``ml_dtypes`` arrays."""
+    if isinstance(arr, torch.Tensor):
+        if arr.dtype == torch.bfloat16:
+            return (arr.contiguous().view(torch.int16).numpy()
+                    .view(np.uint16), "bfloat16")
+        arr = arr.numpy()
+    return arr, str(arr.dtype)
+
+
+def _dtype_safe_load(arr: np.ndarray, name: str):
+    """A stored layout array: bf16 bit views back as bf16 CPU tensors,
+    through torch (no ``ml_dtypes``)."""
+    if str(arr.dtype) == name:
+        return arr
+    if name == "bfloat16":
+        return torch.from_numpy(
+            np.ascontiguousarray(arr).view(np.int16)).view(torch.bfloat16)
+    raise ScannError.unimplemented(
+        f"sharded layout array of dtype {name!r} stored as {arr.dtype}")
+
+
+def save_sharded_layout(path: str, sharded) -> None:
+    """Save a sharded wrapper's per-shard serving layout and its inner
+    searcher's trained artifacts to one .npz, the JAX package's file: a
+    serving restart then skips the host re-layout (tree: the per-partition
+    re-shard and re-rank encode; sweep: augment, shuffle and re-rank
+    encode). Supports ``ShardedTreeXHybridSearcher`` and
+    ``ShardedBlockSweepSearcher``."""
+    from scann_tpu_torch.parallel.sharded_flagship import (
+        ShardedBlockSweepSearcher,
+        ShardedTreeXHybridSearcher,
+        _compute_sweep_shard_layout,
+        _compute_tree_shard_layout,
+    )
+
+    extra_meta = {}
+    if isinstance(sharded, ShardedTreeXHybridSearcher):
+        kind = "tree_ah"
+        layout = _compute_tree_shard_layout(sharded._inner,
+                                            sharded.mesh.shape["db"])
+        keys = tuple(k for k in ("codes", "perm", "db", "sizes", "offs",
+                                 "tok") if layout.get(k) is not None)
+        extra_meta["layout_l_cap"] = int(layout["l_cap"])
+        # the residual-anchored int8 codec's parameters (None otherwise)
+        extra_meta["layout_dequant"] = layout.get("dequant")
+    elif isinstance(sharded, ShardedBlockSweepSearcher):
+        kind = "block_sweep"
+        layout = _compute_sweep_shard_layout(sharded._inner,
+                                             sharded.mesh.shape["db"])
+        keys = tuple(k for k in ("aug", "rdb", "inv", "aug_scales")
+                     if layout.get(k) is not None)
+        extra_meta["layout_blk"] = int(layout["blk"])
+        extra_meta["layout_aug_sn"] = float(layout["aug_sn"])
+        extra_meta["layout_dequant"] = layout["dequant"]
+        extra_meta["layout_has_inv"] = layout["inv"] is not None
+    else:
+        raise ScannError.unimplemented(
+            "save_sharded_layout supports ShardedTreeXHybridSearcher and "
+            "ShardedBlockSweepSearcher")
+    inner_arrays, inner_meta = _serialize(sharded._inner)
+    dtypes = {}
+    arrays = {f"inner__{k}": v for k, v in inner_arrays.items()}
+    for k in keys:
+        arrays[f"layout__{k}"], dtypes[k] = _dtype_safe_store(layout[k])
+    meta = {
+        "format_version": _FORMAT_VERSION,
+        "sharded_kind": kind,
+        "inner": inner_meta,
+        "layout_n_sh": int(layout["n_sh"]),
+        "layout_dtypes": dtypes,
+        **extra_meta,
+    }
+    np.savez_compressed(path, __meta__=np.frombuffer(
+        json.dumps(meta).encode(), dtype=np.uint8), **arrays)
+
+
+def load_sharded_layout(path: str, cls=None, mesh=None, force_kernel=None,
+                        device=None):
+    """Restore a wrapper saved with :func:`save_sharded_layout` by either
+    package: the inner searcher on ``device`` (default: the mesh's home
+    device) and the per-shard slabs from disk onto the shards' devices.
+    ``mesh`` defaults to the visible CUDA devices."""
+    from scann_tpu_torch.parallel.mesh import make_mesh
+    from scann_tpu_torch.parallel.sharded_flagship import (
+        ShardedBlockSweepSearcher,
+        ShardedTreeXHybridSearcher,
+    )
+
+    with np.load(path, allow_pickle=False) as z:
+        meta = json.loads(bytes(z["__meta__"]).decode())
+        if meta.get("format_version") != _FORMAT_VERSION:
+            raise ScannError.failed_precondition(
+                f"unsupported layout format {meta.get('format_version')}")
+        arrays = {k: z[k] for k in z.files if k != "__meta__"}
+
+    kind = meta.get("sharded_kind")
+    if cls is None:
+        cls = {"tree_ah": ShardedTreeXHybridSearcher,
+               "block_sweep": ShardedBlockSweepSearcher}.get(kind)
+        if cls is None:
+            raise ScannError.unimplemented(
+                f"unknown sharded layout kind {kind!r}")
+    mesh = mesh or make_mesh(axis_names=("db",))
+    inner = from_numpy_state(
+        {k[len("inner__"):]: v for k, v in arrays.items()
+         if k.startswith("inner__")}, meta["inner"],
+        device if device is not None else mesh.home())
+    dtypes = meta.get("layout_dtypes", {})
+    layout = {}
+    for k, v in arrays.items():
+        if k.startswith("layout__"):
+            name = k[len("layout__"):]
+            layout[name] = _dtype_safe_load(v, dtypes.get(name, str(v.dtype)))
+    layout["n_sh"] = meta["layout_n_sh"]
+    if kind == "tree_ah":
+        layout["l_cap"] = meta["layout_l_cap"]
+        layout["dequant"] = meta.get("layout_dequant")
+        return cls(inner, mesh, force_kernel=force_kernel, layout=layout)
+    layout["blk"] = meta["layout_blk"]
+    layout["aug_sn"] = meta["layout_aug_sn"]
+    layout["dequant"] = meta["layout_dequant"]
+    if not meta.get("layout_has_inv", False):
+        layout["inv"] = None
+    return cls(inner, mesh, layout=layout)

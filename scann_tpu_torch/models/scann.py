@@ -16,8 +16,9 @@ with the parameters the config implies. ``auto_config``, ``Scann.auto`` and
 ``ScannBuilder.auto()`` choose the config from the dataset's scale, the
 card's profile (``utils/chip_profile``) and, given a recall target, sample
 statistics (``utils/advisor``) and tuned serving parameters
-(``utils/autotune``). A ``mesh`` needs the sharded searchers and raises
-``NotImplementedError`` naming its ROADMAP.md item (11).
+(``utils/autotune``); given a ``mesh``, ``Scann.auto`` builds and serves
+a sharded tree-x-AH (``parallel/sharded_flagship``) when the rows pass one
+card's budget.
 """
 
 from __future__ import annotations
@@ -63,12 +64,6 @@ class SearchMode(enum.Enum):
     PARTITIONED = "Partitioned"
     HASHED = "Hashed"
     TREE_AH = "TreeAH"
-
-
-def _mesh_unported() -> NotImplementedError:
-    return NotImplementedError(
-        "a mesh needs the sharded searchers, which are not ported yet "
-        "(ROADMAP.md queue 1, item 11: multiple GPUs)")
 
 
 def _hash_to_ah_config(hc: HashConfig, for_tree_ah: bool,
@@ -208,8 +203,8 @@ class Scann(Searcher):
         self.device = require_device(device)
         self._dataset = dataset
         self._config = config
-        # the mesh-aware auto() (ROADMAP.md item 11) records its decision
-        # here, as the JAX facade does; describe() reports it
+        # the mesh-aware auto() records its decision here, as the JAX
+        # facade does; describe() reports it
         self._auto_decision = None
         self.default_params: Optional[SearchParameters] = None
         self.autotune_result = None
@@ -307,10 +302,16 @@ class Scann(Searcher):
         ``tune_queries`` (default: 256 sampled rows of the dataset) and
         become the facade's defaults, so a search without explicit
         parameters meets the target. The host draws are the JAX package's,
-        in its order, so both packages sample the same rows. A ``mesh``
-        raises: it needs the sharded searchers (ROADMAP.md item 11)."""
-        if mesh is not None:
-            raise _mesh_unported()
+        in its order, so both packages sample the same rows.
+
+        ``mesh`` (a :class:`~scann_tpu_torch.parallel.mesh.Mesh` over a
+        "db" axis) makes the choice mesh-aware, as in the JAX package: when
+        the re-rank copy of the rows passes the one-card budget (the
+        profile's ``f32_rerank_max_bytes``), auto() takes the tree
+        architecture, builds it over the mesh with the rows only ever
+        sharded (``ShardedTreeXHybridSearcher.build``) and serves the
+        sharded wrapper; within the budget it keeps the single-device
+        build. :meth:`describe` reports the decision."""
         n, dim = dataset.size, dataset.dimensionality
         rng = np.random.default_rng(seed)
         data = None
@@ -324,7 +325,44 @@ class Scann(Searcher):
             cfg = advise_config(n, dim, data[sample_idx], measure,
                                 target_recall, seed=seed, device=device)
             cfg.num_neighbors = 10
-        self = cls(dataset, cfg, device=device)
+
+        self = None
+        if mesh is not None and mesh.devices.size > 1:
+            from scann_tpu_torch.utils.chip_profile import load_profile
+
+            prof = load_profile()
+            rdt = _rerank_dtype_of(cfg.exact_reordering)
+            itemsize = {"float32": 4, "bfloat16": 2, "int8": 1}[rdt]
+            serving_bytes = n * dim * itemsize
+            budget = int(prof.f32_rerank_max_bytes)
+            shards_needed = max(1, -(-serving_bytes // budget))
+            if shards_needed > 1:
+                if cfg.partitioning is None or cfg.hash is None:
+                    # past one card's budget the sweep's two copies of the
+                    # rows bind harder still: the tree it is
+                    cfg = auto_config(n, dim, measure, force_tree=True)
+                from scann_tpu_torch.parallel.sharded_flagship import (
+                    ShardedTreeXHybridSearcher,
+                )
+
+                impl = ShardedTreeXHybridSearcher.build(
+                    dataset, _tree_cfg_of(cfg), mesh)
+                self = cls(dataset, cfg, _impl=impl,
+                           _mode=SearchMode.TREE_AH, device=device)
+                self._auto_decision = {
+                    "sharded": True, "shards": int(mesh.devices.size),
+                    "shards_needed": int(shards_needed),
+                    "serving_bytes": int(serving_bytes),
+                    "per_chip_budget": budget,
+                    "reason": "serving bytes exceed one-chip budget",
+                }
+        if self is None:
+            self = cls(dataset, cfg, device=device)
+            if mesh is not None:
+                self._auto_decision = {
+                    "sharded": False,
+                    "reason": "fits one chip; single-device build kept",
+                }
         if target_recall is None:
             return self
         if data is None:

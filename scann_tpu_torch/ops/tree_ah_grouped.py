@@ -144,20 +144,24 @@ def tree_ah_grouped_scores_reference(
     masked slots hold bf16(``MASKED_DISTANCE``). int8 LUTs sum exactly in
     int32 and come back as int16, masked slots ``I16_MASK``. Works on any
     device; memory is one [NG, q_cap, l_cap] accumulator plus the
-    [rows, NG, l_cap] gathered code bytes."""
-    ng, s_pad, c = _check_args(luts_grouped, codes_csr, grp_offsets,
-                               grp_sizes, l_cap=l_cap, l_tile=l_tile,
-                               q_cap=q_cap, packed=packed)
+    [rows, NG, l_cap] gathered code bytes. Groups of size 0 (every slot
+    masked) are not summed: a sharded searcher's shard gives size 0 to
+    the many groups of partitions it does not own."""
+    ng_all, s_pad, c = _check_args(luts_grouped, codes_csr, grp_offsets,
+                                   grp_sizes, l_cap=l_cap, l_tile=l_tile,
+                                   q_cap=q_cap, packed=packed)
     s_rows, n_csr = codes_csr.shape
     device = codes_csr.device
     int8 = luts_grouped.dtype == torch.int8
+    live = torch.nonzero(grp_sizes > 0).flatten()
+    ng = len(live)
+    luts_live = luts_grouped.view(ng_all, q_cap, -1)[live]
     if int8:
-        luts = luts_grouped.int().view(ng, q_cap, s_pad, c)
+        luts = luts_live.int().view(ng, q_cap, s_pad, c)
     else:
-        luts = luts_grouped.to(torch.bfloat16).float().view(ng, q_cap, s_pad,
-                                                            c)
+        luts = luts_live.to(torch.bfloat16).float().view(ng, q_cap, s_pad, c)
     iota_l = torch.arange(l_cap, device=device)
-    cols = (grp_offsets.long()[:, None] + iota_l).clamp_max(n_csr - 1)
+    cols = (grp_offsets.long()[live][:, None] + iota_l).clamp_max(n_csr - 1)
     codes_g = codes_csr[:, cols]                             # [rows, NG, l_cap]
     acc = torch.zeros(ng, q_cap, l_cap, dtype=luts.dtype, device=device)
 
@@ -171,13 +175,13 @@ def tree_ah_grouped_scores_reference(
             add(s_rows + j, codes_g[j] >> 4)
         else:
             add(j, codes_g[j])
-    valid = iota_l[None, :] < grp_sizes.long()[:, None]     # [NG, l_cap]
-    if int8:
-        out = torch.where(valid[:, None, :], acc, I16_MASK).to(torch.int16)
-    else:
-        out = torch.where(valid[:, None, :], acc, torch.tensor(
-            float(MASKED_DISTANCE), device=device)).to(torch.bfloat16)
-    return out.reshape(ng * q_cap, l_cap)
+    valid = iota_l[None, :] < grp_sizes.long()[live][:, None]  # [NG, l_cap]
+    fill = I16_MASK if int8 else float(MASKED_DISTANCE)
+    out_dtype = torch.int16 if int8 else torch.bfloat16
+    out = torch.full((ng_all, q_cap, l_cap), fill, dtype=out_dtype,
+                     device=device)
+    out[live] = torch.where(valid[:, None, :], acc, fill).to(out_dtype)
+    return out.reshape(ng_all * q_cap, l_cap)
 
 
 @dataclass(frozen=True)

@@ -50,8 +50,9 @@ class AutotuneResult:
 
 def _unwrap(searcher):
     """Innermost concrete searcher: through the Scann facade (``_impl``)
-    and a sharded wrapper (``_inner``, once multiple GPUs are ported); the
-    search itself still goes through the outer object."""
+    and a sharded wrapper (``_inner``) — the partition structure and the
+    dataset live there; the search itself still goes through the outer
+    object."""
     inner = getattr(searcher, "_impl", searcher)
     return getattr(inner, "_inner", inner)
 

@@ -1788,3 +1788,180 @@ def test_harness_on_card_matches_the_cpu(algorithm, tmp_path):
     assert reports[0].recall_at_k == reports[1].recall_at_k
     assert dataclasses.asdict(reports[0]).keys() == \
         dataclasses.asdict(reports[1]).keys()
+
+
+# -- sharded searchers on a mesh of 4 shards of one card ----------------------
+
+
+def _meshes(n=4):
+    from scann_tpu_torch.parallel import make_mesh
+
+    return (make_mesh(devices=[torch.device("cuda", 0)] * n),
+            make_mesh(devices=[torch.device("cpu")] * n))
+
+
+def _same_on_card(got, want):
+    np.testing.assert_array_equal(got[0], want[0])
+    np.testing.assert_allclose(got[1], want[1], rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["grouped", "xla"])
+def test_sharded_tree_ah_on_card_matches_the_cpu(kernel, tmp_path):
+    """ShardedTreeXHybridSearcher on [cuda:0] * 4 against the same wrapper
+    on 4 CPU shards over one index: equal ids, distances within 1e-5
+    relative; #1 (grouped) or #10 (per pair) launched once a shard a batch;
+    a save_layout / load_layout round trip on the card bit-identical; the
+    shards' tensors on the card."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from scann_tpu_torch import (DenseDataset, Scann, SearchParameters,
+                                 load_index, save_index)
+    from scann_tpu_torch.ops import tree_ah_leaf as tal
+    from scann_tpu_torch.parallel import ShardedTreeXHybridSearcher
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    db, q = _facade_data()
+    cpu = Scann(DenseDataset(db), _facade_config("tree_ah"),
+                device="cpu").impl
+    path = str(tmp_path / "tree.npz")
+    save_index(path, cpu)
+    card_mesh, cpu_mesh = _meshes()
+    card = ShardedTreeXHybridSearcher(load_index(path), card_mesh,
+                                      force_kernel=kernel)
+    host = ShardedTreeXHybridSearcher(cpu, cpu_mesh, force_kernel=kernel)
+    assert all(c.is_cuda for c in card._codes)
+    params = SearchParameters(pre_reordering_num_neighbors=100)
+    count = ((lambda: tag.LAUNCHES) if kernel == "grouped"
+             else (lambda: tal.LAUNCHES))
+    before = count()
+    got = card.search_batched_arrays(q, 10, params)
+    torch.cuda.synchronize()
+    assert count() == before + 4
+    _same_on_card(got, host.search_batched_arrays(q, 10, params))
+    ids, _ = card.search_batched_tensors(torch.from_numpy(q).cuda(), 10,
+                                         params)
+    assert ids.is_cuda
+    np.testing.assert_array_equal(ids.cpu().numpy(), got[0])
+    lpath = str(tmp_path / "layout.npz")
+    card.save_layout(lpath)
+    back = ShardedTreeXHybridSearcher.load_layout(lpath, card_mesh,
+                                                  force_kernel=kernel)
+    again = back.search_batched_arrays(q, 10, params)
+    np.testing.assert_array_equal(again[0], got[0])
+    np.testing.assert_array_equal(again[1], got[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cfg", [dict(), dict(top2=True),
+                                 dict(sweep_dtype="int8")],
+                         ids=["compact", "top2", "int8"])
+def test_sharded_block_sweep_on_card_matches_the_cpu(cfg):
+    """ShardedBlockSweepSearcher on [cuda:0] * 4 (each shard through the
+    kernel ``sweep_plan`` routes it to) against 4 CPU shards: equal ids,
+    distances within 1e-5 relative, a sweep launched a shard a batch, and
+    an allowlist through the penalty stream."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from scann_tpu_torch import (BlockSweepConfig, BlockSweepSearcher,
+                                 DenseDataset)
+    from scann_tpu_torch.ops import sweep as sw
+    from scann_tpu_torch.parallel import ShardedBlockSweepSearcher
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    db, q = _facade_data()
+    bc = BlockSweepConfig(block_r=32, pre_reorder_k=64, **cfg)
+    card_mesh, cpu_mesh = _meshes()
+    card = ShardedBlockSweepSearcher(
+        BlockSweepSearcher(DenseDataset(db), bc), card_mesh)
+    host = ShardedBlockSweepSearcher(
+        BlockSweepSearcher(DenseDataset(db), bc, device="cpu"), cpu_mesh)
+    before = sum(sw.LAUNCHES.values())
+    got = card.search_batched_arrays(q, 10)
+    torch.cuda.synchronize()
+    assert sum(sw.LAUNCHES.values()) == before + 4
+    _same_on_card(got, host.search_batched_arrays(q, 10))
+    allow = np.zeros(len(db), bool)
+    allow[::3] = True
+    got = card.search_batched_arrays(q, 10, allow_mask=allow)
+    assert np.all(allow[got[0][got[0] >= 0]])
+    _same_on_card(got, host.search_batched_arrays(q, 10, allow_mask=allow))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["fused", "xla"])
+def test_sharded_hasher_on_card_matches_the_cpu(kernel):
+    """ShardedAsymmetricHasher on [cuda:0] * 4 against 4 CPU shards: the
+    fused LUT16 sweep (#7, bit-identical to its twin) launched once a
+    shard, or the plain score path; equal ids, distances within 1e-5
+    relative."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from scann_tpu_torch import (AsymmetricHasher, AsymmetricHasherConfig,
+                                 DenseDataset, SearchParameters)
+    from scann_tpu_torch.ops import scoring_kernels as sk
+    from scann_tpu_torch.parallel import ShardedAsymmetricHasher
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    db, q = _facade_data()
+    h = AsymmetricHasher(AsymmetricHasherConfig(
+        num_codes=16, num_subspaces=16, seed=5), device="cpu").build(
+        DenseDataset(db))
+    card_mesh, cpu_mesh = _meshes()
+    card = ShardedAsymmetricHasher(h, card_mesh, force_kernel=kernel,
+                                   fused_r=8)
+    host = ShardedAsymmetricHasher(h, cpu_mesh, force_kernel=kernel,
+                                   fused_r=8)
+    params = SearchParameters(pre_reordering_num_neighbors=30)
+    before = sk.LAUNCHES["lut16_fused_sweep"]
+    got = card.search_batched_arrays(q, 10, params)
+    torch.cuda.synchronize()
+    assert sk.LAUNCHES["lut16_fused_sweep"] == before + (
+        4 if kernel == "fused" else 0)
+    _same_on_card(got, host.search_batched_arrays(q, 10, params))
+
+
+@pytest.mark.cuda
+def test_sharded_exact_search_and_build_on_card():
+    """ShardedBruteForceSearcher and one sharded k-means step on
+    [cuda:0] * 4 against 4 CPU shards (equal ids; centres within 1e-4),
+    and the sharded build on the card serving at recall@10 >= 0.9 with
+    #1 launched."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from scann_tpu_torch import (AsymmetricHasherConfig, DenseDataset,
+                                 SearchParameters, TreeXHybridConfig)
+    from scann_tpu_torch.parallel import (ShardedBruteForceSearcher,
+                                          ShardedTreeXHybridSearcher,
+                                          shard_rows, sharded_kmeans_step)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    db, q = _facade_data()
+    card_mesh, cpu_mesh = _meshes()
+    got = ShardedBruteForceSearcher(DenseDataset(db), mesh=card_mesh
+                                    ).search_batched_arrays(q, 10)
+    want = ShardedBruteForceSearcher(DenseDataset(db), mesh=cpu_mesh
+                                     ).search_batched_arrays(q, 10)
+    _same_on_card(got, want)
+    cen = torch.from_numpy(db[:24].copy())
+    outs = []
+    for mesh in (card_mesh, cpu_mesh):
+        sh, n = shard_rows(mesh, db)
+        outs.append([t.cpu() if torch.is_tensor(t) else t for t in
+                     sharded_kmeans_step(mesh, 24)(sh, cen, n)])
+    np.testing.assert_allclose(outs[0][0].numpy(), outs[1][0].numpy(),
+                               rtol=1e-4, atol=1e-4)
+    np.testing.assert_array_equal(outs[0][1].numpy(), outs[1][1].numpy())
+    built = ShardedTreeXHybridSearcher.build(DenseDataset(db), TreeXHybridConfig(
+        num_partitions=32, partitions_to_search=8,
+        hash_config=AsymmetricHasherConfig(num_codes=16, num_subspaces=16,
+                                           seed=42, max_iterations=8)),
+        card_mesh)
+    before = tag.LAUNCHES
+    idx, _ = built.search_batched_arrays(q, 10, SearchParameters(
+        pre_reordering_num_neighbors=100))
+    torch.cuda.synchronize()
+    assert tag.LAUNCHES == before + 4
+    recall = np.mean([len(set(a.tolist()) & set(b.tolist())) / 10
+                      for a, b in zip(idx, want[0])])
+    assert recall >= 0.9, recall

@@ -4,7 +4,7 @@ port against the JAX package on the CPU: the eleven facade cases of
 ``auto``, the same mode and inner searcher class for every config, the
 same results when the JAX facade's index state is carried across (its
 file, read by the port's ``load_index``), configs that serialize to the
-JAX package's very dict, and a mesh raising.
+JAX package's very dict, and ``Scann.auto``'s routing over a mesh.
 
 Tolerance: results equal the JAX facade's, ids exactly and distances
 within 1e-5 relative (the same float32 arithmetic in another order). The
@@ -279,15 +279,69 @@ def test_block_sweep_honors_reordering_depth(small_db):
 # -- what waits for other items ---------------------------------------------
 
 
-def test_auto_with_a_mesh_raises_naming_item_11(small_db):
-    """``Scann.auto`` runs without a mesh (``test_torch_autotune.py``); a
-    mesh needs the sharded searchers and raises naming their ROADMAP item,
-    before anything is built."""
-    ds = T.DenseDataset(small_db)
-    with pytest.raises(NotImplementedError, match="11"):
-        T.Scann.auto(ds, mesh=object())
-    with pytest.raises(NotImplementedError, match="11"):
-        T.Scann.auto(ds, target_recall=0.9, mesh=object(), device="cpu")
+def test_auto_with_a_mesh_raises_naming_item_11(tmp_path, monkeypatch):
+    """``Scann.auto(mesh=...)`` routes as the JAX facade does: past the
+    profile's one-card budget it builds and serves the sharded tree-x-AH
+    (the port on a mesh of 8 CPU shards, JAX on its 8 virtual devices),
+    with the same decision record; with ``target_recall`` it tunes the
+    sharded searcher to the target; under the budget it keeps the
+    single-device build. (The test once pinned the ``NotImplementedError``
+    a mesh raised before the sharded searchers were ported; it keeps its
+    name.)"""
+    from scann_tpu.parallel.mesh import make_mesh as jax_mesh
+    from scann_tpu.parallel.sharded_flagship import (
+        ShardedTreeXHybridSearcher as JaxSharded,
+    )
+    from scann_tpu.utils import chip_profile as jcp
+    from scann_tpu_torch.parallel import ShardedTreeXHybridSearcher, make_mesh
+    from scann_tpu_torch.utils import chip_profile as pcp
+
+    prof = dict(sweep_max_n=2000, f32_rerank_max_bytes=100_000,
+                partition_density=600)
+    path = str(tmp_path / "prof.json")
+
+    def set_profile(**fields):
+        jcp.save_profile(jcp.ChipProfile(source="test",
+                                         **dict(prof, **fields)), path)
+        monkeypatch.setenv("SCANN_TPU_CHIP_PROFILE", path)
+        monkeypatch.setenv(pcp.PROFILE_ENV, path)
+
+    set_profile()
+    rng = np.random.default_rng(5)
+    centers = rng.normal(size=(32, 16)).astype(np.float32) * 3.0
+    db = (centers[rng.integers(0, 32, size=5000)]
+          + rng.normal(size=(5000, 16)) * 0.5).astype(np.float32)
+    q = (centers[rng.integers(0, 32, size=30)]
+         + rng.normal(size=(30, 16)) * 0.5).astype(np.float32)
+    gt = np.argsort(((q[:, None, :] - db[None]) ** 2).sum(-1),
+                    axis=1)[:, :10]
+    mesh = make_mesh(devices=[torch.device("cpu")] * 8)
+
+    got = T.Scann.auto(T.DenseDataset(db), mesh=mesh, seed=0, device="cpu")
+    want = JaxScann.auto(JaxDataset(db), mesh=jax_mesh(8, axis_names=("db",)),
+                         seed=0)
+    assert isinstance(got.impl, ShardedTreeXHybridSearcher)
+    assert isinstance(want.impl, JaxSharded)
+    assert got.search_mode == T.SearchMode.TREE_AH
+    assert got.describe()["auto"] == want.describe()["auto"]
+    assert got.describe()["auto"]["sharded"] is True
+    assert got.describe()["auto"]["shards_needed"] > 1
+
+    tuned = T.Scann.auto(T.DenseDataset(db), target_recall=0.9, mesh=mesh,
+                         seed=0, device="cpu")
+    assert isinstance(tuned.impl, ShardedTreeXHybridSearcher)
+    idx, _ = tuned.search_batched_arrays(q, 10)
+    rec = np.mean([len(set(a.tolist()) & set(b.tolist())) / 10.0
+                   for a, b in zip(idx, gt)])
+    assert rec >= 0.9, rec
+
+    # under the budget with a mesh: the single-device build, stamped
+    set_profile(f32_rerank_max_bytes=10**12)
+    kept = T.Scann.auto(T.DenseDataset(db), mesh=mesh, seed=0, device="cpu")
+    assert not isinstance(kept.impl, ShardedTreeXHybridSearcher)
+    assert kept.describe()["auto"] == {
+        "sharded": False,
+        "reason": "fits one chip; single-device build kept"}
 
 
 @pytest.mark.skipif(torch.cuda.is_available(), reason="checks the CPU host")

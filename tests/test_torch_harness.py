@@ -233,9 +233,14 @@ def test_run_benchmark_autotune_target_matches_jax(shared):
 
 def test_run_benchmark_refuses_what_it_cannot_serve(shared, tmp_path):
     """A loaded index of another dataset raises as in the JAX harness;
-    ``--shards`` > 1 raises naming ROADMAP item 11 instead of serving one
-    card."""
-    _, pdata = shared
+    ``--shards 2`` serves brute force, the block sweep and tree-x-AH
+    through the database-sharded wrappers (on the CPU, two CPU shards; the
+    JAX harness on two of its virtual devices) with the JAX report's
+    shard count and recall, and refuses an algorithm with no sharded
+    wrapper as the JAX harness does. (The test once also pinned the
+    ``NotImplementedError`` of ``--shards`` before the sharded searchers
+    were ported.)"""
+    jdata, pdata = shared
     path = str(tmp_path / "bf.npz")
     phb.run_benchmark("brute-force", pdata, _args(phb, [
         "--batch-size", "8", "--save-index", path]))
@@ -244,13 +249,53 @@ def test_run_benchmark_refuses_what_it_cannot_serve(shared, tmp_path):
     with pytest.raises(ValueError, match="does not match"):
         phb.run_benchmark("brute-force", other, _args(phb, [
             "--batch-size", "8", "--load-index", path]))
-    with pytest.raises(NotImplementedError, match="11"):
-        phb.run_benchmark("brute-force", pdata, _args(phb, [
-            "--shards", "2"]))
+    one_id = 1.0 / (len(pdata.test) * K)
+    for algo, extra, tol in (
+            ("brute-force", [], one_id),
+            ("block-sweep", ["--reorder", "60"], one_id),
+            ("tree-ah", ["--num-partitions", "16", "--partitions-to-search",
+                         "8", "--num-blocks", "4", "--reorder", "100"],
+             TRAINED_TOL)):
+        argv = ["--batch-size", "16", "--shards", "2", *extra]
+        got = phb.run_benchmark(algo, pdata, _args(phb, argv))
+        want = jhb.run_benchmark(algo, jdata, _args(jhb, argv))
+        assert got.shards == want.shards == 2
+        assert abs(got.recall_at_k - want.recall_at_k) <= tol + 1e-12, (
+            algo, got.recall_at_k, want.recall_at_k)
+    for package, data in ((phb, pdata), (jhb, jdata)):
+        with pytest.raises(ValueError, match="--shards supports"):
+            package.run_benchmark("hashed", data, _args(package, [
+                "--batch-size", "16", "--shards", "2"]))
     if not torch.cuda.is_available():
         # the default device is the card: without one it raises
         with pytest.raises(RuntimeError, match="no CUDA device"):
             phb.run_benchmark("brute-force", pdata, _args(phb, [], "cuda"))
+
+
+def test_run_benchmark_shards_with_save_and_autotune(shared, tmp_path):
+    """``--shards`` composes with ``--save-index`` (the file holds the
+    single-device index, saved before sharding, which either package
+    loads) and ``--autotune-target`` (the tuner reaches the partitions
+    through the sharded wrapper and sweeps the leaves grid), as in the JAX
+    harness (``tests/test_scann_facade.py``)."""
+    from scann_tpu.io import load_index as jax_load_index
+
+    _, pdata = shared
+    path = str(tmp_path / "sh.npz")
+    got = phb.run_benchmark("tree-ah", pdata, _args(phb, [
+        "--num-partitions", "16", "--partitions-to-search", "4",
+        "--num-blocks", "4", "--reorder", "40", "--batch-size", "32",
+        "--shards", "2", "--save-index", path, "--autotune-target", "0.95",
+        "--autotune-leaves", "4,8,16", "--autotune-prek", "40,100"]))
+    assert got.shards == 2 and got.index_saved_to == path
+    assert got.autotuned_num_leaves_to_search in (4, 8, 16)
+    assert got.autotune_target_met and got.autotune_sample_recall >= 0.95
+    assert got.recall_at_k >= 0.9
+    assert jax_load_index(path).dataset_size() == len(pdata.train)
+    from scann_tpu_torch.io import load_index
+
+    assert type(load_index(path, device="cpu")).__name__ == \
+        "TreeXHybridSearcher"
 
 
 def test_cli_prints_one_report(capsys):

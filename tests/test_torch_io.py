@@ -265,12 +265,20 @@ def test_loader_rejects_foreign_files(data, tmp_path):
                           ({k: v for k, v in meta.items() if k != "kind"},
                            ScannError),
                           (dict(meta, sharded_kind="tree_ah"),
-                           NotImplementedError),
+                           ScannError),
                           (dict(meta, kind="nonsense"), ScannError)):
         bad = str(tmp_path / "bad.npz")
         np.savez_compressed(bad, __meta__=np.frombuffer(
             json.dumps(bad_meta).encode(), dtype=np.uint8), **arrays)
-        with pytest.raises(err):
+        with pytest.raises(err) as got:
             T.load_index(bad, device="cpu")
+        if "sharded_kind" in bad_meta:
+            # a sharded serving layout names its loader, in JAX's words
+            from scann_tpu.errors import ScannError as JaxError
+
+            with pytest.raises(JaxError) as want:
+                jax_load_index(bad)
+            assert str(got.value) == str(want.value)
+            assert "load_sharded_layout" in str(got.value)
     with pytest.raises(ScannError):
         T.save_index(str(tmp_path / "x.npz"), object())

@@ -29,6 +29,7 @@ from scann_tpu.models.tree_x_hybrid import (
 )
 from scann_tpu.ops.distances import DistanceMeasure as JaxMeasure
 import scann_tpu_torch.io as tio
+from scann_tpu_torch.errors import ScannError
 from scann_tpu_torch.models import tree_x_hybrid as ptx
 from scann_tpu_torch.models.searcher import SearchParameters
 from scann_tpu_torch.types import MASKED_DISTANCE as MASKED
@@ -165,10 +166,12 @@ def test_post_epsilon_masks_far_results(index):
 
 
 def test_loader_rejects_unported_state(index, tmp_path):
-    """What the port cannot serve yet (a sharded serving layout) still
-    raises naming its ROADMAP item; the index's state read as a
-    partitioned index, other measures, low-precision stores, spilled CSR
-    tables and restricts load and serve."""
+    """A sharded serving layout's header is refused by ``load_index``
+    with the JAX package's message naming its loader (it once raised
+    naming a ROADMAP item, before the sharded searchers were ported); the
+    index's state read as a partitioned index, other measures,
+    low-precision stores, spilled CSR tables and restricts load and
+    serve."""
     path, q = index
     with np.load(path, allow_pickle=False) as z:
         meta = json.loads(bytes(z["__meta__"]).decode())
@@ -177,7 +180,7 @@ def test_loader_rejects_unported_state(index, tmp_path):
     np.savez_compressed(sharded, __meta__=np.frombuffer(json.dumps(
         dict(meta, sharded_kind="tree_ah")).encode(), dtype=np.uint8),
         **arrays)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ScannError, match="load_sharded_layout"):
         tio.load_index(sharded, device="cpu")
     part = tio.from_numpy_state(arrays, dict(meta, kind="partitioned", p=P),
                                 device="cpu")
