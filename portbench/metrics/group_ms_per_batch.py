@@ -1,0 +1,11 @@
+"""group_ms_per_batch (ms, device trace): device time of the operations
+the program enqueues inside its ``tree_ah.group`` span (pairs grouped by
+partition, the tables' bf16 cast, their even-first subspace order and
+the gather into group slots) over the traced requests; left out where
+``portbench/stages.py`` cannot attribute the window's operations."""
+
+from portbench.stages import stage_ms_per_batch
+
+
+def read(run):
+    return stage_ms_per_batch(run, "tree_ah.group")

@@ -1,0 +1,12 @@
+"""luts_ms_per_batch (ms, device trace): device time of the operations
+the program enqueues inside its ``tree_ah.luts`` span (the per-(query,
+partition) lookup tables: residual queries and their LUTs, or the
+inner-product tables and the centroid term) over the traced requests;
+left out where ``portbench/stages.py`` cannot attribute the window's
+operations."""
+
+from portbench.stages import stage_ms_per_batch
+
+
+def read(run):
+    return stage_ms_per_batch(run, "tree_ah.luts")

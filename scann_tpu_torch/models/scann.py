@@ -57,6 +57,7 @@ from scann_tpu_torch.partitioning.tree_partitioner import (
     TreePartitionerConfig,
 )
 from scann_tpu_torch.types import DEFAULT_DEVICE, require_device
+from scann_tpu_torch.utils.trace import span
 
 
 class SearchMode(enum.Enum):
@@ -463,8 +464,9 @@ class Scann(Searcher):
                                query_config=None):
         """(ids [B, k] int64, distances [B, k] float32) on the device, from
         the inner searcher's tensor search; no host copy of the results."""
-        k, params = self.search_arguments(k, params, query_config)
-        return self._impl.search_batched_tensors(queries, k, params)
+        with span("scann.search"):
+            k, params = self.search_arguments(k, params, query_config)
+            return self._impl.search_batched_tensors(queries, k, params)
 
 
 class ScannBuilder:

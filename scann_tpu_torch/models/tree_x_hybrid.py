@@ -22,6 +22,12 @@ Search, one batch of queries on the device with no host round trip:
     -> top-pre_k (x multiplicity under spilling, then keep-best-per-id)
     -> rows from the re-rank store -> exact re-rank -> top-k   (_finalize)
 
+Each stage runs inside a span (``utils/trace.span``) that any
+``torch.profiler`` trace shows: ``tree_ah.partitions``, ``tree_ah.luts``,
+``tree_ah.group``, ``tree_ah.leaf``, ``tree_ah.mask`` (restricts),
+``tree_ah.preselect`` (the approximate top-pre_k) and ``tree_ah.rerank``,
+under ``tree_ah.search`` around the searcher's whole search.
+
 The searcher serves the grouped path. Measures: squared L2 (and L2-like),
 COSINE (rows normalized at build, queries at search) and DOT_PRODUCT /
 GENERAL_INNER_PRODUCT (-dot tables, the centroid term folded into subspace
@@ -81,6 +87,7 @@ from scann_tpu_torch.utils.reordering import (
     gather_csr_rerank_rows,
     gather_rerank_rows,
 )
+from scann_tpu_torch.utils.trace import span
 
 RERANK_DTYPES = ("float32", "bfloat16", "int8", "int16")
 
@@ -283,19 +290,23 @@ def leaf_scores_grouped(luts_flat: torch.Tensor, parts: torch.Tensor,
     ``scale * (s + 128 * s_pad) + s_pad * lo`` (real units survive, so
     epsilons keep their meaning)."""
     s_pad = 2 * codes_csr.shape[0] if packed else codes_csr.shape[0]
-    if int8_luts:
-        luts_flat, lo, scale = quantize_luts_int8(luts_flat)
-    luts_grouped, grp_off, grp_size, slot = _group_luts(
-        luts_flat, parts, csr_offsets, part_sizes, s_pad=s_pad, q_cap=q_cap,
-        packed=packed)
-    scores_g = tree_ah_grouped_scores(
-        luts_grouped, codes_csr, grp_off, grp_size, l_cap=l_cap,
-        l_tile=l_tile, q_cap=q_cap, packed=packed)
-    flat = _leaf_major(scores_g, slot, b=parts.shape[0], p=p, l_cap=l_cap)
-    if int8_luts:
-        real = scale * (flat.float() + 128.0 * s_pad) + s_pad * lo
-        flat = torch.where(flat == I16_MASK, float(MASKED_DISTANCE), real)
-    return flat
+    with span("tree_ah.group"):
+        if int8_luts:
+            luts_flat, lo, scale = quantize_luts_int8(luts_flat)
+        luts_grouped, grp_off, grp_size, slot = _group_luts(
+            luts_flat, parts, csr_offsets, part_sizes, s_pad=s_pad,
+            q_cap=q_cap, packed=packed)
+    with span("tree_ah.leaf"):
+        scores_g = tree_ah_grouped_scores(
+            luts_grouped, codes_csr, grp_off, grp_size, l_cap=l_cap,
+            l_tile=l_tile, q_cap=q_cap, packed=packed)
+        flat = _leaf_major(scores_g, slot, b=parts.shape[0], p=p,
+                           l_cap=l_cap)
+        if int8_luts:
+            real = scale * (flat.float() + 128.0 * s_pad) + s_pad * lo
+            flat = torch.where(flat == I16_MASK, float(MASKED_DISTANCE),
+                               real)
+        return flat
 
 
 def leaf_scores_per_pair(luts_flat: torch.Tensor, parts: torch.Tensor,
@@ -308,11 +319,12 @@ def leaf_scores_per_pair(luts_flat: torch.Tensor, parts: torch.Tensor,
     The counterpart of the JAX package's ``leaf_scores_xla``."""
     b = parts.shape[0]
     s_pad = codes_csr.shape[0]
-    scores = tree_ah_leaf_scores(
-        luts_flat.reshape(b, p, s_pad, c), codes_csr,
-        csr_offsets[parts].int().contiguous(),
-        part_sizes[parts].int().contiguous(), l_cap=l_cap)
-    return scores.transpose(1, 2).reshape(b, p * l_cap)
+    with span("tree_ah.leaf"):
+        scores = tree_ah_leaf_scores(
+            luts_flat.reshape(b, p, s_pad, c), codes_csr,
+            csr_offsets[parts].int().contiguous(),
+            part_sizes[parts].int().contiguous(), l_cap=l_cap)
+        return scores.transpose(1, 2).reshape(b, p * l_cap)
 
 
 def candidate_rows_from_positions(parts: torch.Tensor,
@@ -372,56 +384,62 @@ def _finalize(db, queries: torch.Tensor, flat_scores: torch.Tensor,
     an anchored store's residual rows getting each slot's partition
     centroid (``centers``) back; copies dedup after the exact scores."""
     if not reorder:
-        kp = min(k * max(int(multiplicity), 1), flat_scores.shape[-1])
-        vals, pos = top_k_smallest(flat_scores, kp)
-        rows_sel = candidate_rows_from_positions(parts, csr_offsets, num_rows,
-                                                 pos, p=p)
-        idx = perm[rows_sel]
-        if multiplicity > 1:
-            vals, idx = dedup_top_k(vals, idx, k)
-        else:
-            vals, idx = vals[..., :k], idx[..., :k]
-        vals = vals.float()
-        vals_m = approx_to_measure_units(vals, measure)
-        missing = (vals >= MASKED_DISTANCE / 2) | (vals_m > pre_eps)
-        return (torch.where(missing, float("inf"), vals_m),
-                torch.where(missing, -1, idx))
+        with span("tree_ah.rerank"):
+            kp = min(k * max(int(multiplicity), 1), flat_scores.shape[-1])
+            vals, pos = top_k_smallest(flat_scores, kp)
+            rows_sel = candidate_rows_from_positions(parts, csr_offsets,
+                                                     num_rows, pos, p=p)
+            idx = perm[rows_sel]
+            if multiplicity > 1:
+                vals, idx = dedup_top_k(vals, idx, k)
+            else:
+                vals, idx = vals[..., :k], idx[..., :k]
+            vals = vals.float()
+            vals_m = approx_to_measure_units(vals, measure)
+            missing = (vals >= MASKED_DISTANCE / 2) | (vals_m > pre_eps)
+            return (torch.where(missing, float("inf"), vals_m),
+                    torch.where(missing, -1, idx))
 
     mult = max(int(multiplicity), 1)
     dedup_first = spill_dedup and mult > 1 and not csr_store
     width = flat_scores.shape[-1]
     sel_k = min(pre_k * mult, width) if mult > 1 else min(pre_k, width)
-    pre_vals, pre_pos = approx_top_k_smallest(flat_scores, sel_k)
-    pre_rows = candidate_rows_from_positions(
-        parts, csr_offsets, num_rows, pre_pos, p=p)         # [B, sel_k]
-    pre_vals = pre_vals.float()
-    pre_m = approx_to_measure_units(pre_vals, measure)
-    pre_valid = (pre_vals < MASKED_DISTANCE / 2) & (pre_m <= pre_eps)
-    if csr_store:
-        rows, pre_cand = gather_csr_rerank_rows(db, pre_rows,
-                                                queries.shape[-1])
-        if isinstance(db, tuple):
-            # anchored store: slot j belongs to partition parts[b, j % p]
-            rows = rows + centers[torch.gather(parts, 1, pre_pos % p)]
-    else:
-        pre_cand = perm[pre_rows]
-        if dedup_first:
-            masked = torch.where(pre_valid, pre_vals, float(MASKED_DISTANCE))
-            dvals, pre_cand = keep_best_per_id(masked, pre_cand,
-                                               min(pre_k, sel_k))
-            pre_valid = dvals < MASKED_DISTANCE / 2
-        rows = gather_rerank_rows(db, pre_cand.clamp_min(0))  # [B, pre_k, D]
-    norms = torch.sum(rows * rows, dim=-1)
-    exact = gathered_distances(measure, queries, rows, norms)
-    exact = torch.where(pre_valid, exact, float(MASKED_DISTANCE))
-    if mult > 1 and not dedup_first:
-        vals, idx = top_k_unique(exact, pre_cand, k, multiplicity)
-    else:
-        vals, pos = top_k_smallest(exact, k)
-        idx = torch.gather(pre_cand, 1, pos)
-    missing = (vals >= MASKED_DISTANCE / 2) | (vals > post_eps)
-    return (torch.where(missing, float("inf"), vals),
-            torch.where(missing, -1, idx))
+    with span("tree_ah.preselect"):
+        pre_vals, pre_pos = approx_top_k_smallest(flat_scores, sel_k)
+        pre_rows = candidate_rows_from_positions(
+            parts, csr_offsets, num_rows, pre_pos, p=p)     # [B, sel_k]
+        pre_vals = pre_vals.float()
+        pre_m = approx_to_measure_units(pre_vals, measure)
+        pre_valid = (pre_vals < MASKED_DISTANCE / 2) & (pre_m <= pre_eps)
+        if not csr_store:
+            pre_cand = perm[pre_rows]
+            if dedup_first:
+                masked = torch.where(pre_valid, pre_vals,
+                                     float(MASKED_DISTANCE))
+                dvals, pre_cand = keep_best_per_id(masked, pre_cand,
+                                                   min(pre_k, sel_k))
+                pre_valid = dvals < MASKED_DISTANCE / 2
+    with span("tree_ah.rerank"):
+        if csr_store:
+            rows, pre_cand = gather_csr_rerank_rows(db, pre_rows,
+                                                    queries.shape[-1])
+            if isinstance(db, tuple):
+                # anchored store: slot j belongs to partition parts[b, j % p]
+                rows = rows + centers[torch.gather(parts, 1, pre_pos % p)]
+        else:
+            # [B, pre_k, D]
+            rows = gather_rerank_rows(db, pre_cand.clamp_min(0))
+        norms = torch.sum(rows * rows, dim=-1)
+        exact = gathered_distances(measure, queries, rows, norms)
+        exact = torch.where(pre_valid, exact, float(MASKED_DISTANCE))
+        if mult > 1 and not dedup_first:
+            vals, idx = top_k_unique(exact, pre_cand, k, multiplicity)
+        else:
+            vals, pos = top_k_smallest(exact, k)
+            idx = torch.gather(pre_cand, 1, pos)
+        missing = (vals >= MASKED_DISTANCE / 2) | (vals > post_eps)
+        return (torch.where(missing, float("inf"), vals),
+                torch.where(missing, -1, idx))
 
 
 def tree_ah_search(
@@ -461,10 +479,13 @@ def tree_ah_search(
     """
     if leaf not in ("per_pair", "grouped"):
         raise ValueError(f"unknown leaf scorer {leaf!r}")
-    parts = _select_partitions(centers, queries, p=p, measure=measure)
+    with span("tree_ah.partitions"):
+        parts = _select_partitions(centers, queries, p=p, measure=measure)
     s_pad = 2 * codes_csr.shape[0] if packed else codes_csr.shape[0]
-    luts_flat = _residual_luts(queries, centers, parts, codebook, s_pad=s_pad,
-                               use_residuals=use_residuals, measure=measure)
+    with span("tree_ah.luts"):
+        luts_flat = _residual_luts(queries, centers, parts, codebook,
+                                   s_pad=s_pad, use_residuals=use_residuals,
+                                   measure=measure)
     if leaf == "grouped":
         flat_scores = leaf_scores_grouped(
             luts_flat, parts, codes_csr, csr_offsets, part_sizes, p=p,
@@ -476,9 +497,10 @@ def tree_ah_search(
             l_cap=l_cap, c=codebook.shape[1])
     num_rows = codes_csr.shape[1]
     if allow_mask is not None:
-        flat_scores = _mask_disallowed(flat_scores, allow_mask, perm, parts,
-                                       csr_offsets, num_rows, p=p,
-                                       l_cap=l_cap)
+        with span("tree_ah.mask"):
+            flat_scores = _mask_disallowed(flat_scores, allow_mask, perm,
+                                           parts, csr_offsets, num_rows, p=p,
+                                           l_cap=l_cap)
     return _finalize(db, queries, flat_scores, parts, csr_offsets, num_rows,
                      perm, pre_eps, post_eps, pre_k=pre_k, k=k, p=p,
                      measure=measure, reorder=reorder,
@@ -781,6 +803,12 @@ class TreeXHybridSearcher(Searcher):
         queries on the searcher's device; no host copy of the results.
         ``allow_mask`` ([N] bool, host) restricts the results to the
         allowed ids."""
+        with span("tree_ah.search"):
+            return self._search(queries, k, params, allow_mask)
+
+    def _search(self, queries: torch.Tensor, k: int,
+                params: Optional[SearchParameters], allow_mask
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
         self._check_built()
         cfg = self.config
         queries = queries.to(self.device).float()
