@@ -154,7 +154,14 @@ queries:
   to the single-device brute force's) and the harness's ``--shards 4``
   raising as the JAX harness does on a one-card host. The kernels' JSON
   records of #1, #5 and #7 list these launches under
-  ``sharded_launches``;
+  ``sharded_launches``; every shard's preselect rows go to the exact
+  bf16 top-k kernel;
+- the exact bf16 top-k (phase 44, after [7]): ``csrc/topk_select.cu``
+  bit-identical to the int64 key it replaced and timed against it in
+  turns (L2 flushed), beside ``torch.topk`` on the values, at the
+  benchmark's preselect shape ([1024, 102,400] leaf-like scores, k = 100
+  and 1,000) and on phase 4's own leaf scores; [26] logs the rows each
+  facade mode sent to it;
 
 then times every kernel against its twin (L2 flushed) and the search stages
 with CUDA events (the grouped and per-pair SOAR paths also at twice the
@@ -246,7 +253,13 @@ HARNESS_RUNS = {
 # GPU); the sharded block sweep's and hasher's filtered batch
 SHARDS = 4
 KERNEL_SOURCES = ("tree_ah_grouped", "block_min_sweep", "block_min_compact",
-                  "lut16_scoring", "int8_dots", "fused_bf", "tree_ah_leaf")
+                  "lut16_scoring", "int8_dots", "fused_bf", "tree_ah_leaf",
+                  "topk_select")
+# [44]: the exact bf16 top-k at the benchmark's preselect shape: 1,024 rows
+# of p * l_cap = 100 * 1,024 leaf scores, of which about 59,000 are real
+# (1.18M rows / 2000 partitions * 100 searched) and the rest masked
+SEL_W, SEL_REAL, SEL_KS = 102_400, 59_000, (100, 1000)
+SEL_HASHER_W = 1_183_514
 # published H100 SXM peaks (dense): bf16 tensor cores, int8 tensor cores,
 # float32 outside the tensor cores, HBM3
 PEAK_BF16, PEAK_INT8, PEAK_F32, PEAK_HBM = 989e12, 1979e12, 67e12, 3.35e12
@@ -409,6 +422,7 @@ def main() -> int:
         native,
     )
     from scann_tpu_torch.models import tree_x_hybrid as tx
+    from scann_tpu_torch.ops import topk
     from scann_tpu_torch.ops import tree_ah_grouped as tag
     from scann_tpu_torch.utils.benchmarking import recall_at_k
 
@@ -574,6 +588,7 @@ def main() -> int:
     params = SearchParameters(num_leaves_to_search=P,
                               pre_reordering_num_neighbors=PRE_K)
     tag.LAUNCHES = 0
+    topk.SELECT_LAUNCHES = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     results = [searcher.search_batched_tensors(
@@ -582,6 +597,7 @@ def main() -> int:
     torch.cuda.synchronize()
     search_s = time.perf_counter() - t0
     launches = tag.LAUNCHES
+    select_launches = topk.SELECT_LAUNCHES
     idx = torch.cat([r[0] for r in results])
     dists = torch.cat([r[1] for r in results])
 
@@ -590,12 +606,16 @@ def main() -> int:
     dist_err = check_results(idx, dists, queries, db_dev, BATCH * BATCHES)
     log(f"[6 search] {BATCHES} x B={BATCH}, p={P}, pre_k={PRE_K}, k={K}: "
         f"recall@10 {recall:.4f} (floor {RECALL_FLOOR}), kernel launches "
-        f"{launches}, returned vs recomputed distances max rel err "
-        f"{dist_err:.3g}, host wall {search_s:.3f}s")
+        f"{launches}, selection kernel launches {select_launches}, returned "
+        f"vs recomputed distances max rel err {dist_err:.3g}, host wall "
+        f"{search_s:.3f}s")
     if recall < RECALL_FLOOR:
         raise AssertionError(f"recall@10 {recall} < {RECALL_FLOOR}")
     if launches <= 0:
         raise AssertionError("the search never launched the CUDA kernel")
+    if select_launches != BATCHES:
+        raise AssertionError(f"the preselect launched the selection kernel "
+                             f"{select_launches} times in {BATCHES} batches")
 
     # -- 7. timings (CUDA events; for the record) ------------------------------------
     flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
@@ -693,6 +713,17 @@ def main() -> int:
         "library_ms": None,
     }]
 
+    # phase 4's own leaf scores for [44]
+    sel_lg, sel_go, sel_gs, sel_sl = tx._group_luts(
+        tx._residual_luts(q0, cent, parts, cb, s_pad=s_pad,
+                          use_residuals=True),
+        parts, csr_offsets, part_sizes, s_pad=s_pad, q_cap=q_cap,
+        packed=packed)
+    records.append(select_phase(tx._leaf_major(
+        tag.tree_ah_grouped_scores(sel_lg, codes_csr, sel_go, sel_gs, **kkw),
+        sel_sl, b=q0.shape[0], p=P, l_cap=l_cap), select_launches, cold_ms,
+        smi))
+    del sel_lg, sel_go, sel_gs, sel_sl
     records += block_sweep_phases(ds, queries, db_dev, gt_np, cold_ms, turns,
                                   smi)
     records += hasher_phases(ds, queries, db_dev, gt_np, cold_ms, turns, smi)
@@ -717,6 +748,78 @@ def main() -> int:
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)
     return 0
+
+
+def select_phase(phase4_scores, launches, cold_ms, smi):
+    """[44]: the exact top-k over bf16 rows (``csrc/topk_select.cu``)
+    against the int64 key it replaced, bit for bit, then timed in turns
+    (key, kernel, kernel, key; L2 flushed) beside ``torch.topk`` on the
+    values (no tie rule), at the benchmark's preselect shape, on phase 4's
+    own leaf scores (its p = P), and at the hasher's bf16 LUT16 shapes of
+    [15] (all the rows, and the re-rank's 16,384) at its pre_k. Returns the
+    kernel's record, with ``launches`` the kernel's launches in [6]."""
+    import torch
+
+    from scann_tpu_torch.ops import topk as tk
+    from scann_tpu_torch.types import MASKED_DISTANCE
+
+    dev = phase4_scores.device
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    # inner-product leaf scores around -0.6, then the masked slots
+    leaf = torch.randn(BATCH, SEL_W, device=dev, generator=gen) * 0.1 - 0.6
+    leaf[:, SEL_REAL:] = float(MASKED_DISTANCE)
+    leaf = leaf.bfloat16()
+    cases = [(f"[{BATCH}, {SEL_W}]", leaf, k) for k in SEL_KS]
+    cases.append((f"phase 4 [{BATCH}, {phase4_scores.shape[1]}]",
+                  phase4_scores, PRE_K))
+    # the hasher's LUT16 scores: inner products of unit rows, one block a
+    # row over 1,183,514 columns (three passes over 2.4 MB a row)
+    for width in (AH_SMALL_N, SEL_HASHER_W):
+        ah = torch.randn(BATCH, width, device=dev, generator=gen) * 0.1 - 0.3
+        cases.append((f"hasher [{BATCH}, {width}]", ah.bfloat16(),
+                      AH_PRE_K))
+        del ah
+    times = {}
+    for label, x, k in cases:
+        before = tk.SELECT_KERNEL_ROWS
+        got = tk.top_k_smallest(x, k)
+        torch.cuda.synchronize()
+        want = tk._top_k_by_key(x, k)
+        if tk.SELECT_KERNEL_ROWS != before + x.shape[0]:
+            raise AssertionError(f"[44 select] {label} k={k}: the kernel "
+                                 f"did not take the rows")
+        if not (torch.equal(got[1], want[1]) and torch.equal(
+                got[0].view(torch.int16), want[0].view(torch.int16))):
+            raise AssertionError(f"[44 select] {label} k={k}: the kernel "
+                                 f"differs from the int64 key")
+        key1 = cold_ms(lambda: tk._top_k_by_key(x, k), 5)
+        ker = (cold_ms(lambda: tk._top_k_by_kernel(x, k), 20)
+               + cold_ms(lambda: tk._top_k_by_kernel(x, k), 20)) / 2
+        key = (key1 + cold_ms(lambda: tk._top_k_by_key(x, k), 5)) / 2
+        lib = cold_ms(lambda: torch.topk(x, k, dim=-1, largest=False), 5)
+        nbytes = x.numel() * 2 + x.shape[0] * k * (2 + 8)
+        bound = nbytes / PEAK_HBM * 1e3
+        times[(label, k)] = (ker, key, lib, bound)
+        log(f"[44 select] {label} bf16, k={k}: kernel {ker:.4f} ms, the "
+            f"int64 key it replaced {key:.4f} ms ({key / ker:.2f}x), "
+            f"torch.topk on the values (no tie rule) {lib:.4f} ms; bound "
+            f"{bound:.4f} ms ({nbytes} bytes) -> {bound / ker:.3f} of the "
+            f"bound; bit-identical to the key, {x.shape[0]} kernel rows "
+            f"counted ({smi})")
+    ker, key, lib, bound = times[(cases[0][0], SEL_KS[0])]
+    return {
+        "name": "topk_select",
+        "route": "cuda",
+        "source": "scann_tpu_torch/csrc/topk_select.cu",
+        "replaces": None,
+        "launches": launches,
+        "max_abs_err": 0.0,
+        "ms": ker,
+        "plain_ms": key,
+        "bound_ms": bound,
+        "bound_by": "bytes",
+        "library_ms": lib,
+    }
 
 
 def check_results(idx, dists, queries, db_dev, rows, exact_check=True):
@@ -1170,6 +1273,7 @@ def hasher_phases(ds, queries, db_dev, gt_np, cold_ms, turns, smi):
     )
     from scann_tpu_torch.hashes import hasher as ah
     from scann_tpu_torch.ops import scoring_kernels as sk
+    from scann_tpu_torch.ops import topk
     from scann_tpu_torch.ops.distances import DistanceMeasure
     from scann_tpu_torch.ops.sweep import finalize_results
     from scann_tpu_torch.utils.benchmarking import recall_at_k
@@ -1401,6 +1505,7 @@ def hasher_phases(ds, queries, db_dev, gt_np, cold_ms, turns, smi):
     for s_, label, batch, prm in (
             (h, "approximate only", AH_APPROX_B, None),
             (small, f"{AH_SMALL_N} rows re-rank", BATCH, params)):
+        sel0 = topk.SELECT_KERNEL_ROWS
         meds = []
         for old_kernel in (False, True, True, False):
             if old_kernel:
@@ -1416,7 +1521,8 @@ def hasher_phases(ds, queries, db_dev, gt_np, cold_ms, turns, smi):
             f"with #8 query-tiled {meds[0][0]:.4f} ({meds[0][1]:.4f}), "
             f"{meds[3][0]:.4f} ({meds[3][1]:.4f}), one-column-a-thread "
             f"{meds[1][0]:.4f} ({meds[1][1]:.4f}), {meds[2][0]:.4f} "
-            f"({meds[2][1]:.4f}) ({smi})")
+            f"({meds[2][1]:.4f}); bf16 rows to the selection kernel "
+            f"{topk.SELECT_KERNEL_ROWS - sel0} ({smi})")
     onehot = torch.nn.functional.one_hot(h.codes.long(), AH_C).reshape(
         n, AH_S * AH_C).to(torch.bfloat16)
     lut_bf = luts.reshape(BATCH, -1).to(torch.bfloat16)
@@ -2318,6 +2424,7 @@ def facade_phases(ds, queries, db_dev, gt_np, smi):
     from scann_tpu_torch.ops import fused_bf as fb
     from scann_tpu_torch.ops import scoring_kernels as sk
     from scann_tpu_torch.ops import sweep as sw
+    from scann_tpu_torch.ops import topk
     from scann_tpu_torch.ops import tree_ah_grouped as tag
     from scann_tpu_torch.ops.distances import gathered_distances
     from scann_tpu_torch.utils.benchmarking import recall_at_k
@@ -2499,10 +2606,12 @@ def facade_phases(ds, queries, db_dev, gt_np, smi):
         fb.reset_launches()
         sk.reset_launches()
         sw.reset_launches()
+        sel0 = topk.SELECT_KERNEL_ROWS
         torch.cuda.synchronize()
         idx, dists = scann.search_batched_tensors(qb)
         torch.cuda.synchronize()
         moved = count() if count is not None else None
+        sel_rows = topk.SELECT_KERNEL_ROWS - sel0
         w_idx, _ = scann.impl.search_batched_tensors(qb, K, params)
         same_ids(idx, w_idx, f"[26 {label}]")
         if count is not None and not moved:
@@ -2516,6 +2625,7 @@ def facade_phases(ds, queries, db_dev, gt_np, smi):
             f"{type(scann.impl).__name__} (as the JAX facade), built in "
             f"{b_s:.2f}s, ids equal to the searcher's, "
             + (f"{kname} launches {moved}, " if count is not None else "")
+            + f"selection kernel rows {sel_rows}, "
             + f"recall@10 against exact {rec:.4f}, batch median "
             f"{med:.4f} ms (max {top:.4f}) ({smi})")
     scann, b_s = timed(lambda: Scann.partitioned(sub, 200, P, device=dev))
@@ -3836,6 +3946,7 @@ def sharded_phases(ds, queries, q_np, db_dev, gt_np, smi, searcher, cfg):
     from scann_tpu_torch.models import tree_x_hybrid as tx
     from scann_tpu_torch.ops import scoring_kernels as sk
     from scann_tpu_torch.ops import sweep as sw
+    from scann_tpu_torch.ops import topk
     from scann_tpu_torch.ops import tree_ah_grouped as tag
     from scann_tpu_torch.parallel import (
         ShardedAsymmetricHasher,
@@ -3874,11 +3985,20 @@ def sharded_phases(ds, queries, q_np, db_dev, gt_np, smi, searcher, cfg):
         return sum(t.numel() * t.element_size() for t in ts)
 
     def tree_serve(label, sh, single_recall):
-        """#1 on every shard in every batch, recall, exact distances."""
+        """#1 on every shard in every batch, recall, exact distances, and
+        the selection kernel on every shard's preselect rows."""
         tag.LAUNCHES = 0
+        sel0 = topk.SELECT_KERNEL_ROWS
         idx, dists = serve(lambda qb: sh.search_batched_tensors(qb, K,
                                                                 params))
         launches = tag.LAUNCHES
+        sel_rows = topk.SELECT_KERNEL_ROWS - sel0
+        if sel_rows < every * BATCH:
+            raise AssertionError(f"{label}: the selection kernel took "
+                                 f"{sel_rows} rows, not a batch a shard "
+                                 f"({every * BATCH})")
+        log(f"{label} selection kernel rows {sel_rows} ({every} shard "
+            f"batches of {BATCH})")
         recall = recall_at_k(idx.cpu().numpy(), gt_np, K)
         err = check_results(idx, dists, queries, db_dev, BATCH * BATCHES)
         if launches != every:

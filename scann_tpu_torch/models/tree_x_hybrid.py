@@ -19,7 +19,11 @@ Search, one batch of queries on the device with no host round trip:
          per pair: every pair's float32 table over its partition's codes
            (CUDA kernel, ops/tree_ah_leaf)             (tree_ah_search)
     -> leaf-major flat scores [B, p*l_cap], allowlist mask
-    -> top-pre_k (x multiplicity under spilling, then keep-best-per-id)
+    -> top-pre_k (x multiplicity under spilling, then keep-best-per-id):
+       on the card the bf16 rows go to the exact selection kernel
+       (ops/topk, csrc/topk_select.cu), the int64 key's results bit for
+       bit; the selection stays exact, where the JAX package's TPU path
+       calls lax.approx_min_k
     -> rows from the re-rank store -> exact re-rank -> top-k   (_finalize)
 
 Each stage runs inside a span (``utils/trace.span``) that any

@@ -1,9 +1,16 @@
 """Top-k selection (counterpart of ``scann_tpu/ops/topk.py``), with the
 dedup selections that spilling needs (a point may sit in several
-partitions, so its candidates may repeat)."""
+partitions, so its candidates may repeat).
+
+Every selection here is exact. bf16 rows on the card go to a CUDA kernel,
+``csrc/topk_select.cu`` (an exact radix select over the 16-bit ordered
+value), which replaces no TPU kernel: the JAX package's TPU path calls
+``lax.approx_min_k`` there. Its plain twin is :func:`_top_k_by_key`."""
 
 from __future__ import annotations
 
+import ctypes
+import math
 from typing import Tuple
 
 import torch
@@ -25,6 +32,22 @@ VALUE_SELECT_MIN_N = 1 << 15
 # boundary), counted for the record
 KEY_PATH_ROWS = 0
 
+# the selection kernel (csrc/topk_select.cu) keeps its candidate keys in a
+# buffer of a power of two keys, at least SELECT_MIN_CAP; up to
+# SELECT_SHARED_CAP keys it is shared memory, beyond that a global scratch
+# [rows, cap] int64 allocated here. Columns and chunk offsets are 32-bit
+# integers there, so a row has at most SELECT_MAX_N columns.
+SELECT_MIN_CAP = 4096
+SELECT_SHARED_CAP = 16384
+SELECT_MAX_N = (1 << 31) - 16
+
+# bf16 rows on a CUDA device selected by the kernel, and its launches;
+# counted after each launch, with no host sync
+SELECT_KERNEL_ROWS = 0
+SELECT_LAUNCHES = 0
+
+_select_fn = None
+
 
 def _ordered_bits(x: torch.Tensor) -> torch.Tensor:
     """Integers in ``x``'s value order (-0.0 before +0.0): the float bits,
@@ -42,11 +65,13 @@ def top_k_smallest(dists: torch.Tensor, k: int
     guarantees. ``torch.topk`` leaves ties in an order that depends on the
     row's width and the device, and bf16 leaf scores tie often, so the
     selection runs on a key without ties: the value's bits above the column
-    index. A 16-bit value and a column below 2**16 fit one float32 (the bf16
-    pattern is a float32's upper half), which selects at float32 speed —
-    measured 1.40 ms against 3.13 ms for the int64 key at [1024, 61440] on
-    an H100 (PERF.md); wider bf16 rows and float32 values take the int64
-    key.
+    index. The selection is exact on every path.
+
+    Every bf16 row on a CUDA device goes to the selection kernel
+    (``csrc/topk_select.cu``, see :func:`_top_k_by_kernel`): an exact radix
+    select over the 16-bit ordered value, whose results are the int64 key's
+    bit for bit, with no key in memory. bf16 rows elsewhere and float32 rows
+    below ``VALUE_SELECT_MIN_N`` columns take the int64 key.
 
     float32 rows of at least ``VALUE_SELECT_MIN_N`` columns select on the
     values themselves, the k + 1 smallest, and need the key only to order
@@ -57,27 +82,100 @@ def top_k_smallest(dists: torch.Tensor, k: int
     several passes over 8 bytes a value (measured in PERF.md).
     """
     n = dists.shape[-1]
+    if select_kernel_takes(dists):
+        return _top_k_by_kernel(dists, k)
     if dists.dtype == torch.float32 and k < n and n >= VALUE_SELECT_MIN_N:
         return _top_k_by_value(dists, k)
     return _top_k_by_key(dists, k)
 
 
+def select_kernel_takes(dists: torch.Tensor) -> bool:
+    """Whether :func:`top_k_smallest` sends ``dists`` to the selection
+    kernel: bf16 on a CUDA device, whatever its shape, layout, k or width
+    (:func:`kernel_rows` brings it to the kernel's layout, and raises
+    where a width or k cannot be selected at all)."""
+    return dists.dtype == torch.bfloat16 and dists.device.type == "cuda"
+
+
+def kernel_rows(dists: torch.Tensor, k: int) -> torch.Tensor:
+    """The 2-D ``[rows, n]`` view with unit column stride that the kernel
+    reads: leading axes flattened, a copy only where the layout needs one
+    (a transposed view, columns with a stride); any row stride is kept.
+    Raises for a k outside [0, n] or a row wider than ``SELECT_MAX_N``."""
+    n = dists.shape[-1]
+    if not 0 <= k <= n:
+        raise ValueError(f"top-k selection: k={k} is outside [0, {n}], the "
+                         f"row width")
+    if n > SELECT_MAX_N:
+        raise ValueError(f"top-k selection: rows of {n} columns are wider "
+                         f"than the kernel's {SELECT_MAX_N}")
+    rows = dists if dists.dim() == 2 else dists.reshape(
+        math.prod(dists.shape[:-1]), n)
+    return rows if rows.stride(-1) == 1 else rows.contiguous()
+
+
+def key_capacity(k: int) -> Tuple[int, bool]:
+    """The kernel's key buffer for a k: (keys a row, a power of two at least
+    ``SELECT_MIN_CAP`` and k; whether they fit shared memory)."""
+    cap = max(SELECT_MIN_CAP, 1 << max(k - 1, 0).bit_length())
+    return cap, cap <= SELECT_SHARED_CAP
+
+
+def _select_kernel_fn():
+    global _select_fn
+    if _select_fn is None:
+        from scann_tpu_torch import native
+
+        fn = native.load("topk_select").topk_select_bf16
+        vp, i32 = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [vp, ctypes.c_longlong, i32, i32, i32, i32, vp, vp, vp,
+                       vp]
+        fn.restype = ctypes.c_int
+        _select_fn = fn
+    return _select_fn
+
+
+def _top_k_by_kernel(dists: torch.Tensor, k: int
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The selection kernel's launch over bf16 rows on a CUDA device: one
+    block a row, outputs (and, past ``SELECT_SHARED_CAP`` keys, the key
+    scratch) allocated here, no synchronisation. Results are
+    :func:`_top_k_by_key`'s, bit for bit."""
+    global SELECT_KERNEL_ROWS, SELECT_LAUNCHES
+    lead = dists.shape[:-1]
+    rows = kernel_rows(dists, k)
+    r, n = rows.shape
+    vals = torch.empty(r, k, dtype=torch.bfloat16, device=dists.device)
+    idx = torch.empty(r, k, dtype=torch.int64, device=dists.device)
+    if r == 0 or k == 0:
+        return vals.reshape(*lead, k), idx.reshape(*lead, k)
+    cap, shared = key_capacity(k)
+    scratch = None if shared else torch.empty(
+        r, cap, dtype=torch.int64, device=dists.device)
+    fn = _select_kernel_fn()
+    with torch.cuda.device(dists.device):
+        stream = torch.cuda.current_stream(dists.device).cuda_stream
+        err = fn(rows.data_ptr(), rows.stride(0), r, n, k, cap,
+                 vals.data_ptr(), idx.data_ptr(),
+                 None if scratch is None else scratch.data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError(f"topk_select kernel launch failed: CUDA error "
+                           f"{err}")
+    SELECT_KERNEL_ROWS += r
+    SELECT_LAUNCHES += 1
+    return vals.reshape(*lead, k), idx.reshape(*lead, k)
+
+
 def _top_k_by_key(dists: torch.Tensor, k: int
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Smallest-k by the tie-free key over the whole row."""
-    n = dists.shape[-1]
-    col = torch.arange(n, dtype=torch.int32, device=dists.device)
-    int_dtype, _ = _ORDER_BITS[dists.dtype]
-    if int_dtype == torch.int16 and n <= 1 << 16:
-        bits = dists.contiguous().view(int_dtype)
-        # negative floats order by descending bit pattern: flip the column
-        # there so ties still come out lower index first
-        low = torch.where(bits < 0, 0xFFFF - col, col)
-        key = ((bits.int() << 16) | low).view(torch.float32)
-    else:
-        key = (_ordered_bits(dists) << 32) | col.long()
+    """Smallest-k by the tie-free key over the whole row. Values are
+    gathered as bits, so NaN payloads come back as they went in (a float
+    gather on the CPU rewrites them)."""
+    col = torch.arange(dists.shape[-1], device=dists.device)
+    key = (_ordered_bits(dists) << 32) | col
     _, idx = torch.topk(key, k, dim=-1, largest=False, sorted=True)
-    return torch.gather(dists, -1, idx), idx
+    bits = dists.contiguous().view(_ORDER_BITS[dists.dtype][0])
+    return torch.gather(bits, -1, idx).view(dists.dtype), idx
 
 
 def _top_k_by_value(dists: torch.Tensor, k: int
@@ -103,7 +201,11 @@ def approx_top_k_smallest(dists: torch.Tensor, k: int
                           ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Candidate selection before an exact re-rank. On a TPU the JAX package
     uses ``lax.approx_min_k``; on its CPU backend that lowers to exact
-    selection, and the port selects exactly as well."""
+    selection (equal values in an order of its own), and the port selects
+    exactly, in ``lax.top_k``'s order, through :func:`top_k_smallest`:
+    every bf16 tensor on the card (tree-x-AH's leaf scores, the hasher's
+    LUT16 scores, the block sweep's minima) by the selection kernel, the
+    rest by value or by the key."""
     return top_k_smallest(dists, k)
 
 

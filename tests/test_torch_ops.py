@@ -81,8 +81,8 @@ def test_top_k_matches_lax_top_k_with_ties(dtype, k):
 
 
 def test_top_k_wide_bf16_rows_take_the_int64_key():
-    """Rows wider than 2**16 cannot pack the column into a float32; the
-    selection must still match lax.top_k."""
+    """bf16 rows wider than 2**16 columns (past a 16-bit column field) off
+    the card take the int64 key; the selection must match lax.top_k."""
     rng = np.random.default_rng(3)
     x = (np.round(rng.normal(size=(2, 70_000)) * 2) / 2).astype(np.float32)
     xt = torch.from_numpy(x).to(torch.bfloat16)
