@@ -162,6 +162,12 @@ queries:
   benchmark's preselect shape ([1024, 102,400] leaf-like scores, k = 100
   and 1,000) and on phase 4's own leaf scores; [26] logs the rows each
   facade mode sent to it;
+- the grouped leaf scorer at the 1536-d deployment's shape (phase 45,
+  after [44]): 768 subspaces of 16 codes, packed, 2,000 ragged partitions
+  (l_cap 1,024), B = 1,024 queries probing 100 each; at the q_cap that
+  ``fit_q_cap`` takes for the rule's 16 (8, a 213,520-byte block) and at
+  4, #1 bit-identical to its twin, one launch counted from zero, timed
+  with L2 flushed;
 
 then times every kernel against its twin (L2 flushed) and the search stages
 with CUDA events (the grouped and per-pair SOAR paths also at twice the
@@ -260,6 +266,10 @@ KERNEL_SOURCES = ("tree_ah_grouped", "block_min_sweep", "block_min_compact",
 # (1.18M rows / 2000 partitions * 100 searched) and the rest masked
 SEL_W, SEL_REAL, SEL_KS = 102_400, 59_000, (100, 1000)
 SEL_HASHER_W = 1_183_514
+# [45]: #1 at the benchmark's dbpedia-openai-1000k-angular shape: 1536-d
+# rows in 768 subspaces of 16 codes, 990,000 rows in 2,000 partitions
+# (about 495 rows each; the largest fills l_cap), 100 probed
+WIDE_S, WIDE_PARTS, WIDE_MEAN, WIDE_P, WIDE_L_CAP = 768, 2000, 495, 100, 1024
 # published H100 SXM peaks (dense): bf16 tensor cores, int8 tensor cores,
 # float32 outside the tensor cores, HBM3
 PEAK_BF16, PEAK_INT8, PEAK_F32, PEAK_HBM = 989e12, 1979e12, 67e12, 3.35e12
@@ -724,6 +734,7 @@ def main() -> int:
         sel_sl, b=q0.shape[0], p=P, l_cap=l_cap), select_launches, cold_ms,
         smi))
     del sel_lg, sel_go, sel_gs, sel_sl
+    wide_grouped_phase(dev, cold_ms, smi)
     records += block_sweep_phases(ds, queries, db_dev, gt_np, cold_ms, turns,
                                   smi)
     records += hasher_phases(ds, queries, db_dev, gt_np, cold_ms, turns, smi)
@@ -820,6 +831,69 @@ def select_phase(phase4_scores, launches, cold_ms, smi):
         "bound_by": "bytes",
         "library_ms": lib,
     }
+
+
+def wide_grouped_phase(dev, cold_ms, smi):
+    """[45]: #1 at the 1536-d deployment's shape, on random packed codes
+    and tables over ragged partitions laid out as the search path lays
+    them (128-row aligned starts, size 0 for unused groups): at the q_cap
+    ``fit_q_cap`` takes for the rule's 16 and at half of it, the kernel
+    against its twin bit for bit, ``LAUNCHES`` reset just before the call,
+    then timed with L2 flushed."""
+    import torch
+
+    from scann_tpu_torch.ops import tree_ah_grouped as tag
+
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    c, l_tile = 16, 512
+    sizes = torch.randint(1, 2 * WIDE_MEAN, (WIDE_PARTS,), generator=gen,
+                          device=dev).clamp_max(WIDE_L_CAP)
+    sizes[0] = WIDE_L_CAP
+    aligned = (sizes + 127) // 128 * 128
+    offsets = torch.cumsum(aligned, 0) - aligned
+    n_csr = int(aligned.sum()) + WIDE_L_CAP
+    codes = torch.randint(0, 256, (WIDE_S // 2, n_csr), generator=gen,
+                          device=dev, dtype=torch.uint8)
+    parts = torch.rand(BATCH, WIDE_PARTS, generator=gen,
+                       device=dev).argsort(1)[:, :WIDE_P]
+    luts = (torch.randn(BATCH * WIDE_P, WIDE_S * c, generator=gen,
+                        device=dev) * 0.05).bfloat16()
+    q_cap = tag.fit_q_cap(16, WIDE_S, c, int8=False)
+    if q_cap != 8:
+        raise AssertionError(f"[45 wide #1] fit_q_cap took {q_cap}, not 8")
+    for q in (q_cap, q_cap // 2):
+        grp_part, slot, ng = tag.group_pairs_by_partition(parts, WIDE_PARTS,
+                                                          q)
+        safe = grp_part.clamp_min(0)
+        grp_size = torch.where(grp_part >= 0, sizes[safe], 0).int()
+        pair_of_slot = torch.zeros(ng * q, dtype=torch.long, device=dev)
+        pair_of_slot[slot] = torch.arange(BATCH * WIDE_P, device=dev)
+        args = (luts[pair_of_slot], codes, offsets[safe].int(), grp_size)
+        kw = dict(l_cap=WIDE_L_CAP, l_tile=l_tile, q_cap=q, packed=True)
+        plan = tag.kernel_plan(q, WIDE_S, c, int8=False, packed=True,
+                               l_cap=WIDE_L_CAP)
+        tag.LAUNCHES = 0
+        got = tag.tree_ah_grouped_scores(*args, **kw)
+        torch.cuda.synchronize()
+        if tag.LAUNCHES != 1:
+            raise AssertionError(f"[45 wide #1] q_cap {q}: {tag.LAUNCHES} "
+                                 f"launches, not 1")
+        want = tag.tree_ah_grouped_scores_reference(*args, **kw)
+        diff = int((got.view(torch.int16) != want.view(torch.int16)).sum())
+        if diff:
+            raise AssertionError(f"[45 wide #1] q_cap {q}: {diff} scores "
+                                 f"differ from the twin")
+        del want
+        ms = cold_ms(lambda: tag.tree_ah_grouped_scores(*args, **kw), 10)
+        log(f"[45 wide #1] S_pad {WIDE_S}, C {c}, packed, q_cap {q}, NG "
+            f"{ng}, l_cap {WIDE_L_CAP}, out {list(got.shape)} bf16: "
+            f"bit-identical to the twin, 1 launch counted; plan {plan.cols} "
+            f"columns a thread, a ring of {plan.stages} stages of "
+            f"{plan.stage_rows} packed rows ({WIDE_S // 2 // plan.stage_rows} "
+            f"a tile), {plan.smem_bytes} shared bytes a block, "
+            f"{plan.ranges} block(s) a group; {ms:.4f} ms, L2 "
+            f"flushed ({smi})")
+        del got, args
 
 
 def check_results(idx, dists, queries, db_dev, rows, exact_check=True):

@@ -70,6 +70,7 @@ from scann_tpu_torch.ops.topk import (
 )
 from scann_tpu_torch.ops.tree_ah_grouped import (
     I16_MASK,
+    fit_q_cap,
     group_pairs_by_partition,
     tree_ah_grouped_scores,
 )
@@ -301,9 +302,10 @@ def leaf_scores_grouped(luts_flat: torch.Tensor, parts: torch.Tensor,
             luts_flat, parts, csr_offsets, part_sizes, s_pad=s_pad,
             q_cap=q_cap, packed=packed)
     with span("tree_ah.leaf"):
-        scores_g = tree_ah_grouped_scores(
-            luts_grouped, codes_csr, grp_off, grp_size, l_cap=l_cap,
-            l_tile=l_tile, q_cap=q_cap, packed=packed)
+        with span("tree_ah.leaf.score"):
+            scores_g = tree_ah_grouped_scores(
+                luts_grouped, codes_csr, grp_off, grp_size, l_cap=l_cap,
+                l_tile=l_tile, q_cap=q_cap, packed=packed)
         flat = _leaf_major(scores_g, slot, b=parts.shape[0], p=p,
                            l_cap=l_cap)
         if int8_luts:
@@ -649,9 +651,8 @@ class TreeXHybridSearcher(Searcher):
         aligned_rows = int(((sizes + 127) // 128 * 128).sum())
         l_tile = max(int(self.config.score_l_tile), 128)
         aligned_rows += int(align_up(max(tk.max_partition_size, 8), l_tile))
-        s = self.codes.shape[1]
-        row_bytes = (int(align_up((s + 1) // 2, 8)) if self._pack_codes()
-                     else int(align_up(s, 32)))
+        packed = self._pack_codes()
+        row_bytes = self._slab_s_pad(packed) // (2 if packed else 1)
         return int(aligned_rows * row_bytes + aligned_rows * 4
                    + self.partitioner.centers.nbytes
                    + self.codebook.centroids.nbytes)
@@ -699,8 +700,7 @@ class TreeXHybridSearcher(Searcher):
             device = self.codes.device
             aligned, dest, _, total, l_cap = self._csr_layout()
             m, s = self.codes.shape
-            s_pad = (2 * int(align_up((s + 1) // 2, 8)) if packed
-                     else int(align_up(s, 32)))
+            s_pad = self._slab_s_pad(packed)
             codes_aligned = torch.zeros(total, s_pad, dtype=torch.uint8,
                                         device=device)
             codes_aligned[dest, :s] = self.codes
@@ -716,14 +716,24 @@ class TreeXHybridSearcher(Searcher):
                 tk.partition_sizes.to(device).int(), perm, l_cap)
         return self._csr_cache[packed]
 
+    def _slab_s_pad(self, packed: bool) -> int:
+        """Subspaces of the serving slab: 2*align_up(ceil(S/2), 8) packed,
+        align_up(S, 32) unpacked."""
+        s = self.codebook.centroids.shape[0]
+        return (2 * int(align_up((s + 1) // 2, 8)) if packed
+                else int(align_up(s, 32)))
+
     def effective_q_cap(self, b: int, p: int) -> int:
-        """Queries per group: the config's value, or 16 when a partition is
-        expected to be probed by >= 12 pairs of the batch, else 8 (the JAX
-        package's rule)."""
+        """Queries per group: the config's value, or the JAX package's rule
+        (16 when a partition is expected to be probed by >= 12 pairs of the
+        batch, else 8) lowered by ``fit_q_cap`` until one group's bf16
+        tables fit a block's shared memory (8 at S_pad 768, C 16)."""
         if self.config.group_q_cap is not None:
             return int(self.config.group_q_cap)
         kparts = max(self.partitioner.num_partitions, 1)
-        return 16 if (b * p) / kparts >= 12.0 else 8
+        rule = 16 if (b * p) / kparts >= 12.0 else 8
+        return fit_q_cap(rule, self._slab_s_pad(self._pack_codes()),
+                         self.codebook.num_codes, int8=False)
 
     # -- re-rank stores ---------------------------------------------------------
     def _device_state(self):

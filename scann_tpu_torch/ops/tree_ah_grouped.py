@@ -13,9 +13,10 @@ Two forms of the scorer compute the same thing:
     both of its branches: bf16 tables give bf16 scores, int8 tables (the
     int8-LUT variant) give exact int16 sums. :func:`kernel_plan` lays out
     a call: columns a thread, the code ring beside the tables in shared
-    memory, and the column ranges (one block each) a group splits into.
-    Its source note gives what bounds it on the H100 and how the design
-    meets that;
+    memory, and the column ranges (one block each) a group splits into;
+    :func:`fit_q_cap` lowers a batch's q_cap until one group's tables fit
+    a block's shared memory. Its source note gives what bounds it on the
+    H100 and how the design meets that;
   - :func:`tree_ah_grouped_scores_reference`, its plain PyTorch twin.
 
 :func:`tree_ah_grouped_scores` takes the twin for CPU tensors only; for CUDA
@@ -197,17 +198,37 @@ class KernelPlan:
     ranges: int        # blocks a group: ceil(l_cap / range_cols)
 
 
-def kernel_plan(q_cap: int, s_pad: int, c: int, *, int8: bool, packed: bool,
-                l_cap: int) -> KernelPlan:
-    """The CUDA kernel's plan for one call. Raises where one group's tables
-    do not fit a block's shared memory (the only shape it refuses)."""
-    cols = 4 if q_cap <= 8 else 32 // q_cap
-    tile = THREADS * cols
+def _group_table_bytes(q_cap: int, s_pad: int, c: int, int8: bool) -> int:
+    """Shared bytes of one group's staged tables, before alignment. Raises
+    where they do not fit a block's shared memory, the only shape the
+    kernel refuses."""
     raw = (1 if int8 else 2) * q_cap * s_pad * c
     if raw > MAX_SHARED_MEMORY:
         raise ValueError(f"LUT rows of one group need {raw} bytes of shared "
                          f"memory, more than the {MAX_SHARED_MEMORY} a block "
                          f"has")
+    return raw
+
+
+def fit_q_cap(q_cap: int, s_pad: int, c: int, *, int8: bool) -> int:
+    """The largest of ``KERNEL_Q_CAPS`` at most ``q_cap`` whose group's
+    tables fit a block's shared memory (:func:`kernel_plan` then plans
+    it). Grouping only changes which pairs share a block, never a pair's
+    sum or its order, so scores do not depend on the value. Raises where
+    even one query's tables do not fit."""
+    one = _group_table_bytes(1, s_pad, c, int8)
+    return max(q for q in KERNEL_Q_CAPS
+               if q <= q_cap and q * one <= MAX_SHARED_MEMORY)
+
+
+def kernel_plan(q_cap: int, s_pad: int, c: int, *, int8: bool, packed: bool,
+                l_cap: int) -> KernelPlan:
+    """The CUDA kernel's plan for one call. Raises where one group's tables
+    do not fit a block's shared memory (:func:`fit_q_cap` picks a q_cap
+    that fits)."""
+    cols = 4 if q_cap <= 8 else 32 // q_cap
+    tile = THREADS * cols
+    raw = _group_table_bytes(q_cap, s_pad, c, int8)
     table = align_up(raw, 16)
     s_rows = s_pad // 2 if packed else s_pad
     stage_rows, stages, ring = s_rows, 0, 0

@@ -100,7 +100,11 @@ def test_tree_ah_grouped_int8_kernel_matches_twin(packed, q_cap, l_tile,
 # fit; "small ring" leaves room for two 2-row (bf16) or 8-row stages;
 # "odd table width" (S_pad * C = 91) stages the tables one entry at a
 # time; at "tables at the limit" (bf16 2*1*512*227 = 232,448 bytes, int8
-# 8*113*256 = 231,424) no ring fits and codes come from global memory.
+# 8*113*256 = 231,424) no ring fits and codes come from global memory;
+# "S_pad 768" is the 1536-d deployment's (768 subspaces of 16 codes) at the
+# q_cap fit_q_cap takes for the rule's 16 (8: 213,520 bytes a block, 24
+# ring stages of 16 packed rows a tile); int16 sums bound int8 tables to
+# S_pad 128, so its int8 pair is the widest they take, at q_cap 16.
 GROUPED_LAYOUTS = {
     "one group fills l_cap": dict(
         q_cap=8, s_pad=64, c=16, packed=True, l_cap=6144, l_tile=512,
@@ -143,6 +147,10 @@ GROUPED_LAYOUTS = {
         q_cap=(1, 8), s_pad=(512, 113), c=(227, 256), packed=False,
         l_cap=256, l_tile=128, sizes=[256, 5, 0], offsets=[3, 261, 0],
         n_csr=270),
+    "S_pad 768": dict(
+        q_cap=(8, 16), s_pad=(768, 128), c=16, packed=True, l_cap=1024,
+        l_tile=512, sizes=["full", 1000, 0, 513, 1, "full", 77, 640],
+        offsets=[0, 1024, 0, 2048, 2688, 2816, 3840, 3968], n_csr=4992),
 }
 
 

@@ -25,6 +25,8 @@ FACADE = ["scann.search", "tree_ah.search"]
 STAGES = ["tree_ah.partitions", "tree_ah.luts", "tree_ah.group",
           "tree_ah.leaf", "tree_ah.preselect", "tree_ah.rerank"]
 WITH_MASK = STAGES[:4] + ["tree_ah.mask"] + STAGES[4:]
+# the grouped scorer's launch alone, inside tree_ah.leaf
+LEAF_SCORE = "tree_ah.leaf.score"
 
 
 def _stages_module():
@@ -209,10 +211,14 @@ def test_span_names_are_the_benchmark_readers():
         src = (ROOT / "portbench" / "metrics"
                / f"{name}_ms_per_batch.py").read_text()
         assert f'"tree_ah.{name}"' in src
+    src = (ROOT / "portbench" / "metrics"
+           / "leaf_score_ms_per_batch.py").read_text()
+    assert f'"{LEAF_SCORE}"' in src
 
 
 def test_program_span_names_are_the_recorded_ones(facade, data):
-    """Every program span a search records is one the reader knows."""
+    """Every program span a search records is one the stage reader knows,
+    or the leaf scorer's span that ``leaf_score_ms_per_batch`` reads."""
     stages = _stages_module()
     impl = facade.impl
     allow = np.ones(impl.dataset_size(), dtype=bool)
@@ -223,4 +229,29 @@ def test_program_span_names_are_the_recorded_ones(facade, data):
         impl.search_batched_tensors(data[1], K, allow_mask=allow)
     recorded = {e.name() for e in prof.profiler.kineto_results.events()
                 if e.is_user_annotation()}
-    assert recorded == names
+    assert recorded == names | {LEAF_SCORE}
+
+
+def test_leaf_score_span_holds_the_scorer_once_a_search(facade, data):
+    """``tree_ah.leaf.score`` opens once a request, inside ``tree_ah.leaf``,
+    around the grouped scorer's call alone: the leaf-major reorder of its
+    scores falls after it, still inside ``tree_ah.leaf``."""
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        for _ in range(2):
+            facade.search_batched_tensors(data[1])
+    events = [(e.name(), int(e.start_ns()),
+               int(e.start_ns()) + int(e.duration_ns()))
+              for e in prof.profiler.kineto_results.events()
+              if e.is_user_annotation()
+              or e.name().startswith("aten::")]
+    leaves = sorted(e for e in events if e[0] == "tree_ah.leaf")
+    scores = sorted(e for e in events if e[0] == LEAF_SCORE)
+    assert len(leaves) == len(scores) == 2
+    for leaf, score in zip(leaves, scores):
+        assert _inside(score, leaf)
+        # the reorder's index and transpose run after the scorer, in the
+        # leaf span
+        after = [e for e in events if e[0].startswith("aten::")
+                 and score[2] <= e[1] and e[2] <= leaf[2]]
+        assert any(n == "aten::index" for n, *_ in after)

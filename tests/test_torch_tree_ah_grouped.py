@@ -249,3 +249,86 @@ def test_biased_u16_lane_sums_are_exact(q_cap, fill):
             entries = np.full((q_cap, s_pad), int(fill), np.int8)
         want = entries.astype(np.int32).sum(1)
         np.testing.assert_array_equal(_biased_lane_sums(entries), want)
+
+
+# the widest deployment the benchmark serves: 1536-d rows, 768 subspaces of
+# 16 codes, packed
+WIDE_S_PAD = 768
+
+
+@pytest.mark.parametrize("rule", [8, 16, 32])
+def test_fit_q_cap_at_768_subspaces_plans_a_block_that_fits(rule):
+    """At S_pad 768, C 16 one group of 16 queries' bf16 tables needs
+    393,216 bytes; the fit takes 8 (196,608 bytes and a 16-row ring)."""
+    with pytest.raises(ValueError, match="shared memory"):
+        tag.kernel_plan(16, WIDE_S_PAD, 16, int8=False, packed=True,
+                        l_cap=1536)
+    q = tag.fit_q_cap(rule, WIDE_S_PAD, 16, int8=False)
+    assert q == 8
+    plan = tag.kernel_plan(q, WIDE_S_PAD, 16, int8=False, packed=True,
+                           l_cap=1536)
+    assert plan.table_bytes == 196_608
+    assert (plan.stage_rows, plan.stages) == (16, tag.RING_STAGES)
+    assert plan.smem_bytes == 196_608 + 2 * 16 * (512 + 16) + 16
+    assert plan.smem_bytes <= MAX_SHARED_MEMORY
+    # int8 tables take half the bytes: 16 queries fit
+    assert tag.fit_q_cap(rule, WIDE_S_PAD, 16, int8=True) == min(rule, 16)
+
+
+@pytest.mark.parametrize("rule", [8, 16])
+@pytest.mark.parametrize("int8", [False, True])
+def test_fit_q_cap_keeps_the_rule_where_the_tables_fit(rule, int8):
+    """S_pad 64: glove's 50 subspaces padded, and sift's 64."""
+    assert tag.fit_q_cap(rule, 64, 16, int8=int8) == rule
+
+
+def test_fit_q_cap_lowers_to_what_fits_and_refuses_what_cannot():
+    assert tag.fit_q_cap(16, WIDE_S_PAD, 16, int8=False) == 8
+    assert tag.fit_q_cap(8, WIDE_S_PAD, 16, int8=False) == 8
+    # 3 is no kernel instance: the largest below it that fits
+    assert tag.fit_q_cap(3, 64, 16, int8=False) == 2
+    # S_pad 1536 at C 16: 4 queries' tables fit, 8 do not
+    assert tag.fit_q_cap(16, 1536, 16, int8=False) == 4
+    with pytest.raises(ValueError, match="shared memory"):
+        tag.fit_q_cap(8, 8192, 16, int8=False)
+
+
+def _pairs_scored(rng_seed, q_cap, *, b=8, p=4, t=5, l_tile=128):
+    """[B*p, l_cap] scores of each (query, partition) pair at S_pad 768 from
+    the twin, grouped at ``q_cap``; every draw is independent of q_cap."""
+    rng = np.random.default_rng(rng_seed)
+    c = 16
+    l_cap = 2 * l_tile
+    sizes = rng.integers(1, l_cap + 1, size=t).astype(np.int32)
+    aligned = np.zeros(t + 1, np.int64)
+    aligned[1:] = np.cumsum(((sizes + 127) // 128) * 128)
+    n_csr = int(aligned[-1]) + l_cap
+    codes = rng.integers(0, c, size=(WIDE_S_PAD, n_csr)).astype(np.uint8)
+    luts = rng.normal(size=(b * p, WIDE_S_PAD, c)).astype(np.float32)
+    parts = torch.from_numpy(rng.integers(0, t, size=(b, p)))
+    grp_part, slot, ng = tag.group_pairs_by_partition(parts, t, q_cap)
+    safe = grp_part.clamp_min(0).numpy()
+    grp_off = torch.from_numpy(aligned[:-1].astype(np.int32)[safe])
+    grp_size = torch.from_numpy(
+        np.where(grp_part.numpy() >= 0, sizes[safe], 0).astype(np.int32))
+    pair_of_slot = torch.zeros(ng * q_cap, dtype=torch.int64)
+    pair_of_slot[slot] = torch.arange(b * p)
+    packed = torch.from_numpy(codes[0::2] | (codes[1::2] << 4))
+    even_first = np.concatenate([luts[:, 0::2], luts[:, 1::2]], axis=1)
+    luts_g = torch.from_numpy(even_first.reshape(b * p, -1))[pair_of_slot]
+    out = tag.tree_ah_grouped_scores(
+        luts_g, packed, grp_off, grp_size, l_cap=l_cap, l_tile=l_tile,
+        q_cap=q_cap, packed=True)
+    return out[slot]
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_twin_scores_at_768_subspaces_are_bit_identical_across_q_cap(seed):
+    """Lowering q_cap from the rule's 16 to the fit's 8 regroups the pairs
+    but sums each one's entries in the same order: the same bits."""
+    wide = _pairs_scored(seed, 16)
+    fitted = _pairs_scored(seed, 8)
+    assert wide.dtype == torch.bfloat16
+    assert torch.equal(wide.view(torch.int16), fitted.view(torch.int16))
+    assert bool((wide.float() < MASKED_DISTANCE / 2).any())
+
