@@ -168,6 +168,13 @@ queries:
   ``fit_q_cap`` takes for the rule's 16 (8, a 213,520-byte block) and at
   4, #1 bit-identical to its twin, one launch counted from zero, timed
   with L2 flushed;
+- the grouped tables written from the un-expanded source (phase 46, after
+  [45]): ``csrc/grouped_luts.cu`` bit-identical to its twin, the
+  composition it replaced, at the dbpedia (S_pad 768, q_cap 8, 2,560
+  partitions) and glove (S 50 -> 64, q_cap 16) shapes on the per-query
+  source with its bias and at sift's per-pair squared-L2 source, one
+  launch and every row counted, both timed with L2 flushed; [6] and the
+  sharded [39]-[40] require one launch a batch (a shard);
 
 then times every kernel against its twin (L2 flushed) and the search stages
 with CUDA events (the grouped and per-pair SOAR paths also at twice the
@@ -260,7 +267,7 @@ HARNESS_RUNS = {
 SHARDS = 4
 KERNEL_SOURCES = ("tree_ah_grouped", "block_min_sweep", "block_min_compact",
                   "lut16_scoring", "int8_dots", "fused_bf", "tree_ah_leaf",
-                  "topk_select")
+                  "topk_select", "grouped_luts")
 # [44]: the exact bf16 top-k at the benchmark's preselect shape: 1,024 rows
 # of p * l_cap = 100 * 1,024 leaf scores, of which about 59,000 are real
 # (1.18M rows / 2000 partitions * 100 searched) and the rest masked
@@ -270,6 +277,16 @@ SEL_HASHER_W = 1_183_514
 # rows in 768 subspaces of 16 codes, 990,000 rows in 2,000 partitions
 # (about 495 rows each; the largest fills l_cap), 100 probed
 WIDE_S, WIDE_PARTS, WIDE_MEAN, WIDE_P, WIDE_L_CAP = 768, 2000, 495, 100, 1024
+# [46]: the grouped tables written from the un-expanded source at the
+# benchmark cells' shapes, (name, S, S_pad, partitions after balancing,
+# q_cap, per-query source with a bias): dbpedia (768 subspaces, 2,560
+# partitions, q_cap 8), glove (50 padded to 64, q_cap 16) and sift's
+# squared-L2 per-pair source (64); B 1,024 and p 100 each, partitions drawn
+# by a Zipf-like popularity so that groups are ragged
+STAGE_SHAPES = (("dbpedia", 768, 768, 2560, 8, True),
+                ("glove", 50, 64, 2000, 16, True),
+                ("sift", 64, 64, 2000, 16, False))
+STAGE_ZIPF = 0.7
 # published H100 SXM peaks (dense): bf16 tensor cores, int8 tensor cores,
 # float32 outside the tensor cores, HBM3
 PEAK_BF16, PEAK_INT8, PEAK_F32, PEAK_HBM = 989e12, 1979e12, 67e12, 3.35e12
@@ -432,6 +449,7 @@ def main() -> int:
         native,
     )
     from scann_tpu_torch.models import tree_x_hybrid as tx
+    from scann_tpu_torch.ops import grouped_luts as gl
     from scann_tpu_torch.ops import topk
     from scann_tpu_torch.ops import tree_ah_grouped as tag
     from scann_tpu_torch.utils.benchmarking import recall_at_k
@@ -516,6 +534,10 @@ def main() -> int:
                      lambda q, p, i, c: f"q_cap {q} "
                      f"{'packed' if p else 'unpacked'} "
                      f"{'int8' if i else 'bf16'}{' C=16' if c else ''}")))
+    log("[2 kernel build] grouped_luts, ptxas: " + "; ".join(
+        kernel_ptxas(native.saved_logs.get("grouped_luts", ""),
+                     "grouped_luts_kernel",
+                     lambda pp: "per-pair" if pp else "per-query")))
 
     # -- 3. data -----------------------------------------------------------------
     t0 = time.perf_counter()
@@ -598,6 +620,7 @@ def main() -> int:
     params = SearchParameters(num_leaves_to_search=P,
                               pre_reordering_num_neighbors=PRE_K)
     tag.LAUNCHES = 0
+    gl.LAUNCHES = 0
     topk.SELECT_LAUNCHES = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -607,6 +630,7 @@ def main() -> int:
     torch.cuda.synchronize()
     search_s = time.perf_counter() - t0
     launches = tag.LAUNCHES
+    stage_launches = gl.LAUNCHES
     select_launches = topk.SELECT_LAUNCHES
     idx = torch.cat([r[0] for r in results])
     dists = torch.cat([r[1] for r in results])
@@ -616,7 +640,8 @@ def main() -> int:
     dist_err = check_results(idx, dists, queries, db_dev, BATCH * BATCHES)
     log(f"[6 search] {BATCHES} x B={BATCH}, p={P}, pre_k={PRE_K}, k={K}: "
         f"recall@10 {recall:.4f} (floor {RECALL_FLOOR}), kernel launches "
-        f"{launches}, selection kernel launches {select_launches}, returned "
+        f"{launches}, grouped-table kernel launches {stage_launches}, "
+        f"selection kernel launches {select_launches}, returned "
         f"vs recomputed distances max rel err {dist_err:.3g}, host wall "
         f"{search_s:.3f}s")
     if recall < RECALL_FLOOR:
@@ -626,6 +651,9 @@ def main() -> int:
     if select_launches != BATCHES:
         raise AssertionError(f"the preselect launched the selection kernel "
                              f"{select_launches} times in {BATCHES} batches")
+    if stage_launches != BATCHES:
+        raise AssertionError(f"the grouped tables took the kernel "
+                             f"{stage_launches} times in {BATCHES} batches")
 
     # -- 7. timings (CUDA events; for the record) ------------------------------------
     flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
@@ -735,6 +763,7 @@ def main() -> int:
         smi))
     del sel_lg, sel_go, sel_gs, sel_sl
     wide_grouped_phase(dev, cold_ms, smi)
+    records.append(staged_luts_phase(dev, cold_ms, smi, stage_launches))
     records += block_sweep_phases(ds, queries, db_dev, gt_np, cold_ms, turns,
                                   smi)
     records += hasher_phases(ds, queries, db_dev, gt_np, cold_ms, turns, smi)
@@ -894,6 +923,81 @@ def wide_grouped_phase(dev, cold_ms, smi):
             f"{plan.ranges} block(s) a group; {ms:.4f} ms, L2 "
             f"flushed ({smi})")
         del got, args
+
+
+def staged_luts_phase(dev, cold_ms, smi, stage_launches):
+    """[46]: the grouped bf16 tables written from the un-expanded source
+    (``csrc/grouped_luts.cu``) against their twin, the composition the
+    kernel replaced (expansion, bias, pad, bf16 cast, even-first order,
+    rows in slot order), bit for bit at the benchmark cells' shapes;
+    ``LAUNCHES`` and ``STAGED_ROWS`` reset just before the call; then both
+    timed with L2 flushed. Returns the kernel's record at the dbpedia
+    shape, its ``launches`` the kernel's launches in [6]'s search
+    (``stage_launches``), not this phase's own."""
+    import torch
+
+    from scann_tpu_torch.ops import grouped_luts as gl
+    from scann_tpu_torch.ops import tree_ah_grouped as tag
+
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    c, p = 16, WIDE_P
+    record = None
+    for name, s, s_pad, k, q_cap, per_query in STAGE_SHAPES:
+        weight = torch.arange(1, k + 1, device=dev).float() ** -STAGE_ZIPF
+        parts = torch.multinomial(weight.expand(BATCH, k), p,
+                                  generator=gen)
+        _, slot, ng = tag.group_pairs_by_partition(parts, k, q_cap)
+        rows = ng * q_cap
+        n = BATCH if per_query else BATCH * p
+        tables = torch.randn(n, s, c, generator=gen, device=dev) * 0.05
+        bias = (torch.randn(BATCH, p, generator=gen, device=dev)
+                if per_query else None)
+        src = gl.LutSource(tables, bias, per_query)
+        kw = dict(p=p, s_pad=s_pad, rows=rows, packed=True)
+        gl.LAUNCHES = gl.STAGED_ROWS = 0
+        got = gl.grouped_luts(src, slot, **kw)
+        torch.cuda.synchronize()
+        launches, staged = gl.LAUNCHES, gl.STAGED_ROWS
+        if launches != 1 or staged != rows:
+            raise AssertionError(f"[46 grouped tables] {name}: {launches} "
+                                 f"launches, {staged} rows counted")
+        want = gl.grouped_luts_reference(src, slot, **kw)
+        diff = int((got.view(torch.int16) != want.view(torch.int16)).sum())
+        if diff:
+            raise AssertionError(f"[46 grouped tables] {name}: {diff} "
+                                 f"entries differ from the twin")
+        unused = rows - BATCH * p
+        del want
+        ker = cold_ms(lambda: gl.grouped_luts(src, slot, **kw), 10)
+        plain = cold_ms(lambda: gl.grouped_luts_reference(src, slot, **kw),
+                        3)
+        nbytes = rows * s_pad * c * 2 + tables.numel() * 4 + slot.numel() * 8
+        bound = nbytes / PEAK_HBM * 1e3
+        log(f"[46 grouped tables] {name}: B {BATCH}, p {p}, S {s} -> S_pad "
+            f"{s_pad}, C {c}, q_cap {q_cap}, {k} partitions (Zipf "
+            f"{STAGE_ZIPF}), {'per-query source + bias' if per_query else 'per-pair source'}, "
+            f"packed: {rows} rows ({unused} unused, zero) bit-identical to "
+            f"the twin; LAUNCHES {launches}, STAGED_ROWS {staged}; kernel "
+            f"{ker:.4f} ms, the composed path (twin) {plain:.4f} ms "
+            f"({plain / ker:.1f}x); bound {bound:.4f} ms ({nbytes} bytes) "
+            f"-> {bound / ker:.3f} of the bound, L2 flushed ({smi})")
+        if record is None:
+            record = {
+                "name": "grouped_luts",
+                "route": "cuda",
+                "source": "scann_tpu_torch/csrc/grouped_luts.cu",
+                "replaces": None,
+                "launches": stage_launches,
+                "max_abs_err": 0.0,
+                "ms": ker,
+                "plain_ms": plain,
+                "bound_ms": bound,
+                "bound_by": "bytes",
+                "library_ms": None,
+            }
+        del got, src, tables, bias, slot
+        torch.cuda.empty_cache()
+    return record
 
 
 def check_results(idx, dists, queries, db_dev, rows, exact_check=True):
@@ -4018,6 +4122,7 @@ def sharded_phases(ds, queries, q_np, db_dev, gt_np, smi, searcher, cfg):
     )
     from scann_tpu_torch.harness import ann_benchmark as hb
     from scann_tpu_torch.models import tree_x_hybrid as tx
+    from scann_tpu_torch.ops import grouped_luts as gl
     from scann_tpu_torch.ops import scoring_kernels as sk
     from scann_tpu_torch.ops import sweep as sw
     from scann_tpu_torch.ops import topk
@@ -4062,10 +4167,15 @@ def sharded_phases(ds, queries, q_np, db_dev, gt_np, smi, searcher, cfg):
         """#1 on every shard in every batch, recall, exact distances, and
         the selection kernel on every shard's preselect rows."""
         tag.LAUNCHES = 0
+        gl.LAUNCHES = 0
         sel0 = topk.SELECT_KERNEL_ROWS
         idx, dists = serve(lambda qb: sh.search_batched_tensors(qb, K,
                                                                 params))
         launches = tag.LAUNCHES
+        if gl.LAUNCHES != every:
+            raise AssertionError(f"{label}: the grouped tables took the "
+                                 f"kernel {gl.LAUNCHES} times, not once a "
+                                 f"shard a batch ({every})")
         sel_rows = topk.SELECT_KERNEL_ROWS - sel0
         if sel_rows < every * BATCH:
             raise AssertionError(f"{label}: the selection kernel took "

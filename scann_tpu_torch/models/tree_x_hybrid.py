@@ -11,9 +11,11 @@ partition's centroid.
 Search, one batch of queries on the device with no host round trip:
 
     centroid matmul -> top-p partitions               (_select_partitions)
-    -> per-(query, partition) LUTs                     (_residual_luts)
+    -> LUTs: one table per query (MIPS, the partition term a bias on
+       subspace 0) or per (query, partition) pair       (_lut_source)
     -> leaf scoring over the CSR slab, one of:
-         grouped: pairs grouped by partition, LUT rows gathered, the
+         grouped: pairs grouped by partition, each slot's bf16 table row
+           written from the source (CUDA kernel, ops/grouped_luts), the
            grouped scorer (CUDA kernel, ops/tree_ah_grouped) with bf16 or
            int8 tables                                 (tree_ah_search_grouped)
          per pair: every pair's float32 table over its partition's codes
@@ -60,6 +62,12 @@ from scann_tpu_torch.ops.distances import (
     approx_to_measure_units,
     gathered_distances,
     many_to_many,
+)
+from scann_tpu_torch.ops.grouped_luts import (
+    LutSource,
+    even_first,
+    expand_luts,
+    grouped_luts,
 )
 from scann_tpu_torch.ops.topk import (
     approx_top_k_smallest,
@@ -200,39 +208,48 @@ def _select_partitions(centers: torch.Tensor, queries: torch.Tensor, *,
     return top_k_smallest(many_to_many(sel, queries, centers), p)[1]
 
 
-def _residual_luts(queries: torch.Tensor, centers: torch.Tensor,
-                   parts: torch.Tensor, codebook: torch.Tensor, *, s_pad: int,
-                   use_residuals: bool,
-                   measure: DistanceMeasure = DistanceMeasure.SQUARED_L2
-                   ) -> torch.Tensor:
-    """[B*p, s_pad*C] per-(query, partition) LUTs, zero rows for pad
-    subspaces (pad code 0 then adds nothing).
+def _lut_source(queries: torch.Tensor, centers: torch.Tensor,
+                parts: torch.Tensor, codebook: torch.Tensor, *,
+                use_residuals: bool,
+                measure: DistanceMeasure = DistanceMeasure.SQUARED_L2
+                ) -> LutSource:
+    """A batch's float32 tables before they are expanded to its (query,
+    partition) pairs.
 
-    Squared L2 (and cosine on normalized vectors): LUTs of the residual
-    queries q - c_t. MIPS: -dot(q_s, codebook[s][c]) tables with the
-    partition's constant -dot(q, c_t) folded into subspace 0, so the sums
-    are -dot(q, c_t + r) and compare across partitions."""
+    MIPS: one [S, C] table of -dot(q_s, codebook[s][c]) per query, the
+    partition's constant -dot(q, c_t) a [B, p] bias on subspace 0, so the
+    sums are -dot(q, c_t + r) and compare across partitions. Squared L2
+    (and cosine on normalized vectors): one table per pair, of the residual
+    query q - c_t."""
     b, d = queries.shape
     p = parts.shape[1]
     if measure in _MIPS:
         s, c, dsub = codebook.shape
         qs = queries.reshape(b, s, dsub)
-        luts = -torch.einsum("bsd,scd->bsc", qs, codebook)     # [B, S, C]
-        luts = luts[:, None].expand(b, p, s, c).clone()
-        if use_residuals:
-            bias = -torch.einsum("bd,bpd->bp", queries, centers[parts])
-            luts[:, :, 0, :] += bias[:, :, None]
-        luts = luts.reshape(b * p, s, c)
+        tables = -torch.einsum("bsd,scd->bsc", qs, codebook)   # [B, S, C]
+        bias = (-torch.einsum("bd,bpd->bp", queries, centers[parts])
+                if use_residuals else None)
+        return LutSource(tables, bias, per_query=True)
+    if use_residuals:
+        q_eff = queries[:, None, :] - centers[parts]           # [B, p, D]
     else:
-        if use_residuals:
-            q_eff = queries[:, None, :] - centers[parts]       # [B, p, D]
-        else:
-            q_eff = queries[:, None, :].expand(b, p, d)
-        luts = lut_kernel(q_eff.reshape(b * p, d), codebook)   # [B*p, S, C]
-    s, c = luts.shape[1], luts.shape[2]
-    if s_pad != s:
-        luts = torch.nn.functional.pad(luts, (0, 0, 0, s_pad - s))
-    return luts.reshape(b * p, s_pad * c)
+        q_eff = queries[:, None, :].expand(b, p, d)
+    return LutSource(lut_kernel(q_eff.reshape(b * p, d), codebook), None,
+                     per_query=False)                          # [B*p, S, C]
+
+
+def _residual_luts(queries: torch.Tensor, centers: torch.Tensor,
+                   parts: torch.Tensor, codebook: torch.Tensor, *, s_pad: int,
+                   use_residuals: bool,
+                   measure: DistanceMeasure = DistanceMeasure.SQUARED_L2
+                   ) -> torch.Tensor:
+    """[B*p, s_pad*C] per-(query, partition) float32 LUTs, zero rows for
+    pad subspaces (pad code 0 then adds nothing): :func:`_lut_source`
+    expanded to every pair."""
+    return expand_luts(
+        _lut_source(queries, centers, parts, codebook,
+                    use_residuals=use_residuals, measure=measure),
+        p=parts.shape[1], s_pad=s_pad)
 
 
 def quantize_luts_int8(luts_flat: torch.Tensor
@@ -249,29 +266,36 @@ def quantize_luts_int8(luts_flat: torch.Tensor
     return (q - 128.0).to(torch.int8), lo, scale
 
 
-def _group_luts(luts_flat: torch.Tensor, parts: torch.Tensor,
+def _group_luts(luts: Union[torch.Tensor, LutSource], parts: torch.Tensor,
                 csr_offsets: torch.Tensor, part_sizes: torch.Tensor, *,
                 s_pad: int, q_cap: int, packed: bool):
     """Grouped scorer inputs: (luts_grouped [NG*q_cap, S_pad*C] bf16, or
-    int8 when ``luts_flat`` is int8; grp_off [NG] i32, grp_size [NG] i32
-    with 0 for unused groups, slot [B*p] row of each pair)."""
-    bp = luts_flat.shape[0]
+    int8 when ``luts`` is int8; grp_off [NG] i32, grp_size [NG] i32 with 0
+    for unused groups, slot [B*p] row of each pair).
+
+    ``luts`` is a :class:`LutSource` or flat [B*p, S_pad*C] tables (a
+    per-pair source). Float tables go through ``ops/grouped_luts`` (on the
+    card one kernel writes the bf16 rows in slot order, unused rows zero);
+    int8 tables, quantized over the whole batch, are gathered into slot
+    order (unused rows hold pair 0's)."""
+    bp = parts.numel()
     grp_part, slot, ng = group_pairs_by_partition(
         parts, part_sizes.shape[0], q_cap)
     grp_safe = grp_part.clamp_min(0)
     grp_off = csr_offsets[grp_safe]
     grp_size = torch.where(grp_part >= 0, part_sizes[grp_safe], 0)
-    pair_of_slot = torch.zeros(ng * q_cap, dtype=torch.int64,
-                               device=luts_flat.device)
-    pair_of_slot[slot] = torch.arange(bp, device=luts_flat.device)
-    # bf16 before the gather: the scorer sums bf16 table entries anyway
-    luts = (luts_flat if luts_flat.dtype == torch.int8
-            else luts_flat.to(torch.bfloat16))
-    if packed:
-        # even-first subspace order, the order the nibble unpack yields
-        l3 = luts.reshape(bp, s_pad, -1)
-        luts = torch.cat([l3[:, 0::2], l3[:, 1::2]], dim=1).reshape(bp, -1)
-    return (luts[pair_of_slot].contiguous(), grp_off.int().contiguous(),
+    if isinstance(luts, torch.Tensor) and luts.dtype == torch.int8:
+        pair_of_slot = torch.zeros(ng * q_cap, dtype=torch.int64,
+                                   device=luts.device)
+        pair_of_slot[slot] = torch.arange(bp, device=luts.device)
+        grouped = (even_first(luts, s_pad) if packed else luts)[pair_of_slot]
+    else:
+        if isinstance(luts, torch.Tensor):
+            luts = LutSource(luts.reshape(bp, s_pad, -1), None,
+                             per_query=False)
+        grouped = grouped_luts(luts, slot, p=parts.shape[1], s_pad=s_pad,
+                               rows=ng * q_cap, packed=packed)
+    return (grouped.contiguous(), grp_off.int().contiguous(),
             grp_size.int().contiguous(), slot)
 
 
@@ -284,22 +308,27 @@ def _leaf_major(scores_g: torch.Tensor, slot: torch.Tensor, *, b: int, p: int,
         b, p * l_cap)
 
 
-def leaf_scores_grouped(luts_flat: torch.Tensor, parts: torch.Tensor,
-                        codes_csr: torch.Tensor, csr_offsets: torch.Tensor,
-                        part_sizes: torch.Tensor, *, p: int, l_cap: int,
-                        q_cap: int, l_tile: int, packed: bool,
-                        int8_luts: bool = False) -> torch.Tensor:
+def leaf_scores_grouped(luts: Union[torch.Tensor, LutSource],
+                        parts: torch.Tensor, codes_csr: torch.Tensor,
+                        csr_offsets: torch.Tensor, part_sizes: torch.Tensor,
+                        *, p: int, l_cap: int, q_cap: int, l_tile: int,
+                        packed: bool, int8_luts: bool = False
+                        ) -> torch.Tensor:
     """[B, p*l_cap] leaf-major scores, ``MASKED_DISTANCE`` past each
-    partition's size, from the grouped scorer: bf16, or with ``int8_luts``
+    partition's size, from the grouped scorer over ``luts`` (flat [B*p,
+    S_pad*C] tables or a :class:`LutSource`): bf16, or with ``int8_luts``
     float32 restored from the int16 sums by the batch's affine
     ``scale * (s + 128 * s_pad) + s_pad * lo`` (real units survive, so
     epsilons keep their meaning)."""
     s_pad = 2 * codes_csr.shape[0] if packed else codes_csr.shape[0]
     with span("tree_ah.group"):
         if int8_luts:
-            luts_flat, lo, scale = quantize_luts_int8(luts_flat)
+            # one affine over every pair's float32 table
+            if isinstance(luts, LutSource):
+                luts = expand_luts(luts, p=p, s_pad=s_pad)
+            luts, lo, scale = quantize_luts_int8(luts)
         luts_grouped, grp_off, grp_size, slot = _group_luts(
-            luts_flat, parts, csr_offsets, part_sizes, s_pad=s_pad,
+            luts, parts, csr_offsets, part_sizes, s_pad=s_pad,
             q_cap=q_cap, packed=packed)
     with span("tree_ah.leaf"):
         with span("tree_ah.leaf.score"):
@@ -489,17 +518,20 @@ def tree_ah_search(
         parts = _select_partitions(centers, queries, p=p, measure=measure)
     s_pad = 2 * codes_csr.shape[0] if packed else codes_csr.shape[0]
     with span("tree_ah.luts"):
-        luts_flat = _residual_luts(queries, centers, parts, codebook,
-                                   s_pad=s_pad, use_residuals=use_residuals,
-                                   measure=measure)
+        kw = dict(use_residuals=use_residuals, measure=measure)
+        if leaf == "grouped":
+            luts = _lut_source(queries, centers, parts, codebook, **kw)
+        else:
+            luts = _residual_luts(queries, centers, parts, codebook,
+                                  s_pad=s_pad, **kw)
     if leaf == "grouped":
         flat_scores = leaf_scores_grouped(
-            luts_flat, parts, codes_csr, csr_offsets, part_sizes, p=p,
+            luts, parts, codes_csr, csr_offsets, part_sizes, p=p,
             l_cap=l_cap, q_cap=q_cap, l_tile=l_tile, packed=packed,
             int8_luts=int8_luts)
     else:
         flat_scores = leaf_scores_per_pair(
-            luts_flat, parts, codes_csr, csr_offsets, part_sizes, p=p,
+            luts, parts, codes_csr, csr_offsets, part_sizes, p=p,
             l_cap=l_cap, c=codebook.shape[1])
     num_rows = codes_csr.shape[1]
     if allow_mask is not None:

@@ -423,6 +423,7 @@ def sharded_tree_ah_kernel(mesh: Mesh, *, p: int, pre_k: int, k: int,
     (``spill_dedup``), and the merge drops copies that other shards
     hold."""
     from scann_tpu_torch.models.tree_x_hybrid import (
+        _lut_source,
         _mask_disallowed,
         _residual_luts,
         _select_partitions,
@@ -446,9 +447,16 @@ def sharded_tree_ah_kernel(mesh: Mesh, *, p: int, pre_k: int, k: int,
         local_q = _per_device(lambda dev: queries.to(dev))
         parts_of = _per_device(lambda dev: _select_partitions(
             centers[dev], local_q(dev), p=p, measure=measure))
-        luts_of = _per_device(lambda dev: _residual_luts(
-            local_q(dev), centers[dev], parts_of(dev), codebook[dev],
-            s_pad=s_pad, use_residuals=use_residuals, measure=measure))
+
+        def luts_on(dev):
+            args = (local_q(dev), centers[dev], parts_of(dev), codebook[dev])
+            kw = dict(use_residuals=use_residuals, measure=measure)
+            if use_grouped:
+                # the grouped scorer's rows are written from the source
+                return _lut_source(*args, **kw)
+            return _residual_luts(*args, s_pad=s_pad, **kw)
+
+        luts_of = _per_device(luts_on)
         vals_l, idx_l, k_local = [], [], 1
         for i in range(len(codes)):
             if codes[i] is None:

@@ -11,6 +11,7 @@ import numpy as np
 import pytest
 import torch
 
+from scann_tpu_torch.ops import grouped_luts as gl
 from scann_tpu_torch.ops import tree_ah_grouped as tag
 
 
@@ -368,9 +369,10 @@ def test_tree_ah_searcher_variants_on_card():
     d2 = ((q[:, None, :] - db[None]) ** 2).sum(-1)
     gt = np.argsort(d2, axis=1)[:, :10]
     params = SearchParameters(pre_reordering_num_neighbors=100)
-    before = tag.LAUNCHES
+    before, staged = tag.LAUNCHES, gl.LAUNCHES
     idx, dist = s.search_batched_arrays(q, 10, params)
     assert tag.LAUNCHES == before + 1
+    assert gl.LAUNCHES == staged + 1
     recall = np.mean([len(set(a) & set(g)) / 10 for a, g in zip(idx, gt)])
     assert recall >= 0.9
     np.testing.assert_allclose(dist, np.take_along_axis(d2, idx, 1),
@@ -382,13 +384,14 @@ def test_tree_ah_searcher_variants_on_card():
     common = dict(p=8, pre_k=100, k=10, use_residuals=True)
     db_dev = s._device_state()
     codes, off, sizes, perm, l_cap = s._csr_state()
-    before = tag.LAUNCHES
+    before, staged = tag.LAUNCHES, gl.LAUNCHES
     _, i8 = tx.tree_ah_search_grouped(
         db_dev, s.partitioner.centers, codes, off, sizes, perm,
         s.codebook.centroids, qt, float("inf"), float("inf"), l_cap=l_cap,
         q_cap=8, l_tile=512, packed=True, multiplicity=2, int8_luts=True,
         **common)
     assert tag.LAUNCHES == before + 1
+    assert gl.LAUNCHES == staged      # int8 tables keep the gather
     codes_u, off, sizes, perm, l_cap = s._csr_state(packed=False)
     before = tal.LAUNCHES
     _, ip = tx.tree_ah_search(
@@ -414,6 +417,128 @@ def test_tree_ah_grouped_kernel_rejects_wrong_dtype():
             torch.from_numpy(luts).cuda(), torch.from_numpy(codes).cuda(),
             torch.from_numpy(off).long().cuda(), torch.from_numpy(size).cuda(),
             l_cap=l_cap, l_tile=128, q_cap=8, packed=True)
+
+
+# -- grouped tables (csrc/grouped_luts.cu) ------------------------------------
+
+# (B, p, S, S_pad, C, partitions, q_cap, per-query source, bias, packed,
+# tables offset by one float): the benchmark cells' shapes (dbpedia's 768
+# subspaces at q_cap 8 over 2,560 partitions, glove's 50 padded to 64 at
+# q_cap 16, sift's per-pair squared-L2 source) and layouts past them: rows
+# of S_pad * C not a multiple of 8 (2-byte stores), C not a multiple of 8
+# or tables off 16 bytes (per-element loads), unpacked rows, q_cap 1
+STAGE_CASES = {
+    "dbpedia": (1024, 100, 768, 768, 16, 2560, 8, True, True, True, False),
+    "glove": (1024, 100, 50, 64, 16, 2000, 16, True, True, True, False),
+    "sift per pair": (1024, 100, 64, 64, 16, 2000, 16, False, False, True,
+                      False),
+    "odd rows": (37, 7, 5, 6, 3, 50, 4, True, True, False, False),
+    "odd rows per pair": (37, 7, 5, 6, 3, 50, 4, False, False, True, False),
+    "tables off 16 bytes": (64, 10, 30, 32, 16, 100, 8, False, False, True,
+                            True),
+    "unpacked q_cap 1": (64, 10, 25, 32, 16, 40, 1, True, True, False,
+                         False),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(STAGE_CASES))
+def test_grouped_luts_kernel_matches_twin(name):
+    """Every row bit-identical to the twin (the composition the kernel
+    replaced; unused rows zero) over ragged groups (partitions drawn by a
+    Zipf-like popularity), one launch and every row counted."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    b, p, s, s_pad, c, k, q_cap, per_query, bias, packed, offset = \
+        STAGE_CASES[name]
+    gen = torch.Generator(device="cuda").manual_seed(len(name))
+    weight = torch.arange(1, k + 1, device="cuda").float() ** -0.7
+    parts = torch.multinomial(weight.expand(b, k), p, generator=gen)
+    _, slot, ng = tag.group_pairs_by_partition(parts, k, q_cap)
+    rows = ng * q_cap
+    n = b if per_query else b * p
+    flat = torch.randn(n * s * c + 1, generator=gen, device="cuda") * 0.05
+    tables = flat[int(offset):int(offset) + n * s * c].view(n, s, c)
+    src = gl.LutSource(tables, torch.randn(b, p, generator=gen,
+                                           device="cuda") if bias else None,
+                       per_query)
+    kw = dict(p=p, s_pad=s_pad, rows=rows, packed=packed)
+    launches, staged = gl.LAUNCHES, gl.STAGED_ROWS
+    got = gl.grouped_luts(src, slot, **kw)
+    torch.cuda.synchronize()
+    assert gl.LAUNCHES == launches + 1
+    assert gl.STAGED_ROWS == staged + rows
+    want = gl.grouped_luts_reference(src, slot, **kw)
+    assert got.dtype == torch.bfloat16 and got.shape == want.shape
+    assert torch.equal(got.view(torch.int16), want.view(torch.int16))
+    used = torch.zeros(rows, dtype=torch.bool, device="cuda")
+    used[slot] = True
+    assert not bool(used.all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("measure", ["DOT_PRODUCT", "SQUARED_L2"])
+def test_grouped_leaf_scores_same_from_source_on_card(measure):
+    """On the card the grouped leaf scores fed the source and fed the flat
+    expansion (both through the kernel) equal, bit for bit, #1's scores
+    over the composition's rows (bf16 cast, even-first `cat`, gather)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from scann_tpu_torch.models import tree_x_hybrid as tx
+    from scann_tpu_torch.ops.distances import DistanceMeasure
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    b, p, k, s, s_pad, c, l_tile, q_cap = 128, 10, 60, 50, 64, 16, 256, 8
+    l_cap = 2 * l_tile
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda")
+
+    sizes = torch.randint(1, l_cap + 1, (k,), generator=gen, device="cuda")
+    aligned = (sizes + 127) // 128 * 128
+    offsets = (torch.cumsum(aligned, 0) - aligned).int()
+    codes = torch.randint(0, 256, (s_pad // 2, int(aligned.sum()) + l_cap),
+                          generator=gen, device="cuda", dtype=torch.uint8)
+    q, cent, cb = randn(b, 2 * s), randn(k, 2 * s), randn(s, c, 2)
+    kw = dict(use_residuals=True, measure=DistanceMeasure[measure])
+    parts = tx._select_partitions(cent, q, p=p, measure=kw["measure"])
+    src = tx._lut_source(q, cent, parts, cb, **kw)
+    flat = tx._residual_luts(q, cent, parts, cb, s_pad=s_pad, **kw)
+    skw = dict(p=p, l_cap=l_cap, q_cap=q_cap, l_tile=l_tile, packed=True)
+    launches = gl.LAUNCHES
+    got = [tx.leaf_scores_grouped(x, parts, codes, offsets, sizes.int(),
+                                  **skw).view(torch.int16)
+           for x in (src, flat)]
+    assert gl.LAUNCHES == launches + 2
+    grp_part, slot, ng = tag.group_pairs_by_partition(parts, k, q_cap)
+    pair_of_slot = torch.zeros(ng * q_cap, dtype=torch.long, device="cuda")
+    pair_of_slot[slot] = torch.arange(b * p, device="cuda")
+    composed = gl.even_first(flat.bfloat16(), s_pad)[pair_of_slot]
+    safe = grp_part.clamp_min(0)
+    scores = tag.tree_ah_grouped_scores(
+        composed, codes, offsets[safe],
+        torch.where(grp_part >= 0, sizes[safe], 0).int(), l_cap=l_cap,
+        l_tile=l_tile, q_cap=q_cap, packed=True)
+    want = tx._leaf_major(scores, slot, b=b, p=p, l_cap=l_cap)
+    assert torch.equal(got[0], got[1])
+    assert torch.equal(got[0], want.view(torch.int16))
+
+
+@pytest.mark.cuda
+def test_grouped_luts_kernel_rejects_bad_arguments():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    src = gl.LutSource(torch.randn(4, 8, 16, device="cuda"),
+                       torch.randn(4, 3, device="cuda"), True)
+    slot = torch.arange(12, device="cuda")
+    with pytest.raises(ValueError, match="S_pad"):
+        gl.grouped_luts(src, slot, p=3, s_pad=4, rows=12, packed=True)
+    with pytest.raises(ValueError, match="on cpu"):
+        gl.grouped_luts(src, slot.cpu(), p=3, s_pad=8, rows=12, packed=True)
+    per_pair = gl.LutSource(torch.randn(12, 8, 16, device="cuda"),
+                            torch.randn(4, 3, device="cuda"), False)
+    with pytest.raises(ValueError, match="per-query"):
+        gl.grouped_luts(per_pair, slot, p=3, s_pad=8, rows=12, packed=True)
 
 
 # -- block-min sweep (csrc/block_min_sweep.cu) --------------------------------

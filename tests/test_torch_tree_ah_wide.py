@@ -208,3 +208,39 @@ def test_leaf_scores_at_1536_dims_match_jax_bit_for_bit(jax_wide):
     np.testing.assert_array_equal(got.float().numpy(), want)
     assert (want < MASKED_DISTANCE / 2).any()
     assert (want > MASKED_DISTANCE / 2).any()
+
+
+def test_leaf_scores_from_the_per_query_source_match_jax_bit_for_bit(
+        jax_wide):
+    """The port's per-query source (one table a query, the partition term
+    a bias on subspace 0) scored by its grouped path at q_cap 8 gives the
+    bf16 leaf scores that the JAX package's own per-pair tables
+    (``_residual_luts``) give its grouped scorer at 16, masked slots
+    included."""
+    jax_s, port, queries = jax_wide
+    _, codes_csr, off, sizes, _, l_cap = jax_s._csr_state()
+    p_codes, p_off, p_sizes, _, _ = port._csr_state()
+    cent = port.partitioner.centers
+    measure = DistanceMeasure.DOT_PRODUCT
+    use_residuals = port.config.use_residuals
+    assert use_residuals
+    parts = ptx._select_partitions(cent, queries, p=JAX_P, measure=measure)
+    src = ptx._lut_source(queries, cent, parts, port.codebook.centroids,
+                          use_residuals=use_residuals, measure=measure)
+    assert src.per_query and src.bias is not None
+    j_parts = jnp.asarray(parts.numpy().astype(np.int32))
+    j_luts = jtx._residual_luts(
+        jnp.asarray(queries.numpy()), jnp.asarray(cent.numpy()), j_parts,
+        jnp.asarray(port.codebook.centroids.numpy()),
+        s_pad=2 * p_codes.shape[0], use_residuals=use_residuals,
+        measure=JaxMeasure.DOT_PRODUCT)
+    want, _ = jtx.leaf_scores_grouped(
+        j_luts, j_parts, codes_csr, off, sizes, p=JAX_P, l_cap=l_cap,
+        q_cap=16, l_tile=128, interpret=True, packed=True)
+    got = ptx.leaf_scores_grouped(src, parts, p_codes, p_off, p_sizes,
+                                  p=JAX_P, l_cap=l_cap, q_cap=8, l_tile=128,
+                                  packed=True)
+    want = np.asarray(want.astype(jnp.float32))
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_array_equal(got.float().numpy(), want)
+    assert (want < MASKED_DISTANCE / 2).any()
