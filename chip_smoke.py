@@ -714,9 +714,11 @@ def main() -> int:
         sg = score_fn(lg, codes_csr, go, gs, **kkw)
         ev[4].record()
         flat = tx._leaf_major(sg, sl, b=qb.shape[0], p=P, l_cap=l_cap)
-        tx._finalize(db_dev, qb, flat, parts, csr_offsets, codes_csr.shape[1],
-                     perm, float("inf"), float("inf"), pre_k=PRE_K, k=K, p=P,
-                     measure=cfg.distance_measure)
+        cand = tx.preselect(flat, parts, csr_offsets, perm, float("inf"),
+                            pre_k=PRE_K, p=P, measure=cfg.distance_measure)
+        exact, _ = tx.exact_rerank(db_dev, qb, cand,
+                                   measure=cfg.distance_measure)
+        topk.top_k_smallest(exact, K)
         ev[5].record()
         torch.cuda.synchronize()
         return [ev[i].elapsed_time(ev[i + 1]) for i in range(5)]
@@ -2504,9 +2506,12 @@ def soar_phases(ds, queries, db_dev, gt_np, cold_ms, turns, smi, base):
         ev[2].record()
         flat = leaf(lf, pt)
         ev[3].record()
-        tx._finalize(db_f32, qb, flat, pt, off, codes_p.shape[1], perm, inf,
-                     inf, pre_k=SOAR_PRE_K, k=K, p=SOAR_P,
-                     measure=cfg.distance_measure, multiplicity=mult)
+        cand = tx.preselect(flat, pt, off, perm, inf, pre_k=SOAR_PRE_K,
+                            p=SOAR_P, measure=cfg.distance_measure,
+                            multiplicity=mult)
+        exact, _ = tx.exact_rerank(db_f32, qb, cand,
+                                   measure=cfg.distance_measure)
+        tx.top_k_smallest(exact, K)
         ev[4].record()
         torch.cuda.synchronize()
         return [ev[i].elapsed_time(ev[i + 1]) for i in range(4)]

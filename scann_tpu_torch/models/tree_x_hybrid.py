@@ -8,12 +8,15 @@ sample; codes per ASSIGNMENT in one partition-contiguous CSR slab, so a
 spilled point's two rows each encode the residual against their own
 partition's centroid.
 
-Search, one batch of queries on the device with no host round trip:
+Search, one batch of queries on the device with no host round trip, in
+stages that the sharded searcher (``parallel/sharded_flagship``) runs over
+each shard's slab too (:meth:`TreeXHybridSearcher.plan_request` resolves
+the batch's knobs for either):
 
-    centroid matmul -> top-p partitions               (_select_partitions)
+    centroid matmul -> top-p partitions                      (query_tables)
     -> LUTs: one table per query (MIPS, the partition term a bias on
-       subspace 0) or per (query, partition) pair       (_lut_source)
-    -> leaf scoring over the CSR slab, one of:
+       subspace 0) or per (query, partition) pair
+    -> leaf scoring over the CSR slab, one of:              (leaf_scores)
          grouped: pairs grouped by partition, each slot's bf16 table row
            written from the source (CUDA kernel, ops/grouped_luts), the
            grouped scorer (CUDA kernel, ops/tree_ah_grouped) with bf16 or
@@ -22,11 +25,13 @@ Search, one batch of queries on the device with no host round trip:
            (CUDA kernel, ops/tree_ah_leaf)             (tree_ah_search)
     -> leaf-major flat scores [B, p*l_cap], allowlist mask
     -> top-pre_k (x multiplicity under spilling, then keep-best-per-id):
+                                                               (preselect)
        on the card the bf16 rows go to the exact selection kernel
        (ops/topk, csrc/topk_select.cu), the int64 key's results bit for
        bit; the selection stays exact, where the JAX package's TPU path
        calls lax.approx_min_k
-    -> rows from the re-rank store -> exact re-rank -> top-k   (_finalize)
+    -> rows from the re-rank store (utils/reordering.gather_candidates)
+       -> exact re-rank -> top-k                            (exact_rerank)
 
 Each stage runs inside a span (``utils/trace.span``) that any
 ``torch.profiler`` trace shows: ``tree_ah.partitions``, ``tree_ah.luts``,
@@ -44,6 +49,7 @@ CSR order with the id in digit lanes (``rerank_layout="csr"``).
 
 from __future__ import annotations
 
+import collections
 import copy
 import dataclasses
 import warnings
@@ -97,8 +103,7 @@ from scann_tpu_torch.utils.reordering import (
     build_csr_rerank_store,
     build_rerank_store,
     build_residual_rerank_store,
-    gather_csr_rerank_rows,
-    gather_rerank_rows,
+    gather_candidates,
 )
 from scann_tpu_torch.utils.trace import span
 
@@ -396,85 +401,105 @@ def _mask_disallowed(flat_scores: torch.Tensor, allow_mask: torch.Tensor,
                        flat_scores.new_tensor(float(MASKED_DISTANCE)))
 
 
-def _finalize(db, queries: torch.Tensor, flat_scores: torch.Tensor,
-              parts: torch.Tensor, csr_offsets: torch.Tensor, num_rows: int,
-              perm: torch.Tensor, pre_eps: float, post_eps: float, *,
-              pre_k: int, k: int, p: int, measure: DistanceMeasure,
-              reorder: bool = True, multiplicity: int = 1,
-              spill_dedup: bool = True, csr_store: bool = False,
-              centers: Optional[torch.Tensor] = None
-              ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Approximate candidate selection -> (dedup) -> exact re-rank -> top-k.
-    Returns (distances [B, k] with inf for missing, ids [B, k] with -1).
+def query_tables(centers: torch.Tensor, codebook: torch.Tensor,
+                 queries: torch.Tensor, *, p: int, s_pad: int,
+                 use_residuals: bool,
+                 measure: DistanceMeasure = DistanceMeasure.SQUARED_L2,
+                 leaf: str = "grouped"
+                 ) -> Tuple[torch.Tensor, Union[torch.Tensor, LutSource]]:
+    """(top-p partitions [B, p], tables): the stages a batch runs once
+    whatever slab it scores. The grouped scorer takes a
+    :class:`LutSource`, the per-pair one [B*p, s_pad*C] float32 tables."""
+    with span("tree_ah.partitions"):
+        parts = _select_partitions(centers, queries, p=p, measure=measure)
+    with span("tree_ah.luts"):
+        kw = dict(use_residuals=use_residuals, measure=measure)
+        if leaf == "grouped":
+            return parts, _lut_source(queries, centers, parts, codebook, **kw)
+        return parts, _residual_luts(queries, centers, parts, codebook,
+                                     s_pad=s_pad, **kw)
 
-    Candidate CSR rows resolve arithmetically from the flat positions;
-    point ids resolve through ``perm`` for the survivors only.
-    ``reorder=False`` returns the approximate scores in measure units.
-    Under spilling (``multiplicity`` > 1) the approximate stage selects
-    pre_k x multiplicity slots; ``spill_dedup`` keeps each id's best slot
-    (:func:`keep_best_per_id`) before the gather, else every slot is
-    gathered and the exact top-k dedups (:func:`top_k_unique`).
-    ``csr_store``: ``db`` is an id-embedded CSR-ordered store; the gather
-    takes the CSR rows directly and the ids decode from its digit lanes,
-    an anchored store's residual rows getting each slot's partition
-    centroid (``centers``) back; copies dedup after the exact scores."""
-    if not reorder:
-        with span("tree_ah.rerank"):
-            kp = min(k * max(int(multiplicity), 1), flat_scores.shape[-1])
-            vals, pos = top_k_smallest(flat_scores, kp)
-            rows_sel = candidate_rows_from_positions(parts, csr_offsets,
-                                                     num_rows, pos, p=p)
-            idx = perm[rows_sel]
-            if multiplicity > 1:
-                vals, idx = dedup_top_k(vals, idx, k)
-            else:
-                vals, idx = vals[..., :k], idx[..., :k]
-            vals = vals.float()
-            vals_m = approx_to_measure_units(vals, measure)
-            missing = (vals >= MASKED_DISTANCE / 2) | (vals_m > pre_eps)
-            return (torch.where(missing, float("inf"), vals_m),
-                    torch.where(missing, -1, idx))
 
+def leaf_scores(luts: Union[torch.Tensor, LutSource], parts: torch.Tensor,
+                codes_csr: torch.Tensor, csr_offsets: torch.Tensor,
+                part_sizes: torch.Tensor, perm: torch.Tensor, *, leaf: str,
+                p: int, l_cap: int, q_cap: int = 8, l_tile: int = 512,
+                packed: bool = False, int8_luts: bool = False,
+                allow_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """[B, p*l_cap] leaf-major scores of one slab by the ``leaf`` scorer,
+    slots whose id ``allow_mask`` denies masked."""
+    if leaf == "grouped":
+        flat = leaf_scores_grouped(
+            luts, parts, codes_csr, csr_offsets, part_sizes, p=p,
+            l_cap=l_cap, q_cap=q_cap, l_tile=l_tile, packed=packed,
+            int8_luts=int8_luts)
+    else:
+        flat = leaf_scores_per_pair(
+            luts, parts, codes_csr, csr_offsets, part_sizes, p=p,
+            l_cap=l_cap, c=luts.shape[-1] // codes_csr.shape[0])
+    if allow_mask is None:
+        return flat
+    with span("tree_ah.mask"):
+        return _mask_disallowed(flat, allow_mask, perm, parts, csr_offsets,
+                                codes_csr.shape[1], p=p, l_cap=l_cap)
+
+
+# preselected candidates, [B, C] each: flat positions and CSR rows (None
+# once no store needs them), point ids (None for an id-embedded store),
+# valid; ``deduped``: each id kept only its best slot; ``order``: how the
+# store they are for is indexed (utils/reordering.gather_candidates)
+Candidates = collections.namedtuple("Candidates",
+                                    "pos rows ids valid deduped order")
+
+
+def preselect(flat_scores: torch.Tensor, parts: torch.Tensor,
+              csr_offsets: torch.Tensor, perm: torch.Tensor, pre_eps: float,
+              *, pre_k: int, p: int, measure: DistanceMeasure,
+              order: str = "id", multiplicity: int = 1,
+              spill_dedup: bool = True) -> Candidates:
+    """The top-pre_k (x multiplicity under spilling) of the flat scores,
+    valid where real and within ``pre_eps``: CSR rows from the positions,
+    ids through ``perm`` unless the store embeds them (``order="csr"``).
+    ``spill_dedup`` keeps each id's best slot (:func:`keep_best_per_id`),
+    its CSR row only for a store in CSR row order (``order="row"``)."""
     mult = max(int(multiplicity), 1)
-    dedup_first = spill_dedup and mult > 1 and not csr_store
-    width = flat_scores.shape[-1]
-    sel_k = min(pre_k * mult, width) if mult > 1 else min(pre_k, width)
+    sel_k = min(pre_k * mult, flat_scores.shape[-1])
     with span("tree_ah.preselect"):
-        pre_vals, pre_pos = approx_top_k_smallest(flat_scores, sel_k)
-        pre_rows = candidate_rows_from_positions(
-            parts, csr_offsets, num_rows, pre_pos, p=p)     # [B, sel_k]
-        pre_vals = pre_vals.float()
-        pre_m = approx_to_measure_units(pre_vals, measure)
-        pre_valid = (pre_vals < MASKED_DISTANCE / 2) & (pre_m <= pre_eps)
-        if not csr_store:
-            pre_cand = perm[pre_rows]
-            if dedup_first:
-                masked = torch.where(pre_valid, pre_vals,
-                                     float(MASKED_DISTANCE))
-                dvals, pre_cand = keep_best_per_id(masked, pre_cand,
-                                                   min(pre_k, sel_k))
-                pre_valid = dvals < MASKED_DISTANCE / 2
-    with span("tree_ah.rerank"):
-        if csr_store:
-            rows, pre_cand = gather_csr_rerank_rows(db, pre_rows,
-                                                    queries.shape[-1])
-            if isinstance(db, tuple):
-                # anchored store: slot j belongs to partition parts[b, j % p]
-                rows = rows + centers[torch.gather(parts, 1, pre_pos % p)]
-        else:
-            # [B, pre_k, D]
-            rows = gather_rerank_rows(db, pre_cand.clamp_min(0))
-        norms = torch.sum(rows * rows, dim=-1)
-        exact = gathered_distances(measure, queries, rows, norms)
-        exact = torch.where(pre_valid, exact, float(MASKED_DISTANCE))
-        if mult > 1 and not dedup_first:
-            vals, idx = top_k_unique(exact, pre_cand, k, multiplicity)
-        else:
-            vals, pos = top_k_smallest(exact, k)
-            idx = torch.gather(pre_cand, 1, pos)
-        missing = (vals >= MASKED_DISTANCE / 2) | (vals > post_eps)
-        return (torch.where(missing, float("inf"), vals),
-                torch.where(missing, -1, idx))
+        vals, pos = approx_top_k_smallest(flat_scores, sel_k)
+        rows = candidate_rows_from_positions(parts, csr_offsets,
+                                             perm.shape[0], pos, p=p)
+        vals = vals.float()
+        pre_m = approx_to_measure_units(vals, measure)
+        valid = (vals < MASKED_DISTANCE / 2) & (pre_m <= pre_eps)
+        if order == "csr":
+            return Candidates(pos, rows, None, valid, False, order)
+        ids = perm[rows]
+        if not (spill_dedup and mult > 1):
+            return Candidates(pos, rows, ids, valid, False, order)
+        masked = torch.where(valid, vals, float(MASKED_DISTANCE))
+        kept = keep_best_per_id(masked, ids, min(pre_k, sel_k),
+                                payload=rows if order == "row" else None)
+        return Candidates(None, kept[2] if order == "row" else None, kept[1],
+                          kept[0] < MASKED_DISTANCE / 2, True, order)
+
+
+def exact_rerank(store, queries: torch.Tensor, cand: Candidates, *,
+                 measure: DistanceMeasure,
+                 centers: Optional[torch.Tensor] = None,
+                 parts: Optional[torch.Tensor] = None
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(exact distances [B, C], MASKED_DISTANCE where invalid; ids [B, C])
+    of the candidates, their rows from ``store`` as ``cand.order`` indexes
+    it (an anchored id-embedded store adds back the slot's centroid of
+    ``parts``). Callers run it, and take their top-k, inside the
+    ``tree_ah.rerank`` span."""
+    rows, ids = gather_candidates(
+        store, cand.rows, cand.ids, order=cand.order,
+        slot_centers=lambda: centers[torch.gather(
+            parts, 1, cand.pos % parts.shape[1])])
+    norms = torch.sum(rows * rows, dim=-1)
+    exact = gathered_distances(measure, queries, rows, norms)
+    return torch.where(cand.valid, exact, float(MASKED_DISTANCE)), ids
 
 
 def tree_ah_search(
@@ -489,7 +514,8 @@ def tree_ah_search(
         csr_store: bool = False, leaf: str = "per_pair", q_cap: int = 8,
         l_tile: int = 512, packed: bool = False, int8_luts: bool = False
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """One batch of tree-x-AH search: (distances, ids).
+    """One batch of tree-x-AH search: (distances [B, k] with inf for
+    missing, ids [B, k] with -1).
 
     Args:
         db: the re-rank store (:mod:`scann_tpu_torch.utils.reordering`): [N,
@@ -505,6 +531,7 @@ def tree_ah_search(
         codebook: [S, C, d_sub] PQ centroids.
         queries: [B, D] float32 (normalized for COSINE).
         allow_mask: [N] bool on the device, or None: restricts.
+        reorder: False returns the approximate scores in measure units.
         leaf: "per_pair" — float32 per-pair leaf scores from the per-pair
             kernel (the JAX package's ``tree_ah_search``); "grouped" — the
             grouped scorer (``tree_ah_search_grouped``), shaped by ``q_cap``,
@@ -514,42 +541,77 @@ def tree_ah_search(
     """
     if leaf not in ("per_pair", "grouped"):
         raise ValueError(f"unknown leaf scorer {leaf!r}")
-    with span("tree_ah.partitions"):
-        parts = _select_partitions(centers, queries, p=p, measure=measure)
     s_pad = 2 * codes_csr.shape[0] if packed else codes_csr.shape[0]
-    with span("tree_ah.luts"):
-        kw = dict(use_residuals=use_residuals, measure=measure)
-        if leaf == "grouped":
-            luts = _lut_source(queries, centers, parts, codebook, **kw)
+    parts, luts = query_tables(centers, codebook, queries, p=p, s_pad=s_pad,
+                               use_residuals=use_residuals, measure=measure,
+                               leaf=leaf)
+    flat_scores = leaf_scores(
+        luts, parts, codes_csr, csr_offsets, part_sizes, perm, leaf=leaf,
+        p=p, l_cap=l_cap, q_cap=q_cap, l_tile=l_tile, packed=packed,
+        int8_luts=int8_luts, allow_mask=allow_mask)
+    if not reorder:
+        with span("tree_ah.rerank"):
+            kp = min(k * max(int(multiplicity), 1), flat_scores.shape[-1])
+            vals, pos = top_k_smallest(flat_scores, kp)
+            rows_sel = candidate_rows_from_positions(
+                parts, csr_offsets, codes_csr.shape[1], pos, p=p)
+            idx = perm[rows_sel]
+            if multiplicity > 1:
+                vals, idx = dedup_top_k(vals, idx, k)
+            else:
+                vals, idx = vals[..., :k], idx[..., :k]
+            vals = vals.float()
+            vals_m = approx_to_measure_units(vals, measure)
+            missing = (vals >= MASKED_DISTANCE / 2) | (vals_m > pre_eps)
+            return (torch.where(missing, float("inf"), vals_m),
+                    torch.where(missing, -1, idx))
+    order = "csr" if csr_store else "id"
+    cand = preselect(flat_scores, parts, csr_offsets, perm, pre_eps,
+                     pre_k=pre_k, p=p, measure=measure, order=order,
+                     multiplicity=multiplicity, spill_dedup=spill_dedup)
+    with span("tree_ah.rerank"):
+        exact, ids = exact_rerank(db, queries, cand, measure=measure,
+                                  centers=centers, parts=parts)
+        if multiplicity > 1 and not cand.deduped:
+            vals, idx = top_k_unique(exact, ids, k, multiplicity)
         else:
-            luts = _residual_luts(queries, centers, parts, codebook,
-                                  s_pad=s_pad, **kw)
-    if leaf == "grouped":
-        flat_scores = leaf_scores_grouped(
-            luts, parts, codes_csr, csr_offsets, part_sizes, p=p,
-            l_cap=l_cap, q_cap=q_cap, l_tile=l_tile, packed=packed,
-            int8_luts=int8_luts)
-    else:
-        flat_scores = leaf_scores_per_pair(
-            luts, parts, codes_csr, csr_offsets, part_sizes, p=p,
-            l_cap=l_cap, c=codebook.shape[1])
-    num_rows = codes_csr.shape[1]
-    if allow_mask is not None:
-        with span("tree_ah.mask"):
-            flat_scores = _mask_disallowed(flat_scores, allow_mask, perm,
-                                           parts, csr_offsets, num_rows, p=p,
-                                           l_cap=l_cap)
-    return _finalize(db, queries, flat_scores, parts, csr_offsets, num_rows,
-                     perm, pre_eps, post_eps, pre_k=pre_k, k=k, p=p,
-                     measure=measure, reorder=reorder,
-                     multiplicity=multiplicity, spill_dedup=spill_dedup,
-                     csr_store=csr_store, centers=centers)
+            vals, pos = top_k_smallest(exact, k)
+            idx = torch.gather(ids, 1, pos)
+        missing = (vals >= MASKED_DISTANCE / 2) | (vals > post_eps)
+        return (torch.where(missing, float("inf"), vals),
+                torch.where(missing, -1, idx))
 
 
 def tree_ah_search_grouped(*args, **kwargs):
     """:func:`tree_ah_search` with ``leaf="grouped"`` (the JAX package's
     name for the grouped serving path)."""
     return tree_ah_search(*args, leaf="grouped", **kwargs)
+
+
+def slab_width(s: int, packed: bool) -> int:
+    """Subspaces of the serving slab: 2*align_up(ceil(S/2), 8) packed,
+    align_up(S, 32) unpacked."""
+    return (2 * int(align_up((s + 1) // 2, 8)) if packed
+            else int(align_up(s, 32)))
+
+
+def serving_slab(rows: torch.Tensor, packed: bool) -> torch.Tensor:
+    """The scorers' slab of [M, S] u8 codes, pad subspaces code 0: [S_pad/2,
+    M] packed low-nibble-first (byte j: subspace 2j low nibble, 2j+1 high
+    nibble) or [S_pad, M] u8, S_pad = :func:`slab_width`."""
+    m, s = rows.shape
+    padded = torch.zeros(m, slab_width(s, packed), dtype=torch.uint8,
+                         device=rows.device)
+    padded[:, :s] = rows
+    if packed:
+        padded = padded[:, 0::2] | (padded[:, 1::2] << 4)
+    return padded.T.contiguous()
+
+
+# a batch's knobs, resolved by TreeXHybridSearcher.plan_request
+SearchRequest = collections.namedtuple(
+    "SearchRequest",
+    "queries k p pre_k pre_eps post_eps q_cap multiplicity allow")
 
 
 # ---------------------------------------------------------------------------
@@ -684,7 +746,8 @@ class TreeXHybridSearcher(Searcher):
         l_tile = max(int(self.config.score_l_tile), 128)
         aligned_rows += int(align_up(max(tk.max_partition_size, 8), l_tile))
         packed = self._pack_codes()
-        row_bytes = self._slab_s_pad(packed) // (2 if packed else 1)
+        s_pad = slab_width(self.codebook.centroids.shape[0], packed)
+        row_bytes = s_pad // 2 if packed else s_pad
         return int(aligned_rows * row_bytes + aligned_rows * 4
                    + self.partitioner.centers.nbytes
                    + self.codebook.centroids.nbytes)
@@ -722,8 +785,8 @@ class TreeXHybridSearcher(Searcher):
         128-aligned, part_sizes [K] i32, perm [N_csr] int64 row -> point id,
         l_cap). The slab is [S_pad/2, N_csr] packed low-nibble-first with
         S_pad = 2*align_up(ceil(S/2), 8), or [align_up(S, 32), N_csr] u8
-        (``packed=False``, the per-pair path's slab); ``packed=None`` takes
-        :meth:`_pack_codes`."""
+        (``packed=False``, the per-pair path's slab; :func:`serving_slab`);
+        ``packed=None`` takes :meth:`_pack_codes`."""
         packed = self._pack_codes() if packed is None else bool(packed)
         if packed not in self._csr_cache:
             if packed and self.codebook.num_codes > 16:
@@ -731,29 +794,15 @@ class TreeXHybridSearcher(Searcher):
             tk = self.partitioner.tokenization
             device = self.codes.device
             aligned, dest, _, total, l_cap = self._csr_layout()
-            m, s = self.codes.shape
-            s_pad = self._slab_s_pad(packed)
-            codes_aligned = torch.zeros(total, s_pad, dtype=torch.uint8,
-                                        device=device)
-            codes_aligned[dest, :s] = self.codes
+            codes_rows = torch.zeros(total, self.codes.shape[1],
+                                     dtype=torch.uint8, device=device)
+            codes_rows[dest] = self.codes
             perm = torch.zeros(total, dtype=torch.int64, device=device)
             perm[dest] = tk.point_indices.to(device)
-            if packed:
-                # byte j: subspace 2j low nibble, 2j+1 high nibble
-                slab = codes_aligned[:, 0::2] | (codes_aligned[:, 1::2] << 4)
-            else:
-                slab = codes_aligned
             self._csr_cache[packed] = (
-                slab.T.contiguous(), aligned[:-1].int(),
+                serving_slab(codes_rows, packed), aligned[:-1].int(),
                 tk.partition_sizes.to(device).int(), perm, l_cap)
         return self._csr_cache[packed]
-
-    def _slab_s_pad(self, packed: bool) -> int:
-        """Subspaces of the serving slab: 2*align_up(ceil(S/2), 8) packed,
-        align_up(S, 32) unpacked."""
-        s = self.codebook.centroids.shape[0]
-        return (2 * int(align_up((s + 1) // 2, 8)) if packed
-                else int(align_up(s, 32)))
 
     def effective_q_cap(self, b: int, p: int) -> int:
         """Queries per group: the config's value, or the JAX package's rule
@@ -764,7 +813,8 @@ class TreeXHybridSearcher(Searcher):
             return int(self.config.group_q_cap)
         kparts = max(self.partitioner.num_partitions, 1)
         rule = 16 if (b * p) / kparts >= 12.0 else 8
-        return fit_q_cap(rule, self._slab_s_pad(self._pack_codes()),
+        return fit_q_cap(rule, slab_width(self.codebook.centroids.shape[0],
+                                         self._pack_codes()),
                          self.codebook.num_codes, int8=False)
 
     # -- re-rank stores ---------------------------------------------------------
@@ -832,32 +882,18 @@ class TreeXHybridSearcher(Searcher):
         other._reset_caches()
         return other
 
-    def _allow_tensor(self, allow_mask) -> torch.Tensor:
-        """[N] bool allowlist on the device (ids past the mask: denied)."""
-        n = self.dataset_size()
-        m = np.zeros(n, dtype=bool)
-        a = np.asarray(allow_mask, dtype=bool).reshape(-1)[:n]
-        m[:len(a)] = a
-        return torch.from_numpy(m).to(self.device)
-
     # -- search -----------------------------------------------------------------
-    def search_batched_tensors(self, queries: torch.Tensor, k: int,
-                               params: Optional[SearchParameters] = None,
-                               allow_mask=None
-                               ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """(ids [B, k] int64, distances [B, k] float32) for [B, D] float32
-        queries on the searcher's device; no host copy of the results.
-        ``allow_mask`` ([N] bool, host) restricts the results to the
-        allowed ids."""
-        with span("tree_ah.search"):
-            return self._search(queries, k, params, allow_mask)
-
-    def _search(self, queries: torch.Tensor, k: int,
-                params: Optional[SearchParameters], allow_mask
-                ) -> Tuple[torch.Tensor, torch.Tensor]:
-        self._check_built()
+    def plan_request(self, queries: torch.Tensor, k: int,
+                     params: Optional[SearchParameters], allow_mask, *,
+                     device: torch.device, l_cap: int, clamp_k: bool = False
+                     ) -> SearchRequest:
+        """A batch's :data:`SearchRequest` for a slab of this index with
+        ``l_cap`` slots a partition: queries on ``device`` (normalized for
+        COSINE), p / pre_k / epsilons from ``params`` or the config, pre_k
+        within [k, p*l_cap], the [N] allowlist on ``device``. ``clamp_k``
+        clamps k to p*l_cap too, with a warning; else the caller pads."""
         cfg = self.config
-        queries = queries.to(self.device).float()
+        queries = queries.to(device).float()
         if cfg.distance_measure == DistanceMeasure.COSINE:
             queries = _normalize(queries)
         n = self.dataset_size()
@@ -873,36 +909,58 @@ class TreeXHybridSearcher(Searcher):
             pre_k = int(params.pre_reordering_num_neighbors)
         else:
             pre_k = int(np.ceil(k * cfg.pre_reorder_multiplier))
-        pre_eps, post_eps = epsilons(params)
-
-        codes_csr, csr_offsets, part_sizes, perm, l_cap = self._csr_state()
-        # restricts go through the id layout (its perm table maps slots to
-        # the ids the mask is indexed by)
-        csr_store = self._rerank_layout() == "csr" and allow_mask is None
-        db = self._csr_store_state() if csr_store else self._device_state()
         max_cand = p * l_cap
-        if pre_k > max_cand or k > max_cand:
+        if clamp_k and (pre_k > max_cand or k > max_cand):
             warnings.warn(
                 f"requested pre_k={pre_k} / k={k} exceed the {max_cand} "
                 f"candidates reachable with p={p}, l_cap={l_cap}; clamping "
                 f"(raise partitions_to_search for more candidates)",
                 stacklevel=2)
         pre_k = min(max(pre_k, k), max_cand)
-        k_eff = min(k, max_cand)
+        if clamp_k:
+            k = min(k, max_cand)
+        allow = None
+        if allow_mask is not None:
+            m = np.zeros(n, dtype=bool)
+            a = np.asarray(allow_mask, dtype=bool).reshape(-1)[:n]
+            m[:len(a)] = a
+            allow = torch.from_numpy(m).to(device)
+        return SearchRequest(
+            queries, k, p, pre_k, *epsilons(params),
+            self.effective_q_cap(queries.shape[0], p),
+            self.partitioner.tokenization.max_multiplicity, allow)
 
-        dists, idx = tree_ah_search(
-            db, self.partitioner.centers, codes_csr, csr_offsets, part_sizes,
-            perm, self.codebook.centroids, queries, pre_eps, post_eps,
-            p=p, pre_k=pre_k, k=k_eff, l_cap=l_cap,
-            use_residuals=cfg.use_residuals,
-            q_cap=self.effective_q_cap(queries.shape[0], p),
-            l_tile=cfg.score_l_tile, packed=self._pack_codes(),
-            measure=cfg.distance_measure,
-            allow_mask=(None if allow_mask is None
-                        else self._allow_tensor(allow_mask)),
-            multiplicity=self.partitioner.tokenization.max_multiplicity,
-            spill_dedup=cfg.spill_dedup, csr_store=csr_store, leaf="grouped")
-        return idx, dists
+    def search_batched_tensors(self, queries: torch.Tensor, k: int,
+                               params: Optional[SearchParameters] = None,
+                               allow_mask=None
+                               ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(ids [B, k] int64, distances [B, k] float32) for [B, D] float32
+        queries on the searcher's device; no host copy of the results.
+        ``allow_mask`` ([N] bool, host) restricts the results to the
+        allowed ids."""
+        self._check_built()
+        cfg = self.config
+        with span("tree_ah.search"):
+            codes_csr, csr_offsets, part_sizes, perm, l_cap = \
+                self._csr_state()
+            req = self.plan_request(queries, k, params, allow_mask,
+                                    device=self.device, l_cap=l_cap,
+                                    clamp_k=True)
+            # restricts go through the id layout (its perm table maps slots
+            # to the ids the mask is indexed by)
+            csr_store = self._rerank_layout() == "csr" and allow_mask is None
+            db = (self._csr_store_state() if csr_store
+                  else self._device_state())
+            dists, idx = tree_ah_search(
+                db, self.partitioner.centers, codes_csr, csr_offsets,
+                part_sizes, perm, self.codebook.centroids, req.queries,
+                req.pre_eps, req.post_eps, p=req.p, pre_k=req.pre_k, k=req.k,
+                l_cap=l_cap, use_residuals=cfg.use_residuals, q_cap=req.q_cap,
+                l_tile=cfg.score_l_tile, packed=self._pack_codes(),
+                measure=cfg.distance_measure, allow_mask=req.allow,
+                multiplicity=req.multiplicity, spill_dedup=cfg.spill_dedup,
+                csr_store=csr_store, leaf="grouped")
+            return idx, dists
 
     def search_batched_arrays(self, queries: np.ndarray, k: int,
                               params: Optional[SearchParameters] = None,

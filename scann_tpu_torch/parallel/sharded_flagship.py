@@ -47,14 +47,19 @@ from scann_tpu_torch.models.searcher import (
     epsilons,
     pad_results_to_k,
 )
+from scann_tpu_torch.models.tree_x_hybrid import (
+    exact_rerank,
+    leaf_scores,
+    preselect,
+    query_tables,
+    serving_slab,
+)
 from scann_tpu_torch.ops.distances import (
     DistanceMeasure,
     approx_to_measure_units,
-    gathered_distances,
 )
 from scann_tpu_torch.ops.topk import (
     approx_top_k_smallest,
-    keep_best_per_id,
     merge_top_k,
     top_k_smallest,
     top_k_unique,
@@ -68,9 +73,9 @@ from scann_tpu_torch.parallel.mesh import (
 from scann_tpu_torch.types import MASKED_DISTANCE, align_up, cdiv
 from scann_tpu_torch.utils.reordering import (
     encode_rerank_rows,
-    gather_rerank_rows,
     rerank_codec,
 )
+from scann_tpu_torch.utils.trace import span
 
 INF = float("inf")
 
@@ -417,103 +422,49 @@ def sharded_tree_ah_kernel(mesh: Mesh, *, p: int, pre_k: int, k: int,
     ``perm`` [L_sh] local CSR row -> point id, ``db`` the re-rank store in
     the same local CSR order.
 
-    Every shard selects the same partitions (replicated centroids), scores
-    only those it owns, re-ranks its own rows and keeps a local top-k;
-    under spilling each id keeps its best slot before the gather
-    (``spill_dedup``), and the merge drops copies that other shards
-    hold."""
-    from scann_tpu_torch.models.tree_x_hybrid import (
-        _lut_source,
-        _mask_disallowed,
-        _residual_luts,
-        _select_partitions,
-        candidate_rows_from_positions,
-        leaf_scores_grouped,
-        leaf_scores_per_pair,
-    )
-
+    Every shard selects the same partitions (replicated centroids), then
+    runs the single-device searcher's stages over its own slab
+    (``models/tree_x_hybrid``: :func:`leaf_scores`, :func:`preselect`,
+    :func:`exact_rerank`) and keeps a local top-k; under spilling each id
+    keeps its best slot on the shard before the gather (``spill_dedup``),
+    and the merge drops copies that other shards hold."""
     n_sh = mesh.shape[db_axis]
     mult = max(int(multiplicity), 1)
-    dedup_first = spill_dedup and mult > 1
+    leaf = "grouped" if use_grouped else "per_pair"
 
     def fn(centers, codebook, codes, offsets, sizes, perm, db,
            queries: torch.Tensor, allow_mask=None, pre_eps: float = INF,
            post_eps: float = INF):
         first = next(c for c in codes if c is not None)
-        if use_grouped:
-            s_pad = 2 * first.shape[0] if packed else first.shape[0]
-        else:
-            s_pad = first.shape[0]
+        s_pad = 2 * first.shape[0] if packed else first.shape[0]
         local_q = _per_device(lambda dev: queries.to(dev))
-        parts_of = _per_device(lambda dev: _select_partitions(
-            centers[dev], local_q(dev), p=p, measure=measure))
-
-        def luts_on(dev):
-            args = (local_q(dev), centers[dev], parts_of(dev), codebook[dev])
-            kw = dict(use_residuals=use_residuals, measure=measure)
-            if use_grouped:
-                # the grouped scorer's rows are written from the source
-                return _lut_source(*args, **kw)
-            return _residual_luts(*args, s_pad=s_pad, **kw)
-
-        luts_of = _per_device(luts_on)
+        tables_of = _per_device(lambda dev: query_tables(
+            centers[dev], codebook[dev], local_q(dev), p=p, s_pad=s_pad,
+            use_residuals=use_residuals, measure=measure, leaf=leaf))
         vals_l, idx_l, k_local = [], [], 1
-        for i in range(len(codes)):
-            if codes[i] is None:
+        for i, codes_s in enumerate(codes):
+            if codes_s is None:
                 vals_l.append(None)
                 idx_l.append(None)
                 continue
-            codes_s, offs_s, sizes_s, perm_s = (codes[i], offsets[i],
-                                                sizes[i], perm[i])
             dev = codes_s.device
-            q, parts, luts = local_q(dev), parts_of(dev), luts_of(dev)
-            num_rows = codes_s.shape[1]
-            if use_grouped:
-                flat = leaf_scores_grouped(
-                    luts, parts, codes_s, offs_s, sizes_s, p=p, l_cap=l_cap,
-                    q_cap=q_cap, l_tile=l_tile, packed=packed)
-            else:
-                flat = leaf_scores_per_pair(
-                    luts, parts, codes_s, offs_s, sizes_s, p=p, l_cap=l_cap,
-                    c=codebook[dev].shape[1])
-            if allow_mask is not None:
-                flat = _mask_disallowed(flat, allow_mask[dev], perm_s, parts,
-                                        offs_s, num_rows, p=p, l_cap=l_cap)
-            width = flat.shape[-1]
-            sel_k = min(pre_k * mult, width) if mult > 1 \
-                else min(pre_k, width)
-            pre_vals, pre_pos = approx_top_k_smallest(flat, sel_k)
-            pre_rows = candidate_rows_from_positions(parts, offs_s, num_rows,
-                                                     pre_pos, p=p)
-            pre_vals = pre_vals.float()
-            pre_m = approx_to_measure_units(pre_vals, measure)
-            pre_valid = (pre_vals < MASKED_DISTANCE / 2) & (pre_m <= pre_eps)
-            pk = sel_k
-            if dedup_first:
-                # a spilled point's copies on this shard collapse to its
-                # best slot before the gather; copies on other shards go in
-                # the merge
-                ids = perm_s[pre_rows]
-                masked = torch.where(pre_valid, pre_vals,
-                                     float(MASKED_DISTANCE))
-                pk = min(pre_k, sel_k)
-                dvals, ids_u, pre_rows = keep_best_per_id(
-                    masked, ids, pk, payload=pre_rows)
-                pre_valid = dvals < MASKED_DISTANCE / 2
-                pre_rows = pre_rows.clamp(0, num_rows - 1)
-            rows = gather_rerank_rows(db[i], pre_rows)
-            norms = torch.sum(rows * rows, dim=-1)
-            exact = gathered_distances(measure, q, rows, norms)
-            exact = torch.where(pre_valid, exact, float(MASKED_DISTANCE))
-            if dedup_first:
-                k_local = min(k, pk)
+            parts, luts = tables_of(dev)
+            flat = leaf_scores(
+                luts, parts, codes_s, offsets[i], sizes[i], perm[i],
+                leaf=leaf, p=p, l_cap=l_cap, q_cap=q_cap, l_tile=l_tile,
+                packed=packed,
+                allow_mask=None if allow_mask is None else allow_mask[dev])
+            cand = preselect(flat, parts, offsets[i], perm[i], pre_eps,
+                             pre_k=pre_k, p=p, measure=measure, order="row",
+                             multiplicity=mult, spill_dedup=spill_dedup)
+            # undeduped copies each keep an exact slot until the merge
+            k_local = min(k if cand.deduped else k * mult,
+                          cand.ids.shape[1])
+            with span("tree_ah.rerank"):
+                exact, ids = exact_rerank(db[i], local_q(dev), cand,
+                                          measure=measure)
                 vals, pos = top_k_smallest(exact, k_local)
-                idx = torch.gather(ids_u, 1, pos)
-            else:
-                # every copy keeps an exact slot until the merge dedups
-                k_local = min(k * mult, pk)
-                vals, pos = top_k_smallest(exact, k_local)
-                idx = perm_s[torch.gather(pre_rows, 1, pos)]
+                idx = torch.gather(ids, 1, pos)
             vals_l.append(vals)
             idx_l.append(torch.where(vals < MASKED_DISTANCE / 2, idx, -1))
         # n_sh * k_local candidates reach the merge; past that ceiling the
@@ -1024,13 +975,6 @@ class ShardedTreeXHybridSearcher(Searcher):
         self._dequant = _dequant_arrays(layout.get("dequant"))
         self._l_cap = int(layout["l_cap"])
         codes_sh = np.asarray(layout["codes"], np.uint8)
-        s = codes_sh.shape[2]
-        if self._packed:
-            # low-nibble-first pairs over 2*align_up(ceil(S/2), 8) columns:
-            # the single-device searcher's packed slab
-            width = 2 * int(align_up((s + 1) // 2, 8))
-        else:
-            width = int(align_up(s, 32))
         devs = self.mesh.axis_devices("db")
         local = self.mesh.axis_local("db")
         cent = searcher.partitioner.centers.float()
@@ -1044,12 +988,9 @@ class ShardedTreeXHybridSearcher(Searcher):
                     lst.append(None)
                 continue
             dev = devs[i]
-            c = np.zeros((codes_sh.shape[1], width), np.uint8)
-            c[:, :s] = codes_sh[i]
-            if self._packed:
-                c = c[:, 0::2] | (c[:, 1::2] << 4)
-            self._codes.append(torch.from_numpy(
-                np.ascontiguousarray(c.T)).to(dev))
+            # the single-device searcher's slab, packed for #1
+            self._codes.append(serving_slab(
+                torch.from_numpy(codes_sh[i]), self._packed).to(dev))
             self._perm.append(torch.from_numpy(
                 np.asarray(layout["perm"][i], np.int64)).to(dev))
             self._sizes.append(torch.from_numpy(
@@ -1108,52 +1049,28 @@ class ShardedTreeXHybridSearcher(Searcher):
         """(ids [B, k] int64, distances [B, k] float32) on the mesh's home
         device, -1 / inf where missing; ``allow_mask`` ([N] bool, host)
         restricts the results."""
-        from scann_tpu_torch.hashes.hasher import _normalize
-
         cfg = self._inner.config
-        q = queries.to(self.mesh.home()).float()
-        if cfg.distance_measure == DistanceMeasure.COSINE:
-            # the inner searcher normalized its rows at build: L2 selection
-            # and residual tables then rank as cosine
-            q = _normalize(q)
-        n = self.dataset_size()
-        k = min(int(k), n)
-        if k <= 0:
-            raise ScannError.invalid_argument("k must be positive")
-        p = cfg.partitions_to_search
-        if params is not None and params.num_leaves_to_search is not None:
-            p = params.num_leaves_to_search
-        p = min(int(p), self._inner.partitioner.num_partitions)
-        pre_k = int(np.ceil(k * cfg.pre_reorder_multiplier))
-        if params is not None and \
-                params.pre_reordering_num_neighbors is not None:
-            pre_k = int(params.pre_reordering_num_neighbors)
-        pre_eps, post_eps = epsilons(params)
-        mult = self._inner.partitioner.tokenization.max_multiplicity
+        req = self._inner.plan_request(queries, k, params, allow_mask,
+                                       device=self.mesh.home(),
+                                       l_cap=self._l_cap)
         # no pre_k inflation: the body over-selects by the multiplicity and
         # dedups before the gather (unless spill_dedup is off)
-        pre_k = min(max(pre_k, k), p * self._l_cap)
-        q_cap = self._inner.effective_q_cap(q.shape[0], p)
-        dedup = bool(getattr(cfg, "spill_dedup", True))
-        key = (p, pre_k, k, q_cap, dedup)
+        key = (req.p, req.pre_k, req.k, req.q_cap, cfg.spill_dedup)
         if key not in self._kernels:
             self._kernels[key] = sharded_tree_ah_kernel(
-                self.mesh, p=p, pre_k=pre_k, k=k, l_cap=self._l_cap,
-                use_residuals=cfg.use_residuals, measure=cfg.distance_measure,
-                multiplicity=mult, use_grouped=self._use_grouped,
-                q_cap=q_cap, l_tile=cfg.score_l_tile, packed=self._packed,
-                spill_dedup=dedup)
-        allow = None
-        if allow_mask is not None:
-            m = np.zeros(n, dtype=bool)
-            a = np.asarray(allow_mask, dtype=bool).reshape(-1)[:n]
-            m[:len(a)] = a
-            allow = replicate(self.mesh, m)
+                self.mesh, p=req.p, pre_k=req.pre_k, k=req.k,
+                l_cap=self._l_cap, use_residuals=cfg.use_residuals,
+                measure=cfg.distance_measure, multiplicity=req.multiplicity,
+                use_grouped=self._use_grouped, q_cap=req.q_cap,
+                l_tile=cfg.score_l_tile, packed=self._packed,
+                spill_dedup=cfg.spill_dedup)
+        allow = None if req.allow is None else replicate(self.mesh, req.allow)
         dists, idx = self._kernels[key](
             self._cent, self._cb, self._codes, self._offs, self._sizes,
-            self._perm, self._db, q, allow, pre_eps, post_eps)
+            self._perm, self._db, req.queries, allow, req.pre_eps,
+            req.post_eps)
         # per-shard candidate ceilings can merge fewer than k columns
-        return pad_results_to_k(idx, dists, k)
+        return pad_results_to_k(idx, dists, req.k)
 
     def search_batched_arrays(self, queries: np.ndarray, k: int,
                               params: Optional[SearchParameters] = None,

@@ -345,6 +345,28 @@ def gather_rerank_rows(db_repr, idx: torch.Tensor) -> torch.Tensor:
     return rows if rows.dtype == torch.float32 else rows.float()
 
 
+def gather_candidates(store_repr, rows: Optional[torch.Tensor],
+                      ids: Optional[torch.Tensor], *, order: str = "id",
+                      slot_centers: Optional[Callable[[], torch.Tensor]] = None
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(float32 rows [B, C, D], ids [B, C]) of candidates, gathered as the
+    store is indexed: by point id (``order="id"``, any representation; -1
+    reads row 0), by CSR row from a store in the caller's CSR order
+    (``"row"``, a shard's), or by CSR row from an id-embedded store
+    (``"csr"``), whose digit lanes give the ids and whose anchored form adds
+    back ``slot_centers()``, each candidate's partition centroid."""
+    if order == "id":
+        return gather_rerank_rows(store_repr, ids.clamp_min(0)), ids
+    if order == "row":
+        return gather_rerank_rows(store_repr, rows), ids
+    if order != "csr":
+        raise ValueError(f"unknown store order {order!r}")
+    anchored = isinstance(store_repr, tuple)
+    width = (store_repr[0] if anchored else store_repr).shape[-1]
+    out, ids = gather_csr_rerank_rows(store_repr, rows, width - ID_LANES)
+    return (out + slot_centers() if anchored else out), ids
+
+
 def rerank_store_rows(db_repr) -> int:
     """Row count (padded) of a re-rank store of any representation."""
     return (db_repr[0] if isinstance(db_repr, tuple) else db_repr).shape[0]

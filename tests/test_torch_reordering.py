@@ -175,3 +175,50 @@ def test_gather_rows_of_every_store_match_jax():
     np.testing.assert_array_equal(
         pr.gather_rerank_rows(plain, torch.from_numpy(idx)).numpy(), x[idx])
     assert pr.rerank_store_bytes(plain) == x.nbytes
+
+
+@pytest.mark.parametrize("form", [
+    "id-float32", "id-bfloat16", "id-int8", "id-anchored", "row",
+    "csr", "csr-anchored"])
+def test_gather_candidates_takes_each_store_forms_gather(form):
+    """The one gather of the exact re-rank returns what each store form's
+    own gather returns: by point id from an id-order store (float32, bf16,
+    int8, anchored), by CSR row from a store in local CSR order (a shard's),
+    by CSR row from the id-embedded store with its ids decoded and, when
+    anchored, each slot's partition centroid added back."""
+    x, tokens, centers = _data(6)
+    rng = np.random.default_rng(6)
+    extra = np.stack([np.arange(len(x)), (tokens + 1) % len(centers)], 1)
+    perm, parts = _csr_layout(tokens, extra, len(centers))
+    rows = torch.from_numpy(rng.integers(0, len(perm), size=(3, 20)))
+    ids = torch.from_numpy(perm.astype(np.int64))[rows]
+    ids[0, :3] = -1                     # a dedup's fill: missing slots
+    slot = torch.from_numpy(centers[parts])[rows]
+    kind, _, dtype = form.partition("-")
+    if kind == "id":
+        if dtype == "float32":
+            store = torch.from_numpy(x)
+        elif dtype == "anchored":
+            store, _ = pr.build_residual_rerank_store(x, len(x), tokens,
+                                                      centers, 8, "cpu")
+        else:
+            store, _ = pr.build_rerank_store(x, len(x), dtype, 8, "cpu")
+        want = pr.gather_rerank_rows(store, ids.clamp_min(0)), ids
+    elif kind == "row":
+        store = torch.from_numpy(x[perm])
+        want = pr.gather_rerank_rows(store, rows), ids
+        np.testing.assert_array_equal(want[0].numpy(), x[perm][rows.numpy()])
+    else:
+        kw = dict(row_parts=parts, tokens=tokens, centers=centers) \
+            if dtype else {}
+        store = pr.build_csr_rerank_store(x, perm, "int8" if dtype
+                                          else "float32", "cpu", **kw)
+        w_rows, w_ids = pr.gather_csr_rerank_rows(store, rows, x.shape[1])
+        want = (w_rows + slot if dtype else w_rows), w_ids
+        np.testing.assert_array_equal(w_ids.numpy(), perm[rows.numpy()])
+        ids = None                      # the store's lanes hold them
+    got = pr.gather_candidates(store, rows, ids, order=kind,
+                               slot_centers=lambda: slot)
+    assert got[0].dtype == torch.float32
+    np.testing.assert_array_equal(got[0].numpy(), want[0].numpy())
+    np.testing.assert_array_equal(got[1].numpy(), want[1].numpy())

@@ -200,6 +200,30 @@ def test_per_pair_path_spans(facade, data, reorder):
     assert torch.equal(plain[1], traced[1])
 
 
+def test_sharded_search_runs_the_stages_once_a_shard(facade, data):
+    """On a CPU mesh of two shards the sharded searcher runs the
+    single-device stages: partitions and tables once for the one device,
+    then each shard's scoring, ``tree_ah.preselect`` and ``tree_ah.rerank``
+    over its own slab, with the results unchanged under the profiler."""
+    from scann_tpu_torch.parallel import (
+        ShardedTreeXHybridSearcher,
+        make_mesh,
+    )
+
+    sh = ShardedTreeXHybridSearcher(
+        facade.impl, make_mesh(devices=[torch.device("cpu")] * 2))
+    plain = sh.search_batched_tensors(data[1], K)
+    traced, spans = _spans(lambda: sh.search_batched_tensors(data[1], K))
+    names = [n for n, *_ in spans]
+    assert names == STAGES[:2] + STAGES[2:] * 2
+    assert names.count("tree_ah.preselect") == 2
+    assert names.count("tree_ah.rerank") == 2
+    for a, b in zip(spans, spans[1:]):
+        assert a[2] <= b[1]
+    assert torch.equal(plain[0], traced[0])
+    assert torch.equal(plain[1], traced[1])
+
+
 def test_span_names_are_the_benchmark_readers():
     stages = _stages_module()
     assert stages.DISPATCH_SPAN == "scann.search"
